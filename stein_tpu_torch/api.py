@@ -1,0 +1,591 @@
+"""Public SVGD sampler API, in PyTorch.
+
+Counterpart of ``stein_tpu/api.py`` for one device (a CPU, or a CUDA card
+through the hand-written kernels of ``csrc/``). The step is the same as the
+JAX package's: per-particle gradients by ``torch.func`` (vmap of
+grad_and_value), the median bandwidth, the RBF kernel and SVGD direction,
+the global norm clip and the optimizer update. JAX's ``run`` is one
+``lax.scan`` dispatch; here it is a Python loop that keeps every carried
+scalar (median, h^2, clip norm, Adam's count and learning rate) on the
+device and never reads one on the host.
+
+Ported: the reference path (``step_impl='xla'``, ``median`` in
+{'exact', 'bisect'}, the warm median, ``median_impl`` in {'xla', 'fused'})
+and the ``step_impl='fused_gram'`` tail. Every other option raises
+``NotImplementedError`` naming the ROADMAP.md item that will port it.
+"""
+
+import warnings
+from typing import Any, NamedTuple
+
+import torch
+from torch.func import grad_and_value, vmap
+
+from .ops import rbf
+from .ops.fused_median import fused_block_ok, fused_warm_median_rows
+from .ops.fused_step import (
+    FUSED_STEP_VMEM_BUDGET,
+    fused_step_fits,
+    fused_step_vmem_bytes,
+    fused_warm_step_tail,
+)
+from .ops.median import (
+    _strided_rows,
+    _warm_search,
+    bisect_median,
+    bisect_median_on_D,
+    exact_median,
+    row_subsample_block,
+    subsample_rows,
+)
+from .utils.ravel import (
+    init_particles,
+    ravel_particles,
+    template_unraveler,
+    unravel_particles,
+)
+
+# Single-device median='exact' footprint above which the constructor warns
+# (2^27 B = 128 MB -> n > 5792 in f32), as in the JAX package.
+EXACT_MEDIAN_WARN_BYTES = 2 ** 27
+
+_FUSED_STEP_IMPLS = ("fused", "fused_gram", "fused_glm", "fused_model")
+_STEP_IMPLS = ("xla", "epilogue") + _FUSED_STEP_IMPLS
+# step_impl / option -> the ROADMAP.md queue A item that ports it.
+_UNPORTED_STEP_IMPLS = {"fused": "A7", "epilogue": "A7", "fused_glm": "A8",
+                        "fused_model": "A8", "fused_shard": "A12"}
+
+
+def _unported(what, item):
+    return NotImplementedError(
+        f"{what} is not ported to stein_tpu_torch yet; see ROADMAP.md "
+        f"queue A, item {item}"
+    )
+
+
+class SVGDState(NamedTuple):
+    """Complete mutable state of the sampler."""
+
+    particles: torch.Tensor  # [n_particles, n_params]
+    opt_state: Any           # optimizer state (ops/optimizers.py)
+    step: torch.Tensor       # 0-d int32
+
+
+def _make_grad_all(log_p, unravel_fn):
+    """vmap(grad_and_value) over flat particle rows; returns
+    grad_all(theta, batch) -> (log_p values [n], grads [n, p])."""
+    def log_p_flat(theta_row, batch):
+        return log_p(unravel_fn(theta_row), batch)
+
+    both = vmap(grad_and_value(log_p_flat), in_dims=(0, None))
+
+    def grad_all(theta, batch):
+        grads, values = both(theta, batch)
+        return values, grads
+
+    return grad_all
+
+
+def _clip(phi, norm, max_phi_norm):
+    """Global norm clip phi *= c / max(c, ||phi||_F)
+    (abstract_stein_sampler.py:125)."""
+    return phi * (max_phi_norm / torch.clamp(norm, min=max_phi_norm))
+
+
+def make_phi_fn(n_particles, median="exact", kernel_impl="xla",
+                median_max_rows=512, median_passes=30, median_impl="xla"):
+    """Build phi_fn(theta, grads) -> (phi, aux) on the plain path.
+    ``median_impl='fused'`` runs the cold bisect search as kernel B2 where
+    the block is in its envelope (ops.fused_median.fused_block_ok)."""
+    if median_impl not in ("xla", "fused", "fused_gram"):
+        raise ValueError(f"unknown median_impl: {median_impl!r}")
+    if median_impl == "fused_gram":
+        raise _unported("median_impl='fused_gram'", "A7")
+    if kernel_impl == "pallas":
+        raise _unported("kernel_impl='pallas'", "A7")
+    if kernel_impl != "xla":
+        raise ValueError(f"unknown kernel_impl: {kernel_impl!r}")
+
+    if median == "exact":
+        return lambda theta, grads: rbf.svgd_phi(
+            theta, grads, median_fn=exact_median
+        )
+    if median in ("subsample", "binned"):
+        raise _unported(f"median={median!r}", "A2")
+    if median != "bisect":
+        raise ValueError(f"unknown median mode: {median!r}")
+
+    def bisect_on_D(D):
+        Ds = _strided_rows(D, median_max_rows)
+        if median_impl == "fused" and fused_block_ok(*Ds.shape):
+            return fused_warm_median_rows(Ds, 0.0, warm_passes=median_passes)
+        return bisect_median_on_D(D, max_rows=median_max_rows,
+                                  passes=median_passes)
+
+    return lambda theta, grads: rbf.svgd_phi(theta, grads,
+                                             median_fn=bisect_on_D)
+
+
+def _init_med_fn(median_max_rows, median_passes, fused):
+    """The cold seed of the warm-median carry: kernel B2 with no hint on
+    the strided block where it applies, else the plain cold bisect."""
+    def init_med(theta):
+        if fused:
+            D_sub = row_subsample_block(theta, median_max_rows)
+            if fused_block_ok(*D_sub.shape):
+                return fused_warm_median_rows(
+                    D_sub, 0.0, warm_passes=median_passes
+                )
+        return bisect_median(theta, max_rows=median_max_rows,
+                             passes=median_passes)
+    return init_med
+
+
+def make_warm_phi_fn(n_particles, kernel_impl="xla", median_max_rows=512,
+                     median_passes=30, warm_passes=8, median_impl="xla"):
+    """phi_fn(theta, grads, med_prev) -> (phi, aux) threading the previous
+    step's median; aux['median'] is the next step's hint. Carries
+    ``init_med(theta)`` for the cold seed."""
+    if kernel_impl != "xla":
+        raise _unported(f"kernel_impl={kernel_impl!r}", "A7")
+    if median_impl not in ("xla", "fused"):
+        raise _unported(f"median_impl={median_impl!r}", "A7")
+    fused = median_impl == "fused"
+
+    def warm_med_on_block(D_sub, med_prev):
+        if fused and fused_block_ok(*D_sub.shape):
+            return fused_warm_median_rows(D_sub, med_prev,
+                                          warm_passes=warm_passes)
+        return _warm_search(D_sub, med_prev, warm_passes)
+
+    def phi_fn(theta, grads, med_prev):
+        return rbf.svgd_phi(
+            theta, grads,
+            median_fn=lambda D: warm_med_on_block(
+                _strided_rows(D, median_max_rows), med_prev),
+        )
+
+    phi_fn.init_med = _init_med_fn(median_max_rows, median_passes, fused)
+    return phi_fn
+
+
+def make_step_fn(log_p, unravel_fn, gd, phi_fn, max_phi_norm=10.0):
+    """The SVGD step: (state, batch) -> (state, aux)."""
+    grad_all = _make_grad_all(log_p, unravel_fn)
+
+    def step_fn(state, batch):
+        theta = state.particles
+        log_p_vals, grads = grad_all(theta, batch)
+        phi, kaux = phi_fn(theta, grads)
+        norm = torch.sqrt(torch.sum(phi * phi))
+        delta, opt_state = gd.update(state.opt_state,
+                                     _clip(phi, norm, max_phi_norm))
+        new_state = SVGDState(theta + delta, opt_state, state.step + 1)
+        return new_state, {"phi_norm": norm,
+                           "log_p_mean": torch.mean(log_p_vals), **kaux}
+
+    return step_fn
+
+
+def make_warm_step_fn(log_p, unravel_fn, gd, warm_phi_fn,
+                      max_phi_norm=10.0):
+    """Warm-median step; the carry is (SVGDState, med_prev)."""
+    grad_all = _make_grad_all(log_p, unravel_fn)
+
+    def step_fn(carry, batch):
+        state, med_prev = carry
+        theta = state.particles
+        log_p_vals, grads = grad_all(theta, batch)
+        phi, kaux = warm_phi_fn(theta, grads, med_prev)
+        norm = torch.sqrt(torch.sum(phi * phi))
+        delta, opt_state = gd.update(state.opt_state,
+                                     _clip(phi, norm, max_phi_norm))
+        new_state = SVGDState(theta + delta, opt_state, state.step + 1)
+        aux = {"phi_norm": norm, "log_p_mean": torch.mean(log_p_vals),
+               **kaux}
+        return (new_state, kaux["median"]), aux
+
+    return step_fn
+
+
+def make_fused_warm_step_fn(log_p, unravel_fn, gd, max_phi_norm=10.0,
+                            median_max_rows=512, median_passes=30,
+                            warm_passes=8):
+    """Warm step whose post-gradient tail is kernel B1
+    (ops.fused_step.fused_warm_step_tail, step_impl='fused_gram'; the JAX
+    builder's gram_in_kernel=True branch). Returns (step_fn, init_med) with
+    make_warm_step_fn's carry."""
+    grad_all = _make_grad_all(log_p, unravel_fn)
+
+    def step_fn(carry, batch):
+        state, med_prev = carry
+        theta = state.particles
+        log_p_vals, grads = grad_all(theta, batch)
+        new_theta, new_opt, (med, norm, h2) = fused_warm_step_tail(
+            theta, grads, None, None, med_prev, state.opt_state, gd,
+            max_phi_norm=max_phi_norm, warm_passes=warm_passes,
+            gram_in_kernel=True,
+            theta_sub=subsample_rows(theta, median_max_rows),
+        )
+        new_state = SVGDState(new_theta, new_opt, state.step + 1)
+        aux = {"phi_norm": norm, "log_p_mean": torch.mean(log_p_vals),
+               "h2": h2, "median": med}
+        return (new_state, med), aux
+
+    return step_fn, _init_med_fn(median_max_rows, median_passes, True)
+
+
+def throughput_config(n_particles, n_params, mesh=None, dtype=torch.float32,
+                      model=None):
+    """The JAX package's single-device option table (stein_tpu/api.py
+    throughput_config, mesh=None and model=None), unchanged, as a kwargs
+    dict for SVGDSampler:
+
+        sampler = SVGDSampler(n, log_p, template, gd, **throughput_config(n, p))
+
+    Small f32 problems get step_impl='fused_gram' (kernel B1) with the
+    fused cold seed (kernel B2). The dict can name options the port does
+    not run yet (the large-n streaming tile); the sampler then raises
+    NotImplementedError."""
+    if mesh is not None:
+        raise _unported("throughput_config(mesh=...)", "A12")
+    if model is not None:
+        raise _unported("throughput_config(model=...)", "A8")
+    f32 = dtype == torch.float32
+    cfg = dict(median="bisect", warm_median=True, dtype=dtype)
+    large = n_particles >= 4096
+    if large:
+        cfg.update(median_max_rows=128)
+    if not f32:
+        return cfg
+    if fused_step_fits(n_particles, n_params,
+                       min(cfg.get("median_max_rows", 512), 256)):
+        cfg.update(step_impl="fused_gram", median_impl="fused",
+                   median_max_rows=256)
+        return cfg
+    cfg["median_impl"] = "fused"
+    if large:
+        cfg.update(kernel_impl="pallas", pallas_block=1024)
+    elif n_params >= 256:
+        cfg.update(kernel_impl="pallas", pallas_block=512,
+                   median_impl="fused_gram", median_max_rows=128)
+    return cfg
+
+
+def _resolve_device(device):
+    device = torch.device("cpu" if device is None else device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"SVGDSampler(device={str(device)!r}): no CUDA device is "
+                "available to this process"
+            )
+        if device.index is None:
+            # Tensors report their card's index; compare like with like.
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _check_options(n_params, dtype, median, kernel_impl, median_max_rows,
+                   n_particles, kernel, warm_median, median_impl, step_impl,
+                   custom_grads, remat):
+    """The JAX sampler's ValueError guards, in its order, then the
+    NotImplementedError of every option the port does not run yet."""
+    f32 = dtype == torch.float32
+    if median_impl not in ("xla", "fused", "fused_gram"):
+        raise ValueError(f"unknown median_impl: {median_impl!r}")
+    if median_impl != "xla" and median != "bisect":
+        raise ValueError(
+            f"median_impl={median_impl!r} is the single-kernel bisect "
+            "search; it requires median='bisect'"
+        )
+    if median_impl != "xla" and not f32:
+        raise ValueError(f"median_impl={median_impl!r} is f32-only")
+    if median_impl == "fused_gram" and kernel_impl != "pallas":
+        raise ValueError(
+            "median_impl='fused_gram' requires kernel_impl='pallas'; with "
+            "kernel_impl='xla' use median_impl='fused'"
+        )
+    if step_impl not in _STEP_IMPLS + ("fused_shard",):
+        raise ValueError(f"unknown step_impl: {step_impl!r}")
+    if step_impl == "fused_shard":
+        raise ValueError(
+            "step_impl='fused_shard' is the mesh tail; it requires mesh="
+        )
+    if step_impl == "epilogue":
+        if not warm_median:
+            raise ValueError("step_impl='epilogue' fuses the warm-median "
+                             "scan path; set warm_median=True")
+        if kernel is not None or kernel_impl != "pallas":
+            raise ValueError("step_impl='epilogue' requires "
+                             "kernel_impl='pallas' and the default RBF "
+                             "kernel")
+        if not f32:
+            raise ValueError("step_impl='epilogue' is f32-only")
+    if step_impl in _FUSED_STEP_IMPLS:
+        if not warm_median:
+            raise ValueError(
+                f"step_impl={step_impl!r} fuses the warm-median scan path; "
+                "set warm_median=True"
+            )
+        if kernel is not None or kernel_impl != "xla":
+            raise ValueError(
+                f"step_impl={step_impl!r} requires the default RBF kernel "
+                "and kernel_impl='xla' (the tail replaces both)"
+            )
+        if not f32:
+            raise ValueError(f"step_impl={step_impl!r} is f32-only")
+        if not fused_step_fits(n_particles, n_params, median_max_rows):
+            vb = fused_step_vmem_bytes(n_particles, n_params,
+                                       min(median_max_rows, n_particles))
+            raise ValueError(
+                f"step_impl={step_impl!r}: ~{vb / 2**20:.0f} MiB by the "
+                "JAX package's fused-tail estimate, above its "
+                f"~{FUSED_STEP_VMEM_BUDGET / 2**20:.0f} MiB gate; use the "
+                "unfused path"
+            )
+    if warm_median and (median != "bisect" or kernel is not None):
+        raise ValueError("warm_median=True requires median='bisect' and "
+                         "the default RBF kernel")
+    if custom_grads is not None and step_impl != "xla":
+        raise ValueError(
+            f"custom_grads= replaces the autodiff gradient stage, which "
+            f"step_impl={step_impl!r} does not use; use step_impl='xla'"
+        )
+
+    if kernel_impl == "pallas":
+        raise _unported("kernel_impl='pallas'", "A7")
+    if kernel_impl != "xla":
+        raise ValueError(f"unknown kernel_impl: {kernel_impl!r}")
+    if step_impl in _UNPORTED_STEP_IMPLS:
+        raise _unported(f"step_impl={step_impl!r}",
+                        _UNPORTED_STEP_IMPLS[step_impl])
+    if median_impl == "fused_gram":
+        raise _unported("median_impl='fused_gram'", "A7")
+    if median in ("subsample", "binned"):
+        raise _unported(f"median={median!r}", "A2")
+    if median not in ("exact", "bisect"):
+        raise ValueError(f"unknown median mode: {median!r}")
+    if custom_grads is not None:
+        raise _unported("custom_grads=", "A8")
+    if kernel is not None:
+        raise _unported("kernel=", "A9")
+    if remat:
+        raise _unported("remat=True", "A3")
+
+
+class SVGDSampler:
+    """Stein variational gradient descent on one device.
+
+    Parameters follow ``stein_tpu.SVGDSampler``; the differences:
+
+    generator : ``torch.Generator`` for the particle init (JAX's ``key``;
+        ignored when ``theta`` is given). Defaults to one seeded with 0.
+    theta : optional initial particles, an [n, p] array or tensor, or a
+        structure of [n, *shape] leaves matching ``param_template``.
+    dtype : a torch dtype (float32 default).
+    device : where the particles, the optimizer state and every carried
+        scalar live ("cpu" default; "cuda" runs the hand-written kernels
+        and raises when no card is present). Batches must already lie on
+        this device.
+
+    Options the port does not run yet raise NotImplementedError (see
+    ``_check_options``); options the JAX sampler refuses raise the same
+    ValueError.
+    """
+
+    def __init__(self, n_particles, log_p, param_template, gd,
+                 generator=None, theta=None, dtype=torch.float32,
+                 device=None, median="exact", kernel_impl="xla",
+                 median_max_rows=512, max_phi_norm=10.0, mesh=None,
+                 pallas_block=None, remat=False, kernel=None,
+                 median_passes=30, warm_median=False, warm_passes=8,
+                 median_impl="xla", step_impl="xla", custom_grads=None):
+        self.n_particles = int(n_particles)
+        if self.n_particles < 2:
+            raise ValueError(
+                "SVGD needs n_particles >= 2 (the median-heuristic bandwidth "
+                "h^2 = median(D)/log(n) is undefined for n=1)"
+            )
+        self.device = _resolve_device(device)
+        if mesh is not None:
+            raise _unported("mesh=", "A12")
+        self.log_p = log_p
+        self.gd = gd
+        self.dtype = dtype
+        self.n_params, self.unravel_fn = template_unraveler(param_template)
+        _check_options(self.n_params, dtype, median, kernel_impl,
+                       median_max_rows, self.n_particles, kernel,
+                       warm_median, median_impl, step_impl, custom_grads,
+                       remat)
+        del pallas_block  # read only by kernel_impl='pallas' (not ported)
+
+        if theta is not None:
+            if isinstance(theta, (dict, list, tuple)):
+                theta = ravel_particles(theta)
+            # A copy: the caller's array may be shared across samplers.
+            theta0 = torch.as_tensor(theta).to(device=self.device,
+                                               dtype=dtype).clone()
+            if tuple(theta0.shape) != (self.n_particles, self.n_params):
+                raise ValueError(
+                    f"theta shape {tuple(theta0.shape)} != "
+                    f"{(self.n_particles, self.n_params)}"
+                )
+        else:
+            if generator is None:
+                generator = torch.Generator(self.device).manual_seed(0)
+            theta0 = init_particles(generator, self.n_particles,
+                                    self.n_params, dtype, device=self.device)
+
+        self.state = SVGDState(
+            theta0, gd.init(tuple(theta0.shape), dtype, self.device),
+            torch.zeros((), dtype=torch.int32, device=self.device),
+        )
+
+        if median == "exact":
+            d_bytes = self.n_particles ** 2 * theta0.element_size()
+            if d_bytes > EXACT_MEDIAN_WARN_BYTES:
+                warnings.warn(
+                    f"median='exact' sorts the full [{self.n_particles}, "
+                    f"{self.n_particles}] distance matrix every step "
+                    f"({d_bytes / 2**20:.0f} MB). Use median='bisect' or "
+                    "splat stein_tpu_torch.throughput_config(n, p).",
+                    stacklevel=2,
+                )
+        self._step_fn = make_step_fn(
+            log_p, self.unravel_fn, gd,
+            make_phi_fn(self.n_particles, median=median,
+                        kernel_impl=kernel_impl,
+                        median_max_rows=median_max_rows,
+                        median_passes=median_passes,
+                        median_impl=median_impl),
+            max_phi_norm=max_phi_norm,
+        )
+        self._warm_step_fn = None
+        if warm_median:
+            if step_impl == "fused_gram":
+                self._warm_step_fn, self._warm_init_med = \
+                    make_fused_warm_step_fn(
+                        log_p, self.unravel_fn, gd,
+                        max_phi_norm=max_phi_norm,
+                        median_max_rows=median_max_rows,
+                        median_passes=median_passes,
+                        warm_passes=warm_passes,
+                    )
+            else:
+                warm_phi = make_warm_phi_fn(
+                    self.n_particles, kernel_impl=kernel_impl,
+                    median_max_rows=median_max_rows,
+                    median_passes=median_passes, warm_passes=warm_passes,
+                    median_impl=median_impl,
+                )
+                self._warm_step_fn = make_warm_step_fn(
+                    log_p, self.unravel_fn, gd, warm_phi,
+                    max_phi_norm=max_phi_norm,
+                )
+                self._warm_init_med = warm_phi.init_med
+
+    # ------------------------------------------------------------------ API
+
+    def _check_batch(self, batch):
+        for leaf in _tensor_leaves(batch):
+            if leaf.device != self.device:
+                raise ValueError(
+                    f"batch tensor on {leaf.device}, sampler on "
+                    f"{self.device}: move the batch to the sampler's device"
+                )
+
+    def train_on_batch(self, batch):
+        """One SVGD step on a batch (dict of tensors). Returns aux
+        diagnostics as 0-d device tensors: phi_norm (pre-clip),
+        log_p_mean, h2, median."""
+        self._check_batch(batch)
+        self.state, aux = self._step_fn(self.state, batch)
+        return aux
+
+    def run(self, batch, n_steps):
+        """``n_steps`` full-batch SVGD steps. Returns aux with a leading
+        [n_steps] axis. The loop issues device work only: no scalar is read
+        on the host until the caller reads the result."""
+        n_steps = int(n_steps)
+        if n_steps < 1:
+            raise ValueError(f"run needs n_steps >= 1 (got {n_steps})")
+        self._check_batch(batch)
+        auxes = []
+        if self._warm_step_fn is not None:
+            med = self._warm_init_med(self.state.particles).to(self.dtype)
+            carry = (self.state, med)
+            for _ in range(n_steps):
+                carry, aux = self._warm_step_fn(carry, batch)
+                auxes.append(aux)
+            self.state = carry[0]
+        else:
+            for _ in range(n_steps):
+                self.state, aux = self._step_fn(self.state, batch)
+                auxes.append(aux)
+        return {k: torch.stack([a[k] for a in auxes]) for k in auxes[0]}
+
+    def load_state(self, state):
+        """Replace the sampler state (e.g. from
+        utils.convert.state_from_numpy), checking its shapes and device."""
+        shape = (self.n_particles, self.n_params)
+        if tuple(state.particles.shape) != shape:
+            raise ValueError(f"state particles {tuple(state.particles.shape)}"
+                             f" != {shape}")
+        ref = self.state.opt_state
+        if type(state.opt_state) is not type(ref):
+            raise ValueError(
+                f"optimizer state {type(state.opt_state).__name__} does not "
+                f"match the sampler's {type(ref).__name__}"
+            )
+        for new, old in zip((state.particles, state.step, *state.opt_state),
+                            (self.state.particles, self.state.step, *ref)):
+            if (new.device != self.device or new.dtype != old.dtype
+                    or new.shape != old.shape):
+                raise ValueError(
+                    f"state leaf {tuple(new.shape)} {new.dtype} on "
+                    f"{new.device} != {tuple(old.shape)} {old.dtype} on "
+                    f"{self.device}"
+                )
+        self.state = state
+
+    @property
+    def samples(self):
+        """[n_particles, n_params] particle matrix as a host numpy array
+        (reference: stein_sampler.py:73-78)."""
+        return self.state.particles.detach().cpu().numpy()
+
+    @property
+    def theta(self):
+        """Particles as a structure of [n_particles, *shape] leaves."""
+        return unravel_particles(self.state.particles, self.unravel_fn)
+
+    def train_on_batches(self, batches):
+        raise _unported("SVGDSampler.train_on_batches", "A3")
+
+    def train_minibatched(self, data, n_steps, n_batch, key):
+        raise _unported("SVGDSampler.train_minibatched", "A3")
+
+    def function_posterior(self, func, batch, axis=None):
+        raise _unported("SVGDSampler.function_posterior", "A3")
+
+    def ksd(self, batch, u_statistic=False):
+        raise _unported("SVGDSampler.ksd", "A9")
+
+    def save(self, path):
+        raise _unported("SVGDSampler.save", "A10")
+
+    def restore(self, path):
+        raise _unported("SVGDSampler.restore", "A10")
+
+
+def _tensor_leaves(tree):
+    if isinstance(tree, dict):
+        return [l for v in tree.values() for l in _tensor_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [l for v in tree for l in _tensor_leaves(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+# Reference-compatible alias (stein/samplers/__init__.py:1).
+SteinSampler = SVGDSampler

@@ -1,0 +1,256 @@
+// The warm-bracket median search over an [m, n] f32 block in device memory,
+// spread over every block of a cooperative grid. Shared by both kernels
+// that search: the cold seed (replaces stein_tpu/ops/pallas_median.py:
+// _warm_kernel) and the median stage of the fused step tail
+// (stein_tpu/ops/pallas_step.py:_tail_kernel's warm_search_on_value).
+//
+// Contract: bitwise the value of stein_tpu/ops/median.py:_warm_search on
+// the same block. Counts are integers (order-free sums, also across
+// blocks), min/max are order-free, and the scalar interval arithmetic is the
+// JAX expression tree written with __fmul_rn/__fadd_rn/__fsub_rn, so nvcc
+// cannot contract lo + b*w into an FMA (which rounds once where XLA rounds
+// twice). Every block reduces the same per-block partials with the same
+// code, so every block holds the same interval without a second barrier.
+//
+// Bound on the H100: 1 + rounds sweeps of the block (1 MB at m=256, n=1000,
+// resident in the 50 MB L2), each a few loads per thread across the whole
+// grid, then one grid barrier; the barriers and the dependent scalar chain
+// between them, not bandwidth, set the time.
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cstdint>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace stein {
+
+namespace cg = cooperative_groups;
+
+constexpr int kMaxBrackets = 8;
+constexpr int kMaxCounts = 2 * kMaxBrackets;
+
+struct Brackets {
+  int count;
+  float lo[kMaxBrackets];
+  float hi[kMaxBrackets];
+};
+
+__device__ __forceinline__ int warp_sum_int(int v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+struct SweepShared {
+  int warp_counts[32][kMaxCounts];
+  float warp_min[32];
+  float warp_max[32];
+  int counts[kMaxCounts];
+  float lo_full, hi_full;
+  float thresholds[kMaxCounts];
+};
+
+// Per-sweep partials in device memory, one slot per block.
+struct SweepScratch {
+  int* counts;    // [sweeps][gridDim.x][kMaxCounts]
+  float* range;   // [gridDim.x][2]
+};
+
+template <int NC>
+__device__ __forceinline__ void count_one(float d, const float (&t)[NC],
+                                          int nc, int (&c)[NC]) {
+#pragma unroll
+  for (int i = 0; i < NC; ++i)
+    if (i < nc) c[i] += (d <= t[i]) ? 1 : 0;
+}
+
+// One sweep over this block's grid-stride share of D: |{D <= t_i}| for the
+// nc thresholds in sh.thresholds and (with RANGE) min/max, reduced over the
+// block and stored in this block's slot of `slot` / scratch.range. D may
+// have been written earlier in the same launch, so it is read through L2
+// (__ldcg), never through the read-only cache.
+template <int NC, bool RANGE>
+__device__ void sweep_block(const float* D, int total, int nc,
+                            SweepShared& sh, int* slot, float* range) {
+  float t[NC];
+  int c[NC];
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    t[i] = i < nc ? sh.thresholds[i] : 0.0f;
+    c[i] = 0;
+  }
+  float mn = CUDART_INF_F, mx = -CUDART_INF_F;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
+  int start = 0;
+  if ((reinterpret_cast<uintptr_t>(D) & 15) == 0) {
+    const float4* D4 = reinterpret_cast<const float4*>(D);
+    const int n4 = total / 4;
+    for (int e = tid; e < n4; e += stride) {
+      const float4 v = __ldcg(D4 + e);
+      count_one<NC>(v.x, t, nc, c);
+      count_one<NC>(v.y, t, nc, c);
+      count_one<NC>(v.z, t, nc, c);
+      count_one<NC>(v.w, t, nc, c);
+      if (RANGE) {
+        mn = fminf(mn, fminf(fminf(v.x, v.y), fminf(v.z, v.w)));
+        mx = fmaxf(mx, fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w)));
+      }
+    }
+    start = 4 * n4;
+  }
+  for (int e = start + tid; e < total; e += stride) {
+    const float d = __ldcg(D + e);
+    count_one<NC>(d, t, nc, c);
+    if (RANGE) {
+      mn = fminf(mn, d);
+      mx = fmaxf(mx, d);
+    }
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < NC; ++i) c[i] = warp_sum_int(c[i]);
+  if (RANGE) {
+    mn = warp_min(mn);
+    mx = warp_max(mx);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < NC; ++i) sh.warp_counts[warp][i] = c[i];
+    sh.warp_min[warp] = mn;
+    sh.warp_max[warp] = mx;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int n_warps = blockDim.x >> 5;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      int v = lane < n_warps ? sh.warp_counts[lane][i] : 0;
+      v = warp_sum_int(v);
+      if (lane == 0 && i < nc) slot[blockIdx.x * kMaxCounts + i] = v;
+    }
+    if (RANGE) {
+      float a = lane < n_warps ? sh.warp_min[lane] : CUDART_INF_F;
+      float b = lane < n_warps ? sh.warp_max[lane] : -CUDART_INF_F;
+      a = warp_min(a);
+      b = warp_max(b);
+      if (lane == 0) {
+        range[2 * blockIdx.x] = a;
+        range[2 * blockIdx.x + 1] = b;
+      }
+    }
+  }
+}
+
+// After the grid barrier: the grid-wide totals of a sweep's slot (and
+// range), identical in every block, into sh.counts / sh.lo_full /
+// sh.hi_full. Ends with a block barrier.
+template <bool RANGE>
+__device__ void sweep_totals(int nc, SweepShared& sh, const int* slot,
+                             const float* range) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp == 0) {
+    for (int i = 0; i < nc; ++i) {
+      int v = 0;
+      for (int b = lane; b < gridDim.x; b += 32)
+        v += __ldcg(slot + b * kMaxCounts + i);
+      v = warp_sum_int(v);
+      if (lane == 0) sh.counts[i] = v;
+    }
+    if (RANGE) {
+      float a = CUDART_INF_F, b = -CUDART_INF_F;
+      for (int q = lane; q < gridDim.x; q += 32) {
+        a = fminf(a, __ldcg(range + 2 * q));
+        b = fmaxf(b, __ldcg(range + 2 * q + 1));
+      }
+      a = warp_min(a);
+      b = warp_max(b);
+      if (lane == 0) {
+        sh.lo_full = a;
+        sh.hi_full = b;
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The whole search; every thread of every block of the cooperative grid
+// calls it. Block 0 writes out[0] = med and out[1] = med / log_n (h^2).
+__device__ void grid_warm_search(const float* D, int total, float med_prev,
+                                 int k, int rounds, const Brackets& br,
+                                 float log_n, SweepScratch scratch,
+                                 float* out) {
+  __shared__ SweepShared sh;
+  cg::grid_group grid = cg::this_grid();
+  const int nb = br.count;
+  if (threadIdx.x < nb) {
+    sh.thresholds[2 * threadIdx.x] = __fmul_rn(br.lo[threadIdx.x], med_prev);
+    sh.thresholds[2 * threadIdx.x + 1] =
+        __fmul_rn(br.hi[threadIdx.x], med_prev);
+  }
+  __syncthreads();
+  // Pass 1: the range and every bracket endpoint's count.
+  sweep_block<kMaxCounts, true>(D, total, 2 * nb, sh, scratch.counts,
+                                scratch.range);
+  grid.sync();
+  sweep_totals<true>(2 * nb, sh, scratch.counts, scratch.range);
+
+  float lo = 0.0f, hi = 0.0f, w = 0.0f;
+  if (threadIdx.x == 0) {
+    // select_bracket: widest-first applies, tightest-last overrides.
+    lo = fminf(sh.lo_full, 0.0f);
+    hi = sh.hi_full;
+    const bool have_hint = med_prev > 0.0f;
+    for (int i = nb - 1; i >= 0; --i) {
+      if (have_hint && sh.counts[2 * i] < k && sh.counts[2 * i + 1] >= k) {
+        lo = sh.thresholds[2 * i];
+        hi = sh.thresholds[2 * i + 1];
+      }
+    }
+  }
+  for (int r = 0; r < rounds; ++r) {
+    if (threadIdx.x == 0) {
+      w = __fmul_rn(0.25f, __fsub_rn(hi, lo));
+      sh.thresholds[0] = __fadd_rn(lo, w);
+      sh.thresholds[1] = __fadd_rn(lo, __fmul_rn(2.0f, w));
+      sh.thresholds[2] = __fadd_rn(lo, __fmul_rn(3.0f, w));
+    }
+    __syncthreads();
+    int* slot = scratch.counts + (r + 1) * gridDim.x * kMaxCounts;
+    sweep_block<3, false>(D, total, 3, sh, slot, nullptr);
+    grid.sync();
+    sweep_totals<false>(3, sh, slot, nullptr);
+    if (threadIdx.x == 0) {
+      const float b = __fadd_rn(
+          __fadd_rn(sh.counts[0] < k ? 1.0f : 0.0f,
+                    sh.counts[1] < k ? 1.0f : 0.0f),
+          sh.counts[2] < k ? 1.0f : 0.0f);
+      lo = __fadd_rn(lo, __fmul_rn(b, w));
+      hi = __fadd_rn(lo, w);
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    const float med = __fmul_rn(0.5f, __fadd_rn(lo, hi));
+    out[0] = med;
+    out[1] = __fdiv_rn(med, log_n);
+  }
+}
+
+}  // namespace stein

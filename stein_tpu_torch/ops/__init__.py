@@ -1,0 +1,19 @@
+from .rbf import pairwise_sq_dists, svgd_phi
+from .median import exact_median, bisect_median
+from .optimizers import (
+    Adam,
+    Adagrad,
+    AdamGradientDescent,
+    AdagradGradientDescent,
+)
+
+__all__ = [
+    "pairwise_sq_dists",
+    "svgd_phi",
+    "exact_median",
+    "bisect_median",
+    "Adam",
+    "Adagrad",
+    "AdamGradientDescent",
+    "AdagradGradientDescent",
+]

@@ -1,0 +1,80 @@
+"""Pytree <-> flat particle-matrix conversion.
+
+PyTorch counterpart of ``stein_tpu/utils/ravel.py``: particles live as one
+[n, p] tensor; each row unravels into the model's parameter structure (nested
+dicts, lists and tuples of tensors) for the log-posterior. Dict keys flatten
+in sorted order at every level, the layout of ``jax.flatten_util.ravel_pytree``
+(and of the reference's converters.py:40), so a [n, p] matrix means the same
+columns in both packages.
+"""
+
+import torch
+
+
+def _flatten(tree):
+    """Leaves in ravel_pytree order, and a function rebuilding the tree
+    from a list of leaves in that order."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        parts = [_flatten(tree[k]) for k in keys]
+
+        def build(leaves):
+            out, i = {}, 0
+            for k, (ls, b) in zip(keys, parts):
+                out[k] = b(leaves[i:i + len(ls)])
+                i += len(ls)
+            return out
+        return [l for ls, _ in parts for l in ls], build
+    if isinstance(tree, (list, tuple)):
+        parts = [_flatten(t) for t in tree]
+
+        def build(leaves):
+            out, i = [], 0
+            for ls, b in parts:
+                out.append(b(leaves[i:i + len(ls)]))
+                i += len(ls)
+            return type(tree)(out)
+        return [l for ls, _ in parts for l in ls], build
+    return [torch.as_tensor(tree)], lambda leaves: leaves[0]
+
+
+def template_unraveler(template):
+    """Given a parameter-structure template, return (n_params, unravel_fn).
+
+    ``unravel_fn`` maps a flat [p] vector back to the template's structure
+    as views into the vector, in the vector's dtype (so it composes with
+    ``torch.func.vmap``; JAX's ``dtype=`` cast has nothing to do here)."""
+    leaves, build = _flatten(template)
+    shapes = [tuple(l.shape) for l in leaves]
+    sizes = [int(l.numel()) for l in leaves]
+
+    def unravel_fn(flat):
+        out, i = [], 0
+        for shape, size in zip(shapes, sizes):
+            out.append(flat[..., i:i + size].reshape(flat.shape[:-1] + shape))
+            i += size
+        return build(out)
+
+    return sum(sizes), unravel_fn
+
+
+def ravel_particles(theta_tree):
+    """Structure of [n, *shape] leaves -> [n, p] matrix (rows = particles)."""
+    leaves, _ = _flatten(theta_tree)
+    n = leaves[0].shape[0]
+    return torch.cat([l.reshape(n, -1) for l in leaves], dim=1)
+
+
+def unravel_particles(theta_array, unravel_fn):
+    """[n, p] matrix -> structure of [n, *shape] leaves."""
+    return unravel_fn(theta_array)
+
+
+def init_particles(generator, n_particles, n_params, dtype=torch.float32,
+                   scale=0.01, device=None):
+    """0.01 * N(0, I) init (reference: abstract_stein_sampler.py:66-74).
+    ``generator`` is a ``torch.Generator`` on ``device`` (or None for the
+    global one); it draws other numbers than ``jax.random`` from the same
+    seed, so parity tests pass ``theta=`` explicitly."""
+    return scale * torch.randn(n_particles, n_params, generator=generator,
+                               dtype=dtype, device=device)

@@ -1,0 +1,229 @@
+"""The port's sampler (stein_tpu_torch/api.py) against the JAX sampler from
+the same theta0 and data (made with numpy, f32 in both)."""
+
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import stein_tpu as sj
+import stein_tpu_torch as st
+from stein_tpu.models import LinearRegressionModel as JModel
+from stein_tpu_torch.models import LinearRegressionModel as TModel
+from stein_tpu_torch.utils.convert import state_from_numpy
+
+
+# The reference path's tolerance. rtol 1e-5: f32 matmul summation orders
+# differ between XLA and torch. atol 1e-6: a step rule normalises each
+# component of phi (Adagrad's first step is lr * sign(phi)), so a component
+# of phi near zero carries its relative error into theta at the scale of
+# lr * 1e-5, whatever the size of that particle coordinate.
+REF_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _problem(n=48, p=6, seed=0):
+    """The JAX suite's fused-step problem (tests/test_pallas_step.py)."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(80, p))
+    y = X @ rng.normal(size=(p, 1))
+    theta0 = (rng.normal(size=(n, p)) * 0.1).astype(np.float32)
+    return X.astype(np.float32), y.astype(np.float32), theta0
+
+
+def _pair(X, y, theta0, gd_kw, jcfg, tcfg, rule="Adam"):
+    p = theta0.shape[1]
+    jm, tm = JModel(p), TModel(p)
+    js = sj.SVGDSampler(theta0.shape[0], jm.log_p, jm.template(),
+                        getattr(sj, rule)(**gd_kw),
+                        theta=jnp.asarray(theta0), **jcfg)
+    ts = st.SVGDSampler(theta0.shape[0], tm.log_p, tm.template(),
+                        getattr(st, rule)(**gd_kw), theta=theta0, **tcfg)
+    jb = {"X": jnp.asarray(X), "y": jnp.asarray(y)}
+    tb = {"X": torch.from_numpy(X), "y": torch.from_numpy(y)}
+    return js, ts, jb, tb
+
+
+@pytest.mark.parametrize("rule,gd_kw", [
+    ("Adam", dict(learning_rate=1e-1, decay=0.999)),
+    ("Adagrad", dict(learning_rate=5e-2)),
+])
+def test_reference_path_matches_jax(rule, gd_kw):
+    """step_impl='xla', median='exact' (the defaults), 10 steps, at
+    REF_TOL."""
+    X, y, theta0 = _problem()
+    js, ts, jb, tb = _pair(X, y, theta0, gd_kw, {}, {}, rule)
+    ja, ta = js.run(jb, 10), ts.run(tb, 10)
+    np.testing.assert_allclose(ts.samples, js.samples, **REF_TOL)
+    for key in ("phi_norm", "log_p_mean", "h2", "median"):
+        np.testing.assert_allclose(ta[key].numpy(), np.asarray(ja[key]),
+                                   rtol=1e-5)
+    aj = js.train_on_batch(jb)
+    at = ts.train_on_batch(tb)
+    np.testing.assert_allclose(at["median"].numpy(),
+                               np.asarray(aj["median"]), rtol=1e-5)
+
+
+def test_warm_bisect_path_matches_jax():
+    """The plain warm median (step_impl='xla', warm_median=True)."""
+    X, y, theta0 = _problem()
+    cfg = dict(median="bisect", warm_median=True, warm_passes=6)
+    js, ts, jb, tb = _pair(X, y, theta0, dict(learning_rate=1e-1), cfg, cfg)
+    ja, ta = js.run(jb, 10), ts.run(tb, 10)
+    np.testing.assert_allclose(ta["median"].numpy(), np.asarray(ja["median"]),
+                               rtol=5e-3)
+    np.testing.assert_allclose(ts.samples, js.samples, rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [50, 1000, 10240])
+@pytest.mark.parametrize("p", [55, 128, 303])
+def test_throughput_config_matches_jax(n, p):
+    want = sj.throughput_config(n, p)
+    got = st.throughput_config(n, p)
+    assert got.pop("dtype") is torch.float32
+    assert want.pop("dtype") == jnp.float32
+    assert got == want
+
+
+def test_slice_matches_jax_interpret():
+    """The main path: throughput_config(512, 16) picks fused_gram, and
+    m*n = 256*512 > 100k routes init_med through kernel B2's plain version.
+    Held to the JAX suite's fused_gram class (tests/test_pallas_step.py)."""
+    n, p = 512, 16
+    X, y, theta0 = _problem(n=n, p=p)
+    jcfg = sj.throughput_config(n, p, pallas_interpret=True)
+    tcfg = st.throughput_config(n, p)
+    assert tcfg["step_impl"] == "fused_gram"
+    js, ts, jb, tb = _pair(X, y, theta0, dict(learning_rate=1e-1),
+                           jcfg, tcfg)
+    ja, ta = js.run(jb, 10), ts.run(tb, 10)
+    assert set(ta) == {"phi_norm", "log_p_mean", "h2", "median"}
+    assert all(v.shape == (10,) for v in ta.values())
+    np.testing.assert_allclose(ta["median"].numpy(), np.asarray(ja["median"]),
+                               rtol=5e-3)
+    np.testing.assert_allclose(ts.samples, js.samples, rtol=2e-4, atol=1e-6)
+    np.testing.assert_allclose(ta["phi_norm"].numpy(),
+                               np.asarray(ja["phi_norm"]), rtol=1e-4)
+    assert int(ts.state.step) == 10
+    assert int(ts.state.opt_state.count) == 10
+
+
+@pytest.mark.parametrize("rule,gd_kw", [
+    ("Adam", dict(learning_rate=1e-1, decay=0.99)),
+    ("Adagrad", dict(learning_rate=5e-2)),
+])
+def test_state_handoff_from_jax(rule, gd_kw):
+    """JAX runs 5 steps; its state crosses over through state_from_numpy;
+    both run 5 more (count > 0, a decayed lr) at the reference tolerance."""
+    X, y, theta0 = _problem()
+    js, ts, jb, tb = _pair(X, y, theta0, gd_kw, {}, {}, rule)
+    js.run(jb, 5)
+    s = js.state
+    ts.load_state(state_from_numpy(
+        np.asarray(s.particles),
+        {k: np.asarray(v) for k, v in s.opt_state._asdict().items()},
+        np.asarray(s.step)))
+    assert int(ts.state.step) == 5
+    js.run(jb, 5)
+    ts.run(tb, 5)
+    np.testing.assert_allclose(ts.samples, js.samples, **REF_TOL)
+    np.testing.assert_allclose(float(ts.state.opt_state.learning_rate),
+                               float(js.state.opt_state.learning_rate),
+                               rtol=1e-6)
+
+
+def test_load_state_rejects_mismatch():
+    X, y, theta0 = _problem()
+    _, ts, _, _ = _pair(X, y, theta0, {}, {}, {})
+    bad = state_from_numpy(theta0[:10], {
+        "mu": np.zeros((10, 6), np.float32),
+        "nu": np.zeros((10, 6), np.float32),
+        "count": 0, "learning_rate": np.float32(0.1)}, 0)
+    with pytest.raises(ValueError, match="particles"):
+        ts.load_state(bad)
+    with pytest.raises(ValueError, match="Adam"):
+        state_from_numpy(theta0, {"m": 0}, 0)
+
+
+def _sampler(**kw):
+    X, y, theta0 = _problem()
+    m = TModel(6)
+    return st.SVGDSampler(48, m.log_p, m.template(), st.Adam(),
+                          theta=theta0, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mesh=object()),
+    dict(median="bisect", kernel_impl="pallas"),
+    dict(median="bisect", warm_median=True, step_impl="fused"),
+    dict(median="bisect", warm_median=True, step_impl="fused_glm"),
+    dict(median="bisect", warm_median=True, step_impl="fused_model"),
+    dict(median="bisect", warm_median=True, kernel_impl="pallas",
+         step_impl="epilogue"),
+    dict(median="bisect", kernel_impl="pallas", median_impl="fused_gram"),
+    dict(median="subsample"),
+    dict(median="binned"),
+    dict(custom_grads=lambda theta, batch: None),
+    dict(kernel=object()),
+    dict(remat=True),
+])
+def test_unported_options_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        _sampler(**kw)
+
+
+@pytest.mark.parametrize("method,args", [
+    ("train_on_batches", (None,)), ("train_minibatched", (None, 1, 1, None)),
+    ("function_posterior", (None, None)), ("ksd", (None,)),
+    ("save", ("x",)), ("restore", ("x",)),
+])
+def test_unported_methods_raise(method, args):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        getattr(_sampler(), method)(*args)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(n_particles=1), "n_particles"),
+    (dict(median="bisect", step_impl="fused_gram"), "warm_median"),
+    (dict(median="exact", warm_median=True, step_impl="fused_gram"),
+     "warm_median"),
+    (dict(median="bisect", warm_median=True, step_impl="fused_gram",
+          n_particles=20000, theta=None), "gate"),
+    (dict(median="bisect", warm_median=True, step_impl="fused_gram",
+          dtype=torch.float64), "f32"),
+    (dict(step_impl="bogus"), "unknown step_impl"),
+    (dict(median_impl="fused"), "requires median='bisect'"),
+    (dict(median="bogus"), "unknown median"),
+])
+def test_jax_value_error_guards_hold(kw, match):
+    n = kw.pop("n_particles", 48)
+    theta = kw.pop("theta", _problem()[2])
+    m = TModel(6)
+    with pytest.raises(ValueError, match=match):
+        st.SVGDSampler(n, m.log_p, m.template(), st.Adam(), theta=theta,
+                       **kw)
+
+
+def test_import_loads_no_jax():
+    code = ("import sys, stein_tpu_torch, stein_tpu_torch.api, "
+            "stein_tpu_torch.ops.fused_step, stein_tpu_torch._cuda; "
+            "assert 'jax' not in sys.modules, 'jax imported'; print('ok')")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0 and "ok" in res.stdout, res.stderr
+
+
+def test_cuda_device_without_gpu_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks its absence")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _sampler(device="cuda")
+
+
+def test_batch_on_another_device_raises():
+    s = _sampler()
+    with pytest.raises(ValueError, match="device"):
+        s.run({"X": torch.zeros(2, 6, device="meta"),
+               "y": torch.zeros(2, 1)}, 1)
