@@ -15,6 +15,7 @@ from .api import (
     SteinSampler,
     throughput_config,
 )
+from .models import BayesianNNModel
 from .ops.optimizers import (
     Adam,
     Adagrad,
@@ -28,6 +29,7 @@ __all__ = [
     "SVGDState",
     "SteinSampler",
     "throughput_config",
+    "BayesianNNModel",
     "Adam",
     "Adagrad",
     "AdamGradientDescent",

@@ -1,8 +1,9 @@
 """Build and bind the hand-written CUDA kernels (``csrc/``).
 
-``nvcc`` compiles every source under ``csrc/`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``. The build
-runs at the first CUDA call, not at import, and is cached under
+``nvcc`` compiles each source under ``csrc/`` for ``sm_90a`` (one process
+per source, all started together) and links the objects into one shared
+library with a plain C interface, loaded with ``ctypes``. The build runs at
+the first CUDA call, not at import, and is cached under
 ``build/stein_tpu_torch/<hash>/`` beside the package, keyed by a hash of the
 sources and the flags. A missing ``nvcc`` or a failed build raises with
 nvcc's output in the message.
@@ -21,20 +22,37 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "stein_tpu_torch"
 # No --use_fast_math: the median search relies on IEEE f32 rounding.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
+                     "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "stein_max_p": ((), _I),
     "stein_median_blocks": ((_I, ctypes.POINTER(_I)), _I),
-    "stein_phi_splits": ((_I,), _I),
     "stein_reduce_blocks": ((_I, _I), _I),
     "stein_warm_median": (
         (_P, _I, _P, _I, _I, _P, _P, _I, _F,   # D .. log_n
          _P, _P, _P, _P),                      # out, scratch, stream
+        _I),
+    "stein_warm_from_theta": (
+        (_P, _P, _P, _I, _I, _I,            # rows, cols, center, m, n, p
+         _P, _I, _I, _P, _P, _I, _F,        # med_prev .. log_n
+         _P, _P, _P, _P, _P),               # out, scratch, stream
+        _I),
+    "stein_dist_block": ((_P, _P, _P, _I, _I, _I, _P, _P), _I),
+    "stein_tile_splits": ((_I, _I, _I), _I),
+    "stein_svgd_tile": (
+        (_P, _P, _P, _P, _P, _I, _I, _I,    # rows .. h2, m, n, p
+         _I, _P, _P,                        # splits, scratch
+         _P, _P, _P, _F, _P),               # ku, ksum, phi, n_total, stream
+        _I),
+    "stein_max_smem": ((), _I),
+    "stein_nn_grad_smem": ((_I, _I), _I),
+    "stein_nn_grads": (
+        (_P, _I, _I, _P, _P, _I, _I, _I,    # theta, n, p, X, y, B, f, H
+         _P, _P, _P, _P),                   # consts, logp, grads, stream
         _I),
     "stein_fused_step_tail": (
         (_P, _P, _P, _I, _I, _I,            # theta, grads, rows, n, p, m
@@ -67,11 +85,41 @@ def _nvcc():
     return cand
 
 
+def _build(nvcc, sources, so):
+    """Compile every source at once (one nvcc each), then link. Returns
+    the compilers' output; raises on the first failure."""
+    objs = [so.parent / (src.stem + ".o") for src in sources]
+    procs = [(subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-o", str(obj), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), src)
+        for src, obj in zip(sources, objs)]
+    log, failed = "", []
+    for proc, src in procs:
+        out = proc.communicate()[0]
+        log += f"== {src.name}\n{out}"
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if failed:
+        raise RuntimeError(f"stein_tpu_torch: nvcc failed on {failed}:\n"
+                           f"{log}")
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
+    os.close(fd)
+    cmd = [nvcc, *ARCH, "-shared", "-o", tmp, *map(str, objs)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"stein_tpu_torch: nvcc link failed "
+                           f"({res.returncode}):\n{' '.join(cmd)}\n"
+                           f"{res.stdout}{res.stderr}")
+    os.replace(tmp, so)
+    return log + res.stdout + res.stderr
+
+
 @functools.lru_cache(maxsize=None)
 def library():
     """Build (once per source hash) and load the kernel library."""
     sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + ARCH).encode())
     for path in sorted(CSRC.glob("*.cu*")):
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
@@ -80,20 +128,9 @@ def library():
     log, seconds = "(cached)", 0.0
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        log = _build(_nvcc(), sources, so)
         seconds = time.perf_counter() - t0
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"stein_tpu_torch: nvcc failed ({res.returncode}):\n"
-                f"{' '.join(cmd)}\n{log}"
-            )
-        os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -3,16 +3,18 @@
 Counterpart of ``stein_tpu/api.py`` for one device (a CPU, or a CUDA card
 through the hand-written kernels of ``csrc/``). The step is the same as the
 JAX package's: per-particle gradients by ``torch.func`` (vmap of
-grad_and_value), the median bandwidth, the RBF kernel and SVGD direction,
-the global norm clip and the optimizer update. JAX's ``run`` is one
-``lax.scan`` dispatch; here it is a Python loop that keeps every carried
-scalar (median, h^2, clip norm, Adam's count and learning rate) on the
-device and never reads one on the host.
+grad_and_value) or by a model's own gradient kernel (``custom_grads=``),
+the median bandwidth, the RBF kernel and SVGD direction, the global norm
+clip and the optimizer update. JAX's ``run`` is one ``lax.scan`` dispatch;
+here it is a Python loop that keeps every carried scalar (median, h^2, clip
+norm, Adam's count and learning rate) on the device and never reads one on
+the host.
 
 Ported: the reference path (``step_impl='xla'``, ``median`` in
-{'exact', 'bisect'}, the warm median, ``median_impl`` in {'xla', 'fused'})
-and the ``step_impl='fused_gram'`` tail. Every other option raises
-``NotImplementedError`` naming the ROADMAP.md item that will port it.
+{'exact', 'bisect'}, the warm median, ``median_impl`` in {'xla', 'fused',
+'fused_gram'}), the streaming tile (``kernel_impl='pallas'``), the
+``step_impl='fused_gram'`` tail and ``custom_grads=``. Every other option
+raises ``NotImplementedError`` naming the ROADMAP.md item that will port it.
 """
 
 import warnings
@@ -21,8 +23,14 @@ from typing import Any, NamedTuple
 import torch
 from torch.func import grad_and_value, vmap
 
-from .ops import rbf
-from .ops.fused_median import fused_block_ok, fused_warm_median_rows
+from .ops import rbf, svgd_tile
+from .ops.fused_median import (
+    bracket_pass_fits,
+    dist_block,
+    fused_block_ok,
+    fused_warm_median_from_theta,
+    fused_warm_median_rows,
+)
 from .ops.fused_step import (
     FUSED_STEP_VMEM_BUDGET,
     fused_step_fits,
@@ -30,6 +38,7 @@ from .ops.fused_step import (
     fused_warm_step_tail,
 )
 from .ops.median import (
+    QUAD_MIN_TOTAL,
     _strided_rows,
     _warm_search,
     bisect_median,
@@ -71,9 +80,14 @@ class SVGDState(NamedTuple):
     step: torch.Tensor       # 0-d int32
 
 
-def _make_grad_all(log_p, unravel_fn):
+def _make_grad_all(log_p, unravel_fn, custom_grads=None):
     """vmap(grad_and_value) over flat particle rows; returns
-    grad_all(theta, batch) -> (log_p values [n], grads [n, p])."""
+    grad_all(theta, batch) -> (log_p values [n], grads [n, p]).
+    ``custom_grads`` (a callable of that signature, e.g.
+    BayesianNNModel.pallas_grads()) replaces the autodiff stage."""
+    if custom_grads is not None:
+        return custom_grads
+
     def log_p_flat(theta_row, batch):
         return log_p(unravel_fn(theta_row), batch)
 
@@ -92,53 +106,143 @@ def _clip(phi, norm, max_phi_norm):
     return phi * (max_phi_norm / torch.clamp(norm, min=max_phi_norm))
 
 
+def _gram_in_kernel_med(theta, med_prev, passes, median_max_rows, center):
+    """median_impl='fused_gram': the median block's Gram in a kernel too.
+    Gram and search in one launch (kernel B5) where bracket_pass_fits
+    admits the block, else the block by kernel B4 searched by kernel B2;
+    None below the quad-ary regime or outside both gates (the caller then
+    takes the matmul-Gram path)."""
+    n, p = theta.shape
+    rows = subsample_rows(theta, median_max_rows)
+    if rows is None:
+        rows = theta
+    m = rows.shape[0]
+    if m * n <= QUAD_MIN_TOTAL:
+        return None
+    if bracket_pass_fits(m, n, p):
+        return fused_warm_median_from_theta(rows, theta, med_prev, center,
+                                            warm_passes=passes)
+    if fused_block_ok(m, n):
+        return fused_warm_median_rows(dist_block(rows, theta, center),
+                                      med_prev, warm_passes=passes)
+    return None
+
+
+def _pallas_only_bisect(median):
+    if median == "exact":
+        raise ValueError(
+            "kernel_impl='pallas' streams the kernel matrix precisely to "
+            "avoid materialising the n^2 distance matrix, but "
+            "median='exact' would materialise it anyway; use "
+            "median='bisect' or kernel_impl='xla'"
+        )
+
+
 def make_phi_fn(n_particles, median="exact", kernel_impl="xla",
                 median_max_rows=512, median_passes=30, median_impl="xla"):
-    """Build phi_fn(theta, grads) -> (phi, aux) on the plain path.
+    """Build phi_fn(theta, grads) -> (phi, aux), the cold step's phi.
     ``median_impl='fused'`` runs the cold bisect search as kernel B2 where
-    the block is in its envelope (ops.fused_median.fused_block_ok)."""
+    the block is in its envelope (ops.fused_median.fused_block_ok);
+    ``'fused_gram'`` computes the block's Gram in a kernel too (B5, or
+    B4 then B2). ``kernel_impl='pallas'`` is the streaming tile (B3)."""
     if median_impl not in ("xla", "fused", "fused_gram"):
         raise ValueError(f"unknown median_impl: {median_impl!r}")
-    if median_impl == "fused_gram":
-        raise _unported("median_impl='fused_gram'", "A7")
-    if kernel_impl == "pallas":
-        raise _unported("kernel_impl='pallas'", "A7")
-    if kernel_impl != "xla":
+    if kernel_impl not in ("xla", "pallas"):
         raise ValueError(f"unknown kernel_impl: {kernel_impl!r}")
-
-    if median == "exact":
-        return lambda theta, grads: rbf.svgd_phi(
-            theta, grads, median_fn=exact_median
-        )
     if median in ("subsample", "binned"):
         raise _unported(f"median={median!r}", "A2")
-    if median != "bisect":
+    if median not in ("exact", "bisect"):
         raise ValueError(f"unknown median mode: {median!r}")
 
-    def bisect_on_D(D):
-        Ds = _strided_rows(D, median_max_rows)
-        if median_impl == "fused" and fused_block_ok(*Ds.shape):
-            return fused_warm_median_rows(Ds, 0.0, warm_passes=median_passes)
-        return bisect_median_on_D(D, max_rows=median_max_rows,
-                                  passes=median_passes)
+    def fused_cold_or_none(D_sub):
+        if median_impl != "xla" and fused_block_ok(*D_sub.shape):
+            return fused_warm_median_rows(D_sub, 0.0,
+                                          warm_passes=median_passes)
+        return None
 
-    return lambda theta, grads: rbf.svgd_phi(theta, grads,
-                                             median_fn=bisect_on_D)
+    if kernel_impl == "xla":
+        if median == "exact":
+            return lambda theta, grads: rbf.svgd_phi(
+                theta, grads, median_fn=exact_median
+            )
 
+        def bisect_on_D(D):
+            med = fused_cold_or_none(_strided_rows(D, median_max_rows))
+            if med is not None:
+                return med
+            return bisect_median_on_D(D, max_rows=median_max_rows,
+                                      passes=median_passes)
 
-def _init_med_fn(median_max_rows, median_passes, fused):
-    """The cold seed of the warm-median carry: kernel B2 with no hint on
-    the strided block where it applies, else the plain cold bisect."""
-    def init_med(theta):
-        if fused:
-            D_sub = row_subsample_block(theta, median_max_rows)
-            if fused_block_ok(*D_sub.shape):
-                return fused_warm_median_rows(
-                    D_sub, 0.0, warm_passes=median_passes
-                )
+        return lambda theta, grads: rbf.svgd_phi(theta, grads,
+                                                 median_fn=bisect_on_D)
+
+    _pallas_only_bisect(median)
+
+    def median_fn(theta, center):
+        if median_impl == "fused_gram":
+            med = _gram_in_kernel_med(theta, 0.0, median_passes,
+                                      median_max_rows, center)
+            if med is not None:
+                return med
+        med = fused_cold_or_none(row_subsample_block(theta, median_max_rows))
+        if med is not None:
+            return med
         return bisect_median(theta, max_rows=median_max_rows,
                              passes=median_passes)
-    return init_med
+
+    def phi_fn(theta, grads):
+        center = svgd_tile.column_center(theta)
+        med = median_fn(theta, center)
+        h2 = rbf.bandwidth_sq_from_median(med, n_particles)
+        phi = svgd_tile.svgd_phi(theta, grads, h2, center=center)
+        return phi, {"h2": h2, "median": med}
+
+    return phi_fn
+
+
+def _make_warm_median_fns(median_max_rows=512, median_passes=30,
+                          warm_passes=8, median_impl="xla"):
+    """The carried warm-median machinery: returns
+    (compute_med(theta, med_prev, center), init_med(theta),
+    warm_med_on_block(D_sub, med_prev)). ``center`` is the particle mean,
+    read by median_impl='fused_gram' only."""
+    if median_impl not in ("xla", "fused", "fused_gram"):
+        raise ValueError(f"unknown median_impl: {median_impl!r}")
+
+    def use_fused(D_sub):
+        return median_impl != "xla" and fused_block_ok(*D_sub.shape)
+
+    def warm_med_on_block(D_sub, med_prev):
+        if use_fused(D_sub):
+            return fused_warm_median_rows(D_sub, med_prev,
+                                          warm_passes=warm_passes)
+        return _warm_search(D_sub, med_prev, warm_passes)
+
+    def compute_med(theta, med_prev, center):
+        if median_impl == "fused_gram":
+            med = _gram_in_kernel_med(theta, med_prev, warm_passes,
+                                      median_max_rows, center)
+            if med is not None:
+                return med
+        return warm_med_on_block(row_subsample_block(theta, median_max_rows),
+                                 med_prev)
+
+    def init_med(theta):
+        """The cold seed of the carry: the same searches with no hint."""
+        if median_impl == "fused_gram":
+            med = _gram_in_kernel_med(theta, 0.0, median_passes,
+                                      median_max_rows,
+                                      svgd_tile.column_center(theta))
+            if med is not None:
+                return med
+        D_sub = row_subsample_block(theta, median_max_rows)
+        if use_fused(D_sub):
+            return fused_warm_median_rows(D_sub, 0.0,
+                                          warm_passes=median_passes)
+        return bisect_median(theta, max_rows=median_max_rows,
+                             passes=median_passes)
+
+    return compute_med, init_med, warm_med_on_block
 
 
 def make_warm_phi_fn(n_particles, kernel_impl="xla", median_max_rows=512,
@@ -146,32 +250,34 @@ def make_warm_phi_fn(n_particles, kernel_impl="xla", median_max_rows=512,
     """phi_fn(theta, grads, med_prev) -> (phi, aux) threading the previous
     step's median; aux['median'] is the next step's hint. Carries
     ``init_med(theta)`` for the cold seed."""
-    if kernel_impl != "xla":
-        raise _unported(f"kernel_impl={kernel_impl!r}", "A7")
-    if median_impl not in ("xla", "fused"):
-        raise _unported(f"median_impl={median_impl!r}", "A7")
-    fused = median_impl == "fused"
+    if kernel_impl not in ("xla", "pallas"):
+        raise ValueError(f"unknown kernel_impl: {kernel_impl!r}")
+    compute_med, init_med, warm_med_on_block = _make_warm_median_fns(
+        median_max_rows, median_passes, warm_passes, median_impl)
 
-    def warm_med_on_block(D_sub, med_prev):
-        if fused and fused_block_ok(*D_sub.shape):
-            return fused_warm_median_rows(D_sub, med_prev,
-                                          warm_passes=warm_passes)
-        return _warm_search(D_sub, med_prev, warm_passes)
+    if kernel_impl == "pallas":
+        def phi_fn(theta, grads, med_prev):
+            center = svgd_tile.column_center(theta)
+            med = compute_med(theta, med_prev, center)
+            h2 = rbf.bandwidth_sq_from_median(med, n_particles)
+            phi = svgd_tile.svgd_phi(theta, grads, h2, center=center)
+            return phi, {"h2": h2, "median": med}
+    else:
+        def phi_fn(theta, grads, med_prev):
+            return rbf.svgd_phi(
+                theta, grads,
+                median_fn=lambda D: warm_med_on_block(
+                    _strided_rows(D, median_max_rows), med_prev),
+            )
 
-    def phi_fn(theta, grads, med_prev):
-        return rbf.svgd_phi(
-            theta, grads,
-            median_fn=lambda D: warm_med_on_block(
-                _strided_rows(D, median_max_rows), med_prev),
-        )
-
-    phi_fn.init_med = _init_med_fn(median_max_rows, median_passes, fused)
+    phi_fn.init_med = init_med
     return phi_fn
 
 
-def make_step_fn(log_p, unravel_fn, gd, phi_fn, max_phi_norm=10.0):
+def make_step_fn(log_p, unravel_fn, gd, phi_fn, max_phi_norm=10.0,
+                 custom_grads=None):
     """The SVGD step: (state, batch) -> (state, aux)."""
-    grad_all = _make_grad_all(log_p, unravel_fn)
+    grad_all = _make_grad_all(log_p, unravel_fn, custom_grads=custom_grads)
 
     def step_fn(state, batch):
         theta = state.particles
@@ -188,9 +294,9 @@ def make_step_fn(log_p, unravel_fn, gd, phi_fn, max_phi_norm=10.0):
 
 
 def make_warm_step_fn(log_p, unravel_fn, gd, warm_phi_fn,
-                      max_phi_norm=10.0):
+                      max_phi_norm=10.0, custom_grads=None):
     """Warm-median step; the carry is (SVGDState, med_prev)."""
-    grad_all = _make_grad_all(log_p, unravel_fn)
+    grad_all = _make_grad_all(log_p, unravel_fn, custom_grads=custom_grads)
 
     def step_fn(carry, batch):
         state, med_prev = carry
@@ -232,25 +338,29 @@ def make_fused_warm_step_fn(log_p, unravel_fn, gd, max_phi_norm=10.0,
                "h2": h2, "median": med}
         return (new_state, med), aux
 
-    return step_fn, _init_med_fn(median_max_rows, median_passes, True)
+    return step_fn, _make_warm_median_fns(median_max_rows, median_passes,
+                                          warm_passes, "fused")[1]
 
 
 def throughput_config(n_particles, n_params, mesh=None, dtype=torch.float32,
-                      model=None):
+                      model=None, probe_batch=None):
     """The JAX package's single-device option table (stein_tpu/api.py
-    throughput_config, mesh=None and model=None), unchanged, as a kwargs
-    dict for SVGDSampler:
+    throughput_config with mesh=None), unchanged, as a kwargs dict for
+    SVGDSampler:
 
         sampler = SVGDSampler(n, log_p, template, gd, **throughput_config(n, p))
 
     Small f32 problems get step_impl='fused_gram' (kernel B1) with the
-    fused cold seed (kernel B2). The dict can name options the port does
-    not run yet (the large-n streaming tile); the sampler then raises
-    NotImplementedError."""
+    fused cold seed (kernel B2); large n or p >= 256 the streaming tile
+    (B3), at large p with the in-kernel-Gram median (B5, or B4 then B2)
+    and, for a ``model`` with ``pallas_grads``, its gradient kernel as
+    ``custom_grads`` (B7). A model with ``quadratic_form`` or
+    ``inkernel_model`` gets the one-kernel steps of the small branch, which
+    the sampler does not run yet (NotImplementedError)."""
     if mesh is not None:
         raise _unported("throughput_config(mesh=...)", "A12")
-    if model is not None:
-        raise _unported("throughput_config(model=...)", "A8")
+    if probe_batch is not None:
+        raise _unported("throughput_config(probe_batch=...)", "A9")
     f32 = dtype == torch.float32
     cfg = dict(median="bisect", warm_median=True, dtype=dtype)
     large = n_particles >= 4096
@@ -262,6 +372,14 @@ def throughput_config(n_particles, n_params, mesh=None, dtype=torch.float32,
                        min(cfg.get("median_max_rows", 512), 256)):
         cfg.update(step_impl="fused_gram", median_impl="fused",
                    median_max_rows=256)
+        if model is not None and hasattr(model, "quadratic_form"):
+            cfg.update(step_impl="fused_glm",
+                       quadratic_form=model.quadratic_form,
+                       median_max_rows=128)
+        elif model is not None and hasattr(model, "inkernel_model"):
+            cfg.update(step_impl="fused_model",
+                       inkernel_model=model.inkernel_model,
+                       median_max_rows=128)
         return cfg
     cfg["median_impl"] = "fused"
     if large:
@@ -269,6 +387,8 @@ def throughput_config(n_particles, n_params, mesh=None, dtype=torch.float32,
     elif n_params >= 256:
         cfg.update(kernel_impl="pallas", pallas_block=512,
                    median_impl="fused_gram", median_max_rows=128)
+        if model is not None and hasattr(model, "pallas_grads"):
+            cfg["custom_grads"] = model.pallas_grads()
     return cfg
 
 
@@ -288,7 +408,8 @@ def _resolve_device(device):
 
 def _check_options(n_params, dtype, median, kernel_impl, median_max_rows,
                    n_particles, kernel, warm_median, median_impl, step_impl,
-                   custom_grads, remat):
+                   custom_grads, remat, pallas_precision, quadratic_form,
+                   inkernel_model):
     """The JAX sampler's ValueError guards, in its order, then the
     NotImplementedError of every option the port does not run yet."""
     f32 = dtype == torch.float32
@@ -306,6 +427,10 @@ def _check_options(n_params, dtype, median, kernel_impl, median_max_rows,
             "median_impl='fused_gram' requires kernel_impl='pallas'; with "
             "kernel_impl='xla' use median_impl='fused'"
         )
+    if kernel_impl not in ("xla", "pallas"):
+        raise ValueError(f"unknown kernel_impl: {kernel_impl!r}")
+    if kernel_impl == "pallas":
+        _pallas_only_bisect(median)
     if step_impl not in _STEP_IMPLS + ("fused_shard",):
         raise ValueError(f"unknown step_impl: {step_impl!r}")
     if step_impl == "fused_shard":
@@ -322,6 +447,16 @@ def _check_options(n_params, dtype, median, kernel_impl, median_max_rows,
                              "kernel")
         if not f32:
             raise ValueError("step_impl='epilogue' is f32-only")
+    if step_impl == "fused_glm" and quadratic_form is None:
+        raise ValueError("step_impl='fused_glm' needs quadratic_form=")
+    if quadratic_form is not None and step_impl != "fused_glm":
+        raise ValueError("quadratic_form is consumed only by "
+                         "step_impl='fused_glm'")
+    if step_impl == "fused_model" and inkernel_model is None:
+        raise ValueError("step_impl='fused_model' needs inkernel_model=")
+    if inkernel_model is not None and step_impl != "fused_model":
+        raise ValueError("inkernel_model is consumed only by "
+                         "step_impl='fused_model'")
     if step_impl in _FUSED_STEP_IMPLS:
         if not warm_median:
             raise ValueError(
@@ -352,22 +487,24 @@ def _check_options(n_params, dtype, median, kernel_impl, median_max_rows,
             f"custom_grads= replaces the autodiff gradient stage, which "
             f"step_impl={step_impl!r} does not use; use step_impl='xla'"
         )
+    if custom_grads is not None and remat:
+        raise ValueError(
+            "custom_grads= supplies its own gradient computation; "
+            "remat=True (checkpointed autodiff) does not apply; drop one "
+            "of the two"
+        )
 
-    if kernel_impl == "pallas":
-        raise _unported("kernel_impl='pallas'", "A7")
-    if kernel_impl != "xla":
-        raise ValueError(f"unknown kernel_impl: {kernel_impl!r}")
     if step_impl in _UNPORTED_STEP_IMPLS:
         raise _unported(f"step_impl={step_impl!r}",
                         _UNPORTED_STEP_IMPLS[step_impl])
-    if median_impl == "fused_gram":
-        raise _unported("median_impl='fused_gram'", "A7")
     if median in ("subsample", "binned"):
         raise _unported(f"median={median!r}", "A2")
     if median not in ("exact", "bisect"):
         raise ValueError(f"unknown median mode: {median!r}")
-    if custom_grads is not None:
-        raise _unported("custom_grads=", "A8")
+    if pallas_precision == "bf16":
+        raise _unported("pallas_precision='bf16'", "A7")
+    if pallas_precision != "f32":
+        raise ValueError(f"unknown pallas_precision: {pallas_precision!r}")
     if kernel is not None:
         raise _unported("kernel=", "A9")
     if remat:
@@ -388,6 +525,11 @@ class SVGDSampler:
         scalar live ("cpu" default; "cuda" runs the hand-written kernels
         and raises when no card is present). Batches must already lie on
         this device.
+    pallas_block : accepted so JAX configs carry over; the CUDA tile's
+        sizes are its own.
+    custom_grads : a callable (theta [n, p], batch) -> (logp [n],
+        grads [n, p]) replacing the autodiff gradient stage, e.g.
+        ``BayesianNNModel.pallas_grads()`` (kernel B7).
 
     Options the port does not run yet raise NotImplementedError (see
     ``_check_options``); options the JAX sampler refuses raise the same
@@ -398,9 +540,11 @@ class SVGDSampler:
                  generator=None, theta=None, dtype=torch.float32,
                  device=None, median="exact", kernel_impl="xla",
                  median_max_rows=512, max_phi_norm=10.0, mesh=None,
-                 pallas_block=None, remat=False, kernel=None,
+                 pallas_block=1024, remat=False, kernel=None,
                  median_passes=30, warm_median=False, warm_passes=8,
-                 median_impl="xla", step_impl="xla", custom_grads=None):
+                 median_impl="xla", step_impl="xla", custom_grads=None,
+                 pallas_precision="f32", quadratic_form=None,
+                 inkernel_model=None):
         self.n_particles = int(n_particles)
         if self.n_particles < 2:
             raise ValueError(
@@ -417,8 +561,9 @@ class SVGDSampler:
         _check_options(self.n_params, dtype, median, kernel_impl,
                        median_max_rows, self.n_particles, kernel,
                        warm_median, median_impl, step_impl, custom_grads,
-                       remat)
-        del pallas_block  # read only by kernel_impl='pallas' (not ported)
+                       remat, pallas_precision, quadratic_form,
+                       inkernel_model)
+        del pallas_block  # the CUDA tile's sizes are its own
 
         if theta is not None:
             if isinstance(theta, (dict, list, tuple)):
@@ -459,7 +604,7 @@ class SVGDSampler:
                         median_max_rows=median_max_rows,
                         median_passes=median_passes,
                         median_impl=median_impl),
-            max_phi_norm=max_phi_norm,
+            max_phi_norm=max_phi_norm, custom_grads=custom_grads,
         )
         self._warm_step_fn = None
         if warm_median:
@@ -481,7 +626,7 @@ class SVGDSampler:
                 )
                 self._warm_step_fn = make_warm_step_fn(
                     log_p, self.unravel_fn, gd, warm_phi,
-                    max_phi_norm=max_phi_norm,
+                    max_phi_norm=max_phi_norm, custom_grads=custom_grads,
                 )
                 self._warm_init_med = warm_phi.init_med
 

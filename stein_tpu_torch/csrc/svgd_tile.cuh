@@ -1,0 +1,35 @@
+// The streaming SVGD tile (svgd_tile.cu): one tile kernel and its
+// fixed-order reduce, launched by B1's step tail (stein_kernels.cu) and by
+// B3 (ops/svgd_tile.py).
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace stein {
+
+struct TileArgs {
+  const float* rows;    // [m, p]
+  const float* cols;    // [n, p]
+  const float* grads;   // [n, p]
+  const float* center;  // [p]
+  const float* h2;      // device scalar
+  int m, n, p;
+  // K's exponent as (D / h2) * (-log2e/2), the JAX tile's order (B3), or
+  // as D * (-log2e/2 / h2), the JAX step tail's (B1).
+  bool div_h2;
+  int splits;           // column shares, tile_splits(m, n, p)
+  float* part_ku;       // [splits, m, p] scratch
+  float* part_ksum;     // [splits, m] scratch
+  float n_total;
+  float* ku;            // [m, p] raw sums, with ksum [m], when phi is null;
+  float* ksum;
+  float* phi;           // else phi [m, p] = (ku + ksum (r - c) / h2) / n_total
+  float* partials;      // and, if not null, ||phi||^2 per reduce block
+};
+
+int tile_splits(int m, int n, int p);
+int tile_reduce_blocks(int m, int p);
+// Both launches on `stream`; returns the first CUDA error.
+cudaError_t launch_tile(const TileArgs& a, cudaStream_t stream);
+
+}  // namespace stein

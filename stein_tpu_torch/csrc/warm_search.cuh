@@ -23,6 +23,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "common.cuh"
+
 namespace stein {
 
 namespace cg = cooperative_groups;
@@ -35,28 +37,6 @@ struct Brackets {
   float lo[kMaxBrackets];
   float hi[kMaxBrackets];
 };
-
-__device__ __forceinline__ int warp_sum_int(int v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_min(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 struct SweepShared {
   int warp_counts[32][kMaxCounts];

@@ -1,13 +1,32 @@
 """Log-density helpers matching tf.contrib.distributions semantics.
 
 PyTorch counterpart of ``stein_tpu/models/distributions.py`` (the part the
-ported models use).
+ported models use). ``resolve_precision`` has no counterpart: f32 products
+run at full f32 unless the caller turns TF32 on, the precision the JAX
+models' default "high" tier stands for.
 """
 
 import math
 
+import torch
+
 
 def normal_log_prob(x, loc, scale):
-    """log N(x; loc, scale). Matches tf.distributions.Normal.log_prob."""
+    """log N(x; loc, scale). Matches tf.distributions.Normal.log_prob.
+    ``scale`` is a Python number or a tensor."""
     z = (x - loc) / scale
-    return -0.5 * z * z - math.log(scale) - 0.5 * math.log(2.0 * math.pi)
+    log_scale = (torch.log(scale) if isinstance(scale, torch.Tensor)
+                 else math.log(scale))
+    return -0.5 * z * z - log_scale - 0.5 * math.log(2.0 * math.pi)
+
+
+def gamma_log_prob(x, concentration, rate):
+    """log Gamma(x; concentration alpha, rate beta).
+
+    Matches tf.distributions.Gamma.log_prob:
+    alpha*log(beta) - lgamma(alpha) + (alpha-1)*log(x) - beta*x, with
+    alpha and beta cast to x's dtype first, as the JAX helper does."""
+    a = torch.as_tensor(concentration, dtype=x.dtype, device=x.device)
+    b = torch.as_tensor(rate, dtype=x.dtype, device=x.device)
+    return (a * torch.log(b) - torch.lgamma(a) + (a - 1.0) * torch.log(x)
+            - b * x)

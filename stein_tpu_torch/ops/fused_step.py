@@ -10,8 +10,9 @@ and ``fused_warm_step_tail`` with ``gram_in_kernel=True``, the
 The CUDA version (``csrc/stein_kernels.cu``) replaces
 ``stein_tpu/ops/pallas_step.py:_tail_kernel``. The TPU kernel held D and K in
 VMEM at once; on the H100 the tail is a chain of four launches on the
-current stream (the cooperative median kernel with its Gram stage, phi_tile,
-phi_reduce, clip_update) joined by device-memory scratch, and K never
+current stream (the cooperative median kernel with its Gram stage, the
+streaming tile and its reduce that B3 launches too, clip_update) joined by
+device-memory scratch, and K never
 reaches device memory. What bounds each
 stage on the card is in the source's header. The step rule cannot be traced
 into a CUDA kernel the way the TPU kernel traced ``gd.update``: the kernel
@@ -122,10 +123,6 @@ def _launch_tail(theta, grads, theta_sub, med, opt_state, gd, max_phi_norm,
 
     lib = _cuda.library().lib
     n, p = theta.shape
-    max_p = lib.stein_max_p()
-    if p > max_p:
-        raise ValueError(f"fused step: the kernels take p <= {max_p} "
-                         f"(got {p})")
     if len(brackets) > 8:
         raise ValueError("fused step: the kernel takes <= 8 brackets")
     rows = theta if theta_sub is None else theta_sub.contiguous()
@@ -136,7 +133,7 @@ def _launch_tail(theta, grads, theta_sub, med, opt_state, gd, max_phi_norm,
     blocks = _cuda.median_blocks(p)
     rounds = (warm_passes + 1) // 2
 
-    splits = lib.stein_phi_splits(n)
+    splits = lib.stein_tile_splits(n, n, p)
     # One f32 scratch buffer, each piece 64-float aligned: dsub, center,
     # per-block column sums, per-block ranges, the column shares' K @ u and
     # row sums, phi, ||phi||^2 partials, [med, h2]; the per-block counts

@@ -1,0 +1,136 @@
+"""The streaming SVGD tile (kernel B3).
+
+PyTorch counterpart of the single-device part of
+``stein_tpu/ops/pallas_svgd.py``: ``pallas_svgd_both_ksum`` (here
+``svgd_both_ksum``), ``pallas_svgd_phi_rect`` (``svgd_phi_rect``) and
+``pallas_svgd_phi`` (``svgd_phi``). For an [m, p] row block against [n, p]
+column particles and gradients, with the columns' mean c as the centre:
+
+  D  = |r - c|^2 + |t - c|^2 - 2 (r - c)(t - c)^T       (centred, f32 dot)
+  K  = exp2((D / h^2) * (-log2(e) / 2))
+  ku = K @ (g - (t - c) / h^2),  ksum = rowsum K
+  phi = (ku + ksum * (r - c) / h^2) / n_total
+
+The CUDA kernel (``csrc/svgd_tile.cu``, the same tile that B1's step tail
+launches) replaces ``stein_tpu/ops/pallas_svgd.py:_svgd_tile_kernel``. K
+never reaches device memory: each block holds 32 rows and walks a share of
+the 32-column tiles (p beyond 384 in chunks), then a second launch adds the
+shares in a fixed order (two calls give bitwise-equal output) and forms
+phi. h^2 is read from device
+memory. The tile sizes are the kernel's own (the JAX functions' block
+arguments have no counterpart). For a CPU tensor the wrapper runs the plain
+version; for a CUDA tensor it launches the kernel or raises.
+"""
+
+import torch
+
+from .fused_median import _scalar_on
+
+_LOG2E_HALF = -1.4426950408889634 / 2.0
+
+
+def column_center(cols):
+    """The tile's centre: the mean of the column particles, [1, p]."""
+    return torch.mean(cols.to(torch.float32), dim=0, keepdim=True)
+
+
+def svgd_both_ksum_plain(rows, cols, grads, h2, center):
+    """Kernel B3's plain version: (ku [m, p], ksum [m, 1]), the JAX
+    kernel body on the whole block (torch matmuls)."""
+    rows_c = rows - center
+    cols_c = cols - center
+    u = grads - cols_c / h2
+    rsq_i = torch.sum(rows_c * rows_c, dim=1, keepdim=True)
+    rsq_j = torch.sum(cols_c * cols_c, dim=1, keepdim=True)
+    D = rsq_i + rsq_j.reshape(1, -1) - 2.0 * torch.matmul(rows_c, cols_c.T)
+    K = torch.exp2(D / h2 * _LOG2E_HALF)
+    return torch.matmul(K, u), torch.sum(K, dim=1, keepdim=True)
+
+
+def _combine(ku, ksum, rows, center, h2, n_total):
+    return (ku + ksum * (rows - center) / h2) / n_total
+
+
+def _check(rows, cols, grads, center):
+    m, p = rows.shape
+    n = cols.shape[0]
+    for name, t, shape in (("rows", rows, (m, p)), ("cols", cols, (n, p)),
+                           ("grads", grads, (n, p)),
+                           ("center", center, (1, p))):
+        if t.dtype != torch.float32:
+            raise TypeError(f"svgd tile is f32-only (got {name}={t.dtype})")
+        if tuple(t.shape) != shape or t.device != rows.device:
+            raise ValueError(f"svgd tile: {name} must be {shape} on "
+                             f"{rows.device}, got {tuple(t.shape)} on "
+                             f"{t.device}")
+
+
+def _launch(rows, cols, grads, h2, center, n_total):
+    """Both B3 launches; n_total=None returns (ku, ksum), else phi."""
+    from .. import _cuda
+
+    lib = _cuda.library().lib
+    m, p = rows.shape
+    n = cols.shape[0]
+    dev = rows.device
+    splits = lib.stein_tile_splits(m, n, p)
+    part_ku = torch.empty(splits * m * p, dtype=torch.float32, device=dev)
+    part_ksum = torch.empty(splits * m, dtype=torch.float32, device=dev)
+    if n_total is None:
+        ku = torch.empty(m, p, dtype=torch.float32, device=dev)
+        ksum = torch.empty(m, 1, dtype=torch.float32, device=dev)
+        ptrs = (ku.data_ptr(), ksum.data_ptr(), 0)
+    else:
+        phi = torch.empty(m, p, dtype=torch.float32, device=dev)
+        ptrs = (0, 0, phi.data_ptr())
+    err = lib.stein_svgd_tile(
+        rows.data_ptr(), cols.data_ptr(), grads.data_ptr(),
+        center.data_ptr(), h2.data_ptr(), m, n, p, splits,
+        part_ku.data_ptr(), part_ksum.data_ptr(), *ptrs,
+        float(n_total or 0), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _cuda.check(err, "svgd_tile_kernel launch")
+    svgd_both_ksum.launches += 1
+    return (ku, ksum) if n_total is None else phi
+
+
+def _tile(rows, cols, grads, h2, center, n_total):
+    center = center.reshape(1, -1)
+    _check(rows, cols, grads, center)
+    h2 = _scalar_on(h2, rows)
+    if rows.device.type == "cpu":
+        ku, ksum = svgd_both_ksum_plain(rows, cols, grads, h2, center)
+        if n_total is None:
+            return ku, ksum
+        return _combine(ku, ksum, rows, center, h2, n_total)
+    if rows.device.type != "cuda":
+        raise ValueError(f"svgd tile: no kernel for {rows.device}")
+    return _launch(rows.contiguous(), cols.contiguous(), grads.contiguous(),
+                   h2, center.contiguous(), n_total)
+
+
+def svgd_both_ksum(rows, cols, grads, h2, center):
+    """The raw accumulators (ku [m, p], ksum [m, 1]) of rows [m, p]
+    against cols/grads [n, p] about ``center`` ([1, p]); callers combine
+    phi = (ku + ksum * (rows - center) / h2) / n_total with the same
+    centre. f32 only."""
+    return _tile(rows, cols, grads, h2, center, None)
+
+
+svgd_both_ksum.launches = 0
+
+
+def svgd_phi_rect(rows, cols, grads, h2, n_total=None, center=None):
+    """phi for an [m, p] row block against [n, p] columns, centred at the
+    mean of the columns (pass ``center`` when the caller already holds
+    it); n_total defaults to n."""
+    if n_total is None:
+        n_total = cols.shape[0]
+    if center is None:
+        center = column_center(cols)
+    return _tile(rows, cols, grads, h2, center, n_total)
+
+
+def svgd_phi(theta, grads, h2, center=None):
+    """The SVGD direction phi for [n, p] particles and gradients."""
+    return svgd_phi_rect(theta, theta, grads, h2, center=center)

@@ -145,3 +145,70 @@ def test_warm_bisect_median_matches_jax(hint):
                                    max_rows=256)
     # rtol 1e-5: each package computes its own Gram here.
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+
+
+@pytest.mark.parametrize("m,n,p", [(128, 1000, 303), (128, 2829, 303),
+                                   (128, 2830, 303), (128, 3000, 640),
+                                   (512, 600, 8)])
+def test_bracket_pass_fits_matches_jax(m, n, p):
+    assert tfm.bracket_pass_fits(m, n, p) == jpm.bracket_pass_fits(m, n, p)
+
+
+@pytest.mark.parametrize("hint", [0.0, 1.0001])
+def test_warm_median_from_theta_matches_jax(hint):
+    """Kernel B5's plain version against JAX's fused_warm_median_from_theta
+    in interpret mode (tests/test_pallas_median.py's off-origin input),
+    rtol 1e-5: the two Grams sum in other orders."""
+    rng = np.random.default_rng(0)
+    n, p, m = 600, 8, 512
+    theta = (rng.normal(size=(n, p)) * 0.7 + 3.0).astype(np.float32)
+    rows = theta[jmed._subsample_idx(n, m)] if n > m else theta
+    center = theta.mean(0, keepdims=True)
+    cold = jpm.fused_warm_median_from_theta(
+        jnp.asarray(rows), jnp.asarray(theta), jnp.float32(0.0),
+        jnp.asarray(center), warm_passes=16, interpret=True)
+    med_prev = np.float32(float(cold) * hint)
+    want = jpm.fused_warm_median_from_theta(
+        jnp.asarray(rows), jnp.asarray(theta), jnp.float32(med_prev),
+        jnp.asarray(center), warm_passes=16, interpret=True)
+    got = tfm.fused_warm_median_from_theta(
+        torch.from_numpy(rows), torch.from_numpy(theta),
+        torch.tensor(med_prev), torch.from_numpy(center), warm_passes=16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+
+
+def test_dist_block_then_b2_matches_jax():
+    """Kernel B4's plain version then B2's against JAX's pallas_dist_block
+    (block_j=512, so n=3000 has padded columns) then
+    fused_warm_median_rows, at the JAX suite's large-block shape, rtol
+    1e-5 (tests/test_pallas_median.py)."""
+    rng = np.random.default_rng(5)
+    n, p, m = 3000, 640, 128
+    theta = (rng.normal(size=(n, p)) + 2.0).astype(np.float32)
+    rows = theta[jmed._subsample_idx(n, m)]
+    center = theta.mean(0, keepdims=True)
+    jD = jpm.pallas_dist_block(jnp.asarray(rows), jnp.asarray(theta),
+                               jnp.asarray(center), block_j=512,
+                               interpret=True)
+    want = jpm.fused_warm_median_rows(jD, jnp.float32(0.0), warm_passes=16,
+                                      interpret=True)
+    tD = tfm.dist_block(torch.from_numpy(rows), torch.from_numpy(theta),
+                        torch.from_numpy(center))
+    assert tuple(tD.shape) == (m, n)
+    np.testing.assert_allclose(tD.numpy(), np.asarray(jD), rtol=1e-5,
+                               atol=1e-5 * float(np.abs(jD).max()))
+    got = tfm.fused_warm_median_rows(tD, 0.0, warm_passes=16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+
+
+def test_gram_medians_guards():
+    rows = torch.zeros(4, 3, dtype=torch.float64)
+    c = torch.zeros(1, 3)
+    with pytest.raises(TypeError, match="f32"):
+        tfm.dist_block(rows, rows, c)
+    with pytest.raises(TypeError, match="f32"):
+        tfm.fused_warm_median_from_theta(rows, rows, 0.0, c)
+    big = torch.zeros(1, 3).expand(2 ** 16, 3)
+    with pytest.raises(ValueError, match="int32"):
+        tfm.fused_warm_median_from_theta(big, torch.zeros(1, 3).expand(
+            2 ** 15, 3), 0.0, c)

@@ -11,8 +11,12 @@ import torch
 
 import stein_tpu as sj
 import stein_tpu_torch as st
+from stein_tpu.models import BayesianNNModel as JNN
 from stein_tpu.models import LinearRegressionModel as JModel
+from stein_tpu_torch.api import _make_grad_all
+from stein_tpu_torch.models import BayesianNNModel as TNN
 from stein_tpu_torch.models import LinearRegressionModel as TModel
+from stein_tpu_torch.utils.ravel import template_unraveler
 from stein_tpu_torch.utils.convert import state_from_numpy
 
 
@@ -87,6 +91,98 @@ def test_throughput_config_matches_jax(n, p):
     assert got == want
 
 
+def _presence(cfg):
+    """A config dict with its callables replaced by their presence."""
+    return {k: (callable(v) if callable(v) else v) for k, v in cfg.items()}
+
+
+@pytest.mark.parametrize("n", [20, 1000, 2829, 2830, 4096])
+@pytest.mark.parametrize("p", [303, 640])
+def test_throughput_config_with_model_matches_jax(n, p):
+    want = sj.throughput_config(n, p, model=JNN(1, 100, 20, 20))
+    got = st.throughput_config(n, p, model=TNN(1, 100, 20, 20))
+    assert got.pop("dtype") is torch.float32
+    assert want.pop("dtype") == jnp.float32
+    assert _presence(got) == _presence(want)
+
+
+def _nn_problem(n=1000):
+    """bench.py's nn configuration: 20 observations from numpy seed 11,
+    BayesianNNModel(1, 100, 20, 20, prior_beta=10), p=303; theta0 from the
+    same generator."""
+    rng = np.random.default_rng(11)
+    X = rng.uniform(size=(20, 1))
+    y = rng.normal(np.cos(10 * X) * (5 * X), 0.1)
+    theta0 = (rng.normal(size=(n, 303)) * 0.01).astype(np.float32)
+    return X.astype(np.float32), y.astype(np.float32), theta0
+
+
+def adam_eps_regime(phi1, lr=0.1, b1=0.9, b2=0.999, eps=1e-8):
+    """The coordinates where Adam's first step amplifies phi's roundings.
+    The first step seeds mu = phi, nu = phi^2 and still divides by the
+    bias corrections, so it is lr (phi / (1 - b1)) / (eps + |phi| /
+    sqrt(1 - b2)), whose slope in phi, lr eps / ((1 - b1) (eps + |phi| /
+    sqrt(1 - b2))^2), rises to lr / ((1 - b1) eps) = 1e8 at phi = 0 (lr
+    0.1). Where it exceeds 10 (|phi| < ~1e-6; 22 of the 303 000
+    coordinates at the NN shape) no bound on the samples follows from a
+    bound on phi, so those are held through phi after step 1."""
+    slope = lr / (1 - b1) * eps / (eps + np.abs(phi1) / np.sqrt(1 - b2)) ** 2
+    return slope > 10
+
+
+def test_nn_slice_matches_jax_interpret():
+    """The Bayesian-NN path at full width: throughput_config(1000, 303,
+    model=...) picks the tile (B3), the in-kernel-Gram median (B5) and
+    the gradient kernel (B7); 5 steps of run and 3 of train_on_batch
+    against the JAX package in interpret mode, at the fused_gram class
+    (medians rtol 5e-3, phi_norm rtol 1e-4, the first clipped phi and the
+    samples rtol 2e-4 / atol 1e-6), the samples outside Adam's eps regime
+    (adam_eps_regime)."""
+    n, p = 1000, 303
+    X, y, theta0 = _nn_problem(n)
+    jm, tm = JNN(1, 100, 20, 20, prior_beta=10.0), TNN(1, 100, 20, 20,
+                                                       prior_beta=10.0)
+    jcfg = sj.throughput_config(n, p, model=jm, pallas_interpret=True)
+    tcfg = st.throughput_config(n, p, model=tm)
+    assert tcfg["kernel_impl"] == "pallas"
+    assert tcfg["median_impl"] == "fused_gram"
+    gd = dict(learning_rate=0.1, decay=0.999)
+
+    def port():
+        return st.SVGDSampler(n, tm.log_p, tm.template(), st.Adam(**gd),
+                              theta=theta0, **tcfg)
+
+    def jax():
+        return sj.SVGDSampler(n, jm.log_p, jm.template(), sj.Adam(**gd),
+                              theta=jnp.asarray(theta0), **jcfg)
+
+    jb = {"X": jnp.asarray(X), "y": jnp.asarray(y)}
+    tb = {"X": torch.from_numpy(X), "y": torch.from_numpy(y)}
+    js, ts, jfirst, tfirst = jax(), port(), jax(), port()
+    jfirst.run(jb, 1)
+    tfirst.run(tb, 1)
+    phi1 = np.asarray(jfirst.state.opt_state.mu)   # Adam's mu after step 1
+    np.testing.assert_allclose(tfirst.state.opt_state.mu.numpy(), phi1,
+                               rtol=2e-4, atol=1e-6)
+    ill = adam_eps_regime(phi1)
+    assert ill.mean() < 1e-4, f"{ill.sum()} coordinates near Adam's eps"
+    ja, ta = js.run(jb, 5), ts.run(tb, 5)
+    np.testing.assert_allclose(ta["median"].numpy(), np.asarray(ja["median"]),
+                               rtol=5e-3)
+    np.testing.assert_allclose(ta["phi_norm"].numpy(),
+                               np.asarray(ja["phi_norm"]), rtol=1e-4)
+    np.testing.assert_allclose(ts.samples[~ill], js.samples[~ill], rtol=2e-4,
+                               atol=1e-6)
+    for _ in range(3):
+        aj, at = js.train_on_batch(jb), ts.train_on_batch(tb)
+        np.testing.assert_allclose(at["median"].numpy(),
+                                   np.asarray(aj["median"]), rtol=5e-3)
+        np.testing.assert_allclose(at["phi_norm"].numpy(),
+                                   np.asarray(aj["phi_norm"]), rtol=1e-4)
+    np.testing.assert_allclose(ts.samples[~ill], js.samples[~ill], rtol=2e-4,
+                               atol=1e-6)
+
+
 def test_slice_matches_jax_interpret():
     """The main path: throughput_config(512, 16) picks fused_gram, and
     m*n = 256*512 > 100k routes init_med through kernel B2's plain version.
@@ -154,24 +250,52 @@ def _sampler(**kw):
                           theta=theta0, **kw)
 
 
+def _lr_grads():
+    m = TModel(6)
+    return _make_grad_all(m.log_p, template_unraveler(m.template())[1])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(median="bisect", kernel_impl="pallas"),
+    dict(median="bisect", kernel_impl="pallas", median_impl="fused_gram",
+         warm_median=True),
+    dict(custom_grads="lr"),
+])
+def test_ported_options_construct_and_step(kw):
+    """Options that raised before the streaming tile, the in-kernel-Gram
+    median and custom_grads were ported: each constructs and steps."""
+    X, y, _ = _problem()
+    if kw.get("custom_grads") == "lr":
+        kw = dict(custom_grads=_lr_grads())
+    s = _sampler(**kw)
+    batch = {"X": torch.from_numpy(X), "y": torch.from_numpy(y)}
+    aux = s.train_on_batch(batch)
+    assert all(torch.isfinite(v).all() for v in aux.values())
+    aux = s.run(batch, 2)
+    assert all(v.shape == (2,) for v in aux.values())
+    assert int(s.state.step) == 3 and np.isfinite(s.samples).all()
+
+
 @pytest.mark.parametrize("kw", [
     dict(mesh=object()),
-    dict(median="bisect", kernel_impl="pallas"),
+    dict(median="bisect", kernel_impl="pallas", pallas_precision="bf16"),
+    lambda: st.throughput_config(48, 6, probe_batch={}),
+    lambda: st.throughput_config(48, 6, mesh=object()),
     dict(median="bisect", warm_median=True, step_impl="fused"),
-    dict(median="bisect", warm_median=True, step_impl="fused_glm"),
-    dict(median="bisect", warm_median=True, step_impl="fused_model"),
+    dict(median="bisect", warm_median=True, step_impl="fused_glm",
+         quadratic_form=lambda batch: None),
+    dict(median="bisect", warm_median=True, step_impl="fused_model",
+         inkernel_model=lambda batch: None),
     dict(median="bisect", warm_median=True, kernel_impl="pallas",
          step_impl="epilogue"),
-    dict(median="bisect", kernel_impl="pallas", median_impl="fused_gram"),
     dict(median="subsample"),
     dict(median="binned"),
-    dict(custom_grads=lambda theta, batch: None),
     dict(kernel=object()),
     dict(remat=True),
 ])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _sampler(**kw)
+        kw() if callable(kw) else _sampler(**kw)
 
 
 @pytest.mark.parametrize("method,args", [
@@ -196,6 +320,14 @@ def test_unported_methods_raise(method, args):
     (dict(step_impl="bogus"), "unknown step_impl"),
     (dict(median_impl="fused"), "requires median='bisect'"),
     (dict(median="bogus"), "unknown median"),
+    (dict(median="exact", kernel_impl="pallas"), "median='exact'"),
+    (dict(kernel_impl="bogus"), "unknown kernel_impl"),
+    (dict(median="bisect", median_impl="fused_gram"), "kernel_impl='pallas'"),
+    (dict(custom_grads=lambda t, b: None, remat=True), "remat"),
+    (dict(median="bisect", warm_median=True, step_impl="fused_gram",
+          custom_grads=lambda t, b: None), "custom_grads"),
+    (dict(median="bisect", warm_median=True, step_impl="fused_glm"),
+     "quadratic_form"),
 ])
 def test_jax_value_error_guards_hold(kw, match):
     n = kw.pop("n_particles", 48)
@@ -208,7 +340,9 @@ def test_jax_value_error_guards_hold(kw, match):
 
 def test_import_loads_no_jax():
     code = ("import sys, stein_tpu_torch, stein_tpu_torch.api, "
-            "stein_tpu_torch.ops.fused_step, stein_tpu_torch._cuda; "
+            "stein_tpu_torch.ops.fused_step, stein_tpu_torch._cuda, "
+            "stein_tpu_torch.ops.svgd_tile, "
+            "stein_tpu_torch.models.bayesian_nn; "
             "assert 'jax' not in sys.modules, 'jax imported'; print('ok')")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
