@@ -15,7 +15,7 @@ from .api import (
     SteinSampler,
     throughput_config,
 )
-from .models import BayesianNNModel
+from .models import BayesianNNModel, LogisticRegressionModel
 from .ops.optimizers import (
     Adam,
     Adagrad,
@@ -30,6 +30,7 @@ __all__ = [
     "SteinSampler",
     "throughput_config",
     "BayesianNNModel",
+    "LogisticRegressionModel",
     "Adam",
     "Adagrad",
     "AdamGradientDescent",

@@ -55,13 +55,34 @@ _SIGNATURES = {
          _P, _P, _P, _P),                   # consts, logp, grads, stream
         _I),
     "stein_fused_step_tail": (
-        (_P, _P, _P, _I, _I, _I,            # theta, grads, rows, n, p, m
+        (_P, _P, _P, _I, _I, _I, _P,        # theta, grads, block, n, p, m, D
          _P, _I, _I, _P, _P, _I, _F, _F,    # med_prev .. log_n, max_norm
-         _I, _P, _P, _P, _P, _P,            # opt kind/consts, moments, count, lr
+         _I, _P, _P, _P, _P, _P, _P,        # opt kind/consts, moments, count,
+                                            # lr, logp
          _P, _P, _P, _P, _P, _P,            # outputs
          _P, _P, _P, _P, _P, _I,            # median scratch, splits
          _P, _P, _P, _P, _P,                # phi scratch
          _P),                               # stream
+        _I),
+    "stein_fused_epilogue": (
+        (_P, _P, _P, _P, _P, _P, _I, _I,    # ku, ksum, theta, center, h2,
+                                            # norm, n, p
+         _F, _F, _I, _P, _P, _P, _P, _P,    # n_total, max_norm, opt, state
+         _P, _P, _P, _P, _P, _P),           # outputs, stream
+        _I),
+    "stein_on_d_splits": ((_I, _I, _I), _I),
+    "stein_svgd_on_d": (
+        (_P, _P, _P, _I, _I, _I, _I,        # D, u, h2, m, n, p, splits
+         _P, _P, _P, _P, _P),               # scratch, ku, ksum, stream
+        _I),
+    "stein_glm_grad_smem": ((_I,), _I),
+    "stein_logistic_grad_smem": ((_I, _I), _I),
+    "stein_glm_grads": (
+        (_P, _I, _I, _P, _P, _P, _P, _P),   # theta, n, p, A, b, grads, logp
+        _I),
+    "stein_logistic_grads": (
+        (_P, _I, _I, _P, _P, _I, _P, _P,    # theta, n, p, X, y, N, masks
+         _F, _F, _P, _P, _P),               # scale, d/2, grads, logp, stream
         _I),
 }
 

@@ -12,11 +12,13 @@ the host.
 
 Ported: the reference path (``step_impl='xla'``, ``median`` in
 {'exact', 'bisect'}, the warm median, ``median_impl`` in {'xla', 'fused',
-'fused_gram'}), the streaming tile (``kernel_impl='pallas'``), the
-``step_impl='fused_gram'`` tail and ``custom_grads=``. Every other option
+'fused_gram'}), the streaming tile (``kernel_impl='pallas'``), every
+single-device step tail (``step_impl`` 'fused', 'fused_gram', 'fused_glm',
+'fused_model' and 'epilogue') and ``custom_grads=``. Every other option
 raises ``NotImplementedError`` naming the ROADMAP.md item that will port it.
 """
 
+import functools
 import warnings
 from typing import Any, NamedTuple
 
@@ -33,6 +35,7 @@ from .ops.fused_median import (
 )
 from .ops.fused_step import (
     FUSED_STEP_VMEM_BUDGET,
+    fused_epilogue,
     fused_step_fits,
     fused_step_vmem_bytes,
     fused_warm_step_tail,
@@ -60,9 +63,6 @@ EXACT_MEDIAN_WARN_BYTES = 2 ** 27
 
 _FUSED_STEP_IMPLS = ("fused", "fused_gram", "fused_glm", "fused_model")
 _STEP_IMPLS = ("xla", "epilogue") + _FUSED_STEP_IMPLS
-# step_impl / option -> the ROADMAP.md queue A item that ports it.
-_UNPORTED_STEP_IMPLS = {"fused": "A7", "epilogue": "A7", "fused_glm": "A8",
-                        "fused_model": "A8", "fused_shard": "A12"}
 
 
 def _unported(what, item):
@@ -316,30 +316,92 @@ def make_warm_step_fn(log_p, unravel_fn, gd, warm_phi_fn,
 
 def make_fused_warm_step_fn(log_p, unravel_fn, gd, max_phi_norm=10.0,
                             median_max_rows=512, median_passes=30,
-                            warm_passes=8):
+                            warm_passes=8, gram_in_kernel=False,
+                            quadratic_form=None, inkernel_model=None):
     """Warm step whose post-gradient tail is kernel B1
-    (ops.fused_step.fused_warm_step_tail, step_impl='fused_gram'; the JAX
-    builder's gram_in_kernel=True branch). Returns (step_fn, init_med) with
-    make_warm_step_fn's carry."""
+    (ops.fused_step.fused_warm_step_tail). ``gram_in_kernel=True``
+    (step_impl='fused_gram') computes D in the chain; False
+    (step_impl='fused') hands it D = pairwise_sq_dists(theta), an f32
+    torch matmul as the JAX package leaves it to XLA, and its strided row
+    block. ``quadratic_form`` (step_impl='fused_glm') or ``inkernel_model``
+    (step_impl='fused_model') computes the gradients and log_p values in
+    the chain too; log_p_mean is then its mean plus the model's const.
+    Returns (step_fn, init_med) with make_warm_step_fn's carry."""
+    grad_all = _make_grad_all(log_p, unravel_fn)
+
+    def step_fn(carry, batch):
+        state, med_prev = carry
+        theta = state.particles
+        tail = functools.partial(
+            fused_warm_step_tail, med_prev=med_prev,
+            opt_state=state.opt_state, gd=gd, max_phi_norm=max_phi_norm,
+            warm_passes=warm_passes)
+        if quadratic_form is not None or inkernel_model is not None:
+            if quadratic_form is not None:
+                A_eff, b_eff, const = quadratic_form(batch)
+                kernel_kw = {"glm": (A_eff, b_eff)}
+            else:
+                m = inkernel_model(batch)
+                const, kernel_kw = m.const, {"model": m}
+            new_theta, new_opt, (med, norm, h2, logp_m) = tail(
+                theta, None, None, None, gram_in_kernel=True,
+                theta_sub=subsample_rows(theta, median_max_rows),
+                **kernel_kw)
+            log_p_mean = logp_m + const
+        else:
+            log_p_vals, grads = grad_all(theta, batch)
+            log_p_mean = torch.mean(log_p_vals)
+            if gram_in_kernel:
+                new_theta, new_opt, (med, norm, h2) = tail(
+                    theta, grads, None, None, gram_in_kernel=True,
+                    theta_sub=subsample_rows(theta, median_max_rows))
+            else:
+                D = rbf.pairwise_sq_dists(theta)
+                new_theta, new_opt, (med, norm, h2) = tail(
+                    theta, grads, D, _strided_rows(D, median_max_rows))
+        new_state = SVGDState(new_theta, new_opt, state.step + 1)
+        aux = {"phi_norm": norm, "log_p_mean": log_p_mean, "h2": h2,
+               "median": med}
+        return (new_state, med), aux
+
+    return step_fn, _make_warm_median_fns(median_max_rows, median_passes,
+                                          warm_passes, "fused")[1]
+
+
+def make_epilogue_warm_step_fn(log_p, unravel_fn, gd, n_particles,
+                               max_phi_norm=10.0, median_max_rows=512,
+                               median_passes=30, warm_passes=8,
+                               median_impl="xla"):
+    """Warm step of the large-n streaming-tile path whose tail — the phi
+    combine, the global-norm clip and the optimizer update — is kernel B6
+    (ops.fused_step.fused_epilogue): step_impl='epilogue'. The tile (B3)
+    and the warm median are the plain kernel_impl='pallas' path's; the
+    clip norm is one plain reduction over the same combine, and the same
+    centre (the column mean) feeds the tile, the norm and B6. Returns
+    (step_fn, init_med) with make_warm_step_fn's carry."""
+    compute_med, init_med, _ = _make_warm_median_fns(
+        median_max_rows, median_passes, warm_passes, median_impl)
     grad_all = _make_grad_all(log_p, unravel_fn)
 
     def step_fn(carry, batch):
         state, med_prev = carry
         theta = state.particles
         log_p_vals, grads = grad_all(theta, batch)
-        new_theta, new_opt, (med, norm, h2) = fused_warm_step_tail(
-            theta, grads, None, None, med_prev, state.opt_state, gd,
-            max_phi_norm=max_phi_norm, warm_passes=warm_passes,
-            gram_in_kernel=True,
-            theta_sub=subsample_rows(theta, median_max_rows),
-        )
+        center = svgd_tile.column_center(theta)
+        med = compute_med(theta, med_prev, center)
+        h2 = rbf.bandwidth_sq_from_median(med, n_particles)
+        ku, ksum = svgd_tile.svgd_both_ksum(theta, theta, grads, h2, center)
+        phi_v = (ku + ksum * (theta - center) / h2) / n_particles
+        norm = torch.sqrt(torch.sum(phi_v * phi_v))
+        new_theta, new_opt = fused_epilogue(
+            ku, ksum, theta, center, h2, norm, state.opt_state, gd,
+            max_phi_norm=max_phi_norm, n_total=n_particles)
         new_state = SVGDState(new_theta, new_opt, state.step + 1)
         aux = {"phi_norm": norm, "log_p_mean": torch.mean(log_p_vals),
                "h2": h2, "median": med}
         return (new_state, med), aux
 
-    return step_fn, _make_warm_median_fns(median_max_rows, median_passes,
-                                          warm_passes, "fused")[1]
+    return step_fn, init_med
 
 
 def throughput_config(n_particles, n_params, mesh=None, dtype=torch.float32,
@@ -354,9 +416,10 @@ def throughput_config(n_particles, n_params, mesh=None, dtype=torch.float32,
     fused cold seed (kernel B2); large n or p >= 256 the streaming tile
     (B3), at large p with the in-kernel-Gram median (B5, or B4 then B2)
     and, for a ``model`` with ``pallas_grads``, its gradient kernel as
-    ``custom_grads`` (B7). A model with ``quadratic_form`` or
-    ``inkernel_model`` gets the one-kernel steps of the small branch, which
-    the sampler does not run yet (NotImplementedError)."""
+    ``custom_grads`` (B7). In the small branch a model with
+    ``quadratic_form`` gets step_impl='fused_glm' and one with
+    ``inkernel_model`` step_impl='fused_model': B1 with its model stage
+    (``ops/model_grad.py``) computing the gradients too."""
     if mesh is not None:
         raise _unported("throughput_config(mesh=...)", "A12")
     if probe_batch is not None:
@@ -494,9 +557,6 @@ def _check_options(n_params, dtype, median, kernel_impl, median_max_rows,
             "of the two"
         )
 
-    if step_impl in _UNPORTED_STEP_IMPLS:
-        raise _unported(f"step_impl={step_impl!r}",
-                        _UNPORTED_STEP_IMPLS[step_impl])
     if median in ("subsample", "binned"):
         raise _unported(f"median={median!r}", "A2")
     if median not in ("exact", "bisect"):
@@ -530,6 +590,10 @@ class SVGDSampler:
     custom_grads : a callable (theta [n, p], batch) -> (logp [n],
         grads [n, p]) replacing the autodiff gradient stage, e.g.
         ``BayesianNNModel.pallas_grads()`` (kernel B7).
+    quadratic_form, inkernel_model : a model's hooks for
+        step_impl='fused_glm' (``LinearRegressionModel.quadratic_form``)
+        and 'fused_model' (``LogisticRegressionModel.inkernel_model``),
+        called on each batch; the fused tail computes the gradients.
 
     Options the port does not run yet raise NotImplementedError (see
     ``_check_options``); options the JAX sampler refuses raise the same
@@ -608,7 +672,7 @@ class SVGDSampler:
         )
         self._warm_step_fn = None
         if warm_median:
-            if step_impl == "fused_gram":
+            if step_impl in _FUSED_STEP_IMPLS:
                 self._warm_step_fn, self._warm_init_med = \
                     make_fused_warm_step_fn(
                         log_p, self.unravel_fn, gd,
@@ -616,6 +680,18 @@ class SVGDSampler:
                         median_max_rows=median_max_rows,
                         median_passes=median_passes,
                         warm_passes=warm_passes,
+                        gram_in_kernel=step_impl != "fused",
+                        quadratic_form=quadratic_form,
+                        inkernel_model=inkernel_model,
+                    )
+            elif step_impl == "epilogue":
+                self._warm_step_fn, self._warm_init_med = \
+                    make_epilogue_warm_step_fn(
+                        log_p, self.unravel_fn, gd, self.n_particles,
+                        max_phi_norm=max_phi_norm,
+                        median_max_rows=median_max_rows,
+                        median_passes=median_passes,
+                        warm_passes=warm_passes, median_impl=median_impl,
                     )
             else:
                 warm_phi = make_warm_phi_fn(

@@ -20,14 +20,20 @@
 //                       one ||phi||^2 partial per block.
 //   clip_update_kernel  the global-norm clip from the partials (a
 //                       fixed-order sum, no atomics) and the Adam or
-//                       Adagrad update.
+//                       Adagrad update (opt_step, a device function).
+//   epilogue_kernel     B6 (replacing pallas_step.py:_epilogue_kernel): the
+//                       large-n path's phi combine from the tile's (ku,
+//                       ksum), the clip by a given norm, and opt_step.
 //
 // The four in that order replace stein_tpu/ops/pallas_step.py:_tail_kernel
-// (the fused step tail with gram_in_kernel=True, B1). On the TPU that
-// kernel held D and K ([n, n] each) in 16 MiB of VMEM; a Hopper block has
-// at most 227 KB of shared memory and blocks run in no order, so the tail
-// is four launches on one stream joined by device-memory scratch, with
-// grid barriers inside the cooperative median kernel.
+// (the fused step tail, B1). On the TPU that kernel held D and K ([n, n]
+// each) in 16 MiB of VMEM; a Hopper block has at most 227 KB of shared
+// memory and blocks run in no order, so the tail is four launches on one
+// stream joined by device-memory scratch, with grid barriers inside the
+// cooperative median kernel. With a given D (step_impl='fused') the median
+// kernel searches D's row block without its Gram stage and the tile is
+// B10's on D (svgd_on_d.cu); with an in-kernel model the model stage
+// (model_grad.cu) runs first and clip_update averages its log_p.
 //
 // Bounds on the H100 at the slice's shape (n=1000, p=128, m=256), all f32
 // on the CUDA cores (no tensor cores yet):
@@ -120,32 +126,74 @@ __global__ void __launch_bounds__(kMedianThreads)
                    a.log_n, a.scratch, a.out);
 }
 
+// The optimizer state of one update: moments in and out (Adagrad's second
+// pointers are unused), the count and learning rate in and out.
+struct OptState {
+  const float* mom1;
+  const float* mom2;
+  const int* count;
+  const float* lr;
+  float* new_mom1;
+  float* new_mom2;
+  int* new_count;
+  float* new_lr;
+};
+
+// The step rule on coordinate e for the clipped phi value g: writes the new
+// moments and returns the step (ops/optimizers.py, the Adam.update form).
+__device__ __forceinline__ float opt_step(const OptParams& opt,
+                                          const OptState& s, int e, float g) {
+  const bool first = *s.count == 0;
+  const float rate = *s.lr;
+  if (opt.kind == kAdam) {
+    const float mu = first ? g : opt.c[0] * s.mom1[e] + opt.c[1] * g;
+    const float nu =
+        first ? g * g : opt.c[2] * s.mom2[e] + opt.c[3] * (g * g);
+    const float t = static_cast<float>(*s.count + 1);
+    const float mup = mu / (1.0f - powf(opt.c[0], t));
+    const float nup = nu / (1.0f - powf(opt.c[2], t));
+    s.new_mom1[e] = mu;
+    s.new_mom2[e] = nu;
+    return mup / (1e-8f + sqrtf(nup)) * rate;
+  }
+  const float hist =
+      first ? g * g : opt.c[0] * s.mom1[e] + opt.c[1] * (g * g);
+  s.new_mom1[e] = hist;
+  return g / (1e-6f + sqrtf(hist)) * rate;
+}
+
+// The new count and learning rate, written once (by block 0, thread 0) to
+// their own buffers, never over the inputs that other blocks still read.
+__device__ __forceinline__ void opt_scalars(const OptParams& opt,
+                                            const OptState& s) {
+  *s.new_count = *s.count + 1;
+  *s.new_lr = opt.kind == kAdam ? *s.lr * opt.c[4] : *s.lr;
+}
+
 // Stage 3 of B1. grid.x = ceil(n * p / kUpdateThreads). Every block sums
 // the n_partials ||phi||^2 partials in one fixed order (warp 0, then a
 // shuffle tree), so every block derives the same norm. Block 0 writes the
-// new count / learning rate and the stats to their own buffers, never over
-// the inputs that other blocks still read.
+// new count / learning rate and the stats; with a model stage, stats[3]
+// is the mean of its n per-row log_p, summed in one fixed order.
 __global__ void __launch_bounds__(kUpdateThreads)
     clip_update_kernel(const float* __restrict__ phi,
                        const float* __restrict__ partials, int n_partials,
                        const float* __restrict__ theta, int total,
-                       float max_norm, OptParams opt,
-                       const float* __restrict__ mom1,
-                       const float* __restrict__ mom2,
-                       const int* __restrict__ count,
-                       const float* __restrict__ lr,
+                       float max_norm, OptParams opt, OptState st,
                        const float* __restrict__ med_h2,
+                       const float* __restrict__ logp, int n,
                        float* __restrict__ new_theta,
-                       float* __restrict__ new_mom1,
-                       float* __restrict__ new_mom2,
-                       int* __restrict__ new_count,
-                       float* __restrict__ new_lr,
                        float* __restrict__ stats) {
   __shared__ float s_scale;
   if (threadIdx.x < 32) {
     float s = 0.0f;
     for (int b = threadIdx.x; b < n_partials; b += 32) s += partials[b];
     s = warp_sum(s);
+    float lp = 0.0f;
+    if (blockIdx.x == 0 && logp != nullptr) {
+      for (int i = threadIdx.x; i < n; i += 32) lp += logp[i];
+      lp = warp_sum(lp);
+    }
     if (threadIdx.x == 0) {
       const float norm = sqrtf(s);
       s_scale = max_norm / fmaxf(max_norm, norm);
@@ -153,33 +201,38 @@ __global__ void __launch_bounds__(kUpdateThreads)
         stats[0] = med_h2[0];
         stats[1] = norm;
         stats[2] = med_h2[1];
-        *new_count = *count + 1;
-        *new_lr = opt.kind == kAdam ? *lr * opt.c[4] : *lr;
+        if (logp != nullptr) stats[3] = lp / static_cast<float>(n);
+        opt_scalars(opt, st);
       }
     }
   }
   __syncthreads();
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= total) return;
-  const float g = phi[e] * s_scale;
-  const bool first = *count == 0;
-  const float rate = *lr;
-  float step;
-  if (opt.kind == kAdam) {
-    const float mu = first ? g : opt.c[0] * mom1[e] + opt.c[1] * g;
-    const float nu = first ? g * g : opt.c[2] * mom2[e] + opt.c[3] * (g * g);
-    const float t = static_cast<float>(*count + 1);
-    const float mup = mu / (1.0f - powf(opt.c[0], t));
-    const float nup = nu / (1.0f - powf(opt.c[2], t));
-    step = mup / (1e-8f + sqrtf(nup)) * rate;
-    new_mom1[e] = mu;
-    new_mom2[e] = nu;
-  } else {
-    const float hist = first ? g * g : opt.c[0] * mom1[e] + opt.c[1] * (g * g);
-    step = g / (1e-6f + sqrtf(hist)) * rate;
-    new_mom1[e] = hist;
-  }
-  new_theta[e] = theta[e] + step;
+  new_theta[e] = theta[e] + opt_step(opt, st, e, phi[e] * s_scale);
+}
+
+// B6, one thread per coordinate: phi = (ku + ksum (theta - c) / h2) /
+// n_total in the JAX kernel's operation order, the clip by the given
+// pre-clip norm, the update. Bound by its 7 [n, p] passes over device
+// memory (ku, theta, two moments in; theta, two moments out).
+__global__ void __launch_bounds__(kUpdateThreads)
+    epilogue_kernel(const float* __restrict__ ku,
+                    const float* __restrict__ ksum,
+                    const float* __restrict__ theta,
+                    const float* __restrict__ center,
+                    const float* __restrict__ h2p,
+                    const float* __restrict__ normp, int n, int p,
+                    float n_total, float max_norm, OptParams opt,
+                    OptState st, float* __restrict__ new_theta) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e == 0) opt_scalars(opt, st);
+  if (e >= n * p) return;
+  const int i = e / p, k = e % p;
+  const float tc = theta[e] - center[k];
+  const float phi = (ku[e] + ksum[i] * tc / *h2p) / n_total;
+  const float g = phi * (max_norm / fmaxf(max_norm, *normp));
+  new_theta[e] = theta[e] + opt_step(opt, st, e, g);
 }
 
 Brackets make_brackets(const float* lo, const float* hi, int count) {
@@ -261,20 +314,26 @@ int stein_warm_median(const float* D, int total, const float* med_prev,
   return cudaGetLastError();
 }
 
-// B1: the fused step tail. rows is theta_sub [m, p] or theta (m == n).
-// Scratch: dsub [m*n], center [p], part_center [blocks*p], part_counts
-// [(1+rounds)*blocks*16] (ints), part_range [2*blocks], part_ku
-// [splits*n*p], part_ksum [splits*n], phi [n*p], partials
-// [stein_reduce_blocks(n, p)], med_h2 [2]. mom2 / new_mom2 are unused by
-// Adagrad.
+// B1: the fused step tail. Gram mode (D null): block is theta_sub [m, p]
+// or theta (m == n), and the median kernel's Gram stage writes the centred
+// block into dsub [m*n]. D mode: D is the given [n, n] squared distances,
+// block its [m, n] row block, searched in place; the tile is B10's on D
+// and tc = theta (no centre). Scratch: center [p], part_center
+// [blocks*p], part_counts [(1+rounds)*blocks*16] (ints), part_range
+// [2*blocks], part_ku [splits*n*p], part_ksum [splits*n], phi [n*p],
+// partials [stein_reduce_blocks(n, p)], med_h2 [2]; splits is
+// stein_tile_splits(n, n, p), or stein_on_d_splits in D mode. mom2 /
+// new_mom2 are unused by Adagrad. logp [n] (a model stage's per-row log_p)
+// or null; stats holds 3 floats, 4 with logp.
 int stein_fused_step_tail(const float* theta, const float* grads,
-                          const float* rows, int n, int p, int m,
-                          const float* med_prev, int k, int rounds,
-                          const float* bracket_lo, const float* bracket_hi,
-                          int n_brackets, float log_n, float max_norm,
-                          int opt_kind, const float* opt_consts,
-                          const float* mom1, const float* mom2,
-                          const int* count, const float* lr,
+                          const float* block, int n, int p, int m,
+                          const float* D, const float* med_prev, int k,
+                          int rounds, const float* bracket_lo,
+                          const float* bracket_hi, int n_brackets,
+                          float log_n, float max_norm, int opt_kind,
+                          const float* opt_consts, const float* mom1,
+                          const float* mom2, const int* count,
+                          const float* lr, const float* logp,
                           float* new_theta, float* new_mom1, float* new_mom2,
                           int* new_count, float* new_lr, float* stats,
                           float* dsub, float* center, float* part_center,
@@ -283,32 +342,66 @@ int stein_fused_step_tail(const float* theta, const float* grads,
                           float* partials, float* med_h2, void* stream_ptr) {
   if (n_brackets > kMaxBrackets) return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const size_t smem = gram_smem(p);
+  const bool gram = D == nullptr;
+  const size_t smem = gram ? gram_smem(p) : 0;
   int blocks = 0;
   cudaError_t err = median_grid(smem, &blocks);
   if (err != cudaSuccess) return err;
-  GramArgs g{theta, rows, n, p, m, center, part_center, nullptr};
-  MedianArgs a{dsub, m * n, med_prev, k, rounds,
+  GramArgs g{};
+  if (gram) g = GramArgs{theta, block, n, p, m, center, part_center, nullptr};
+  MedianArgs a{gram ? dsub : block, m * n, med_prev, k, rounds,
                make_brackets(bracket_lo, bracket_hi, n_brackets), log_n,
                med_h2, SweepScratch{part_counts, part_range}};
   if ((err = launch_median(g, a, blocks, smem, stream)) != cudaSuccess)
     return err;
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  const TileArgs tile{theta, theta, grads, center, med_h2 + 1, n, n, p,
-                      false, splits, part_ku, part_ksum,
+  const TileArgs tile{theta, theta, grads, gram ? center : nullptr,
+                      med_h2 + 1, n, n, p, false, splits, part_ku, part_ksum,
                       static_cast<float>(n), nullptr, nullptr, phi, partials};
-  if ((err = launch_tile(tile, stream)) != cudaSuccess) return err;
+  if (gram) {
+    err = launch_tile(tile, stream);
+  } else {
+    const OnDArgs on_d{D, nullptr, grads, theta, med_h2 + 1, n, n, p, true,
+                       splits, part_ku, part_ksum};
+    if ((err = launch_on_d(on_d, stream)) == cudaSuccess)
+      err = launch_tile_reduce(tile, stream);
+  }
+  if (err != cudaSuccess) return err;
 
   const int total = n * p;
   OptParams opt{};
   opt.kind = opt_kind;
   for (int i = 0; i < 5; ++i) opt.c[i] = opt_consts[i];
+  const OptState st{mom1, mom2, count, lr, new_mom1, new_mom2, new_count,
+                    new_lr};
   clip_update_kernel<<<(total + kUpdateThreads - 1) / kUpdateThreads,
                        kUpdateThreads, 0, stream>>>(
       phi, partials, stein_reduce_blocks(n, p), theta, total, max_norm, opt,
-      mom1, mom2, count, lr, med_h2, new_theta, new_mom1, new_mom2,
-      new_count, new_lr, stats);
+      st, med_h2, logp, n, new_theta, stats);
+  return cudaGetLastError();
+}
+
+// B6: ku, theta [n, p], ksum [n], center [p]; h2 and the pre-clip norm are
+// device scalars. Moments and scalars as in stein_fused_step_tail.
+int stein_fused_epilogue(const float* ku, const float* ksum,
+                         const float* theta, const float* center,
+                         const float* h2, const float* norm, int n, int p,
+                         float n_total, float max_norm, int opt_kind,
+                         const float* opt_consts, const float* mom1,
+                         const float* mom2, const int* count, const float* lr,
+                         float* new_theta, float* new_mom1, float* new_mom2,
+                         int* new_count, float* new_lr, void* stream) {
+  OptParams opt{};
+  opt.kind = opt_kind;
+  for (int i = 0; i < 5; ++i) opt.c[i] = opt_consts[i];
+  const OptState st{mom1, mom2, count, lr, new_mom1, new_mom2, new_count,
+                    new_lr};
+  const int total = n * p;
+  epilogue_kernel<<<(total + kUpdateThreads - 1) / kUpdateThreads,
+                    kUpdateThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      ku, ksum, theta, center, h2, norm, n, p, n_total, max_norm, opt, st,
+      new_theta);
   return cudaGetLastError();
 }
 

@@ -279,7 +279,8 @@ __global__ void __launch_bounds__(kReduceThreads) tile_reduce_kernel(TileArgs a)
       a.ku[e] = ku;
       if (k == 0) a.ksum[i] = ks;
     } else {
-      const float tc = __ldg(a.rows + e) - __ldg(a.center + k);
+      const float r = __ldg(a.rows + e);
+      const float tc = a.center != nullptr ? r - __ldg(a.center + k) : r;
       v = (ku + ks * tc / __ldg(a.h2)) / a.n_total;
       a.phi[e] = v;
     }
@@ -335,6 +336,10 @@ cudaError_t launch_tile(const TileArgs& a, cudaStream_t stream) {
     default: err = launch_tile_kernel<kMaxOut>(a, stream); break;
   }
   if (err != cudaSuccess) return err;
+  return launch_tile_reduce(a, stream);
+}
+
+cudaError_t launch_tile_reduce(const TileArgs& a, cudaStream_t stream) {
   tile_reduce_kernel<<<tile_reduce_blocks(a.m, a.p), kReduceThreads, 0,
                        stream>>>(a);
   return cudaGetLastError();

@@ -31,5 +31,28 @@ int tile_splits(int m, int n, int p);
 int tile_reduce_blocks(int m, int p);
 // Both launches on `stream`; returns the first CUDA error.
 cudaError_t launch_tile(const TileArgs& a, cudaStream_t stream);
+// The reduce alone, over the shares of a.part_ku / a.part_ksum. With a
+// null centre the combine's tc is the rows themselves.
+cudaError_t launch_tile_reduce(const TileArgs& a, cudaStream_t stream);
+
+// B10's tile on a given D (svgd_on_d.cu): the same [splits, m, p] and
+// [splits, m] share layout, for launch_tile_reduce.
+struct OnDArgs {
+  const float* D;       // [m, n] rows of squared distances
+  const float* u;       // [n, p], or null: u = grads - cols / h2
+  const float* grads;   // [n, p] (u null)
+  const float* cols;    // [n, p] (u null), uncentred
+  const float* h2;      // device scalar
+  int m, n, p;
+  // K's exponent as D * (-log2e/2 / h2), the JAX step tail's order (B1),
+  // or as (D * (-log2e/2)) / h2, the JAX on-D tile's (B10).
+  bool scale_first;
+  int splits;           // on_d_splits(m, n, p)
+  float* part_ku;       // [splits, m, p] scratch
+  float* part_ksum;     // [splits, m] scratch
+};
+
+int on_d_splits(int m, int n, int p);
+cudaError_t launch_on_d(const OnDArgs& a, cudaStream_t stream);
 
 }  // namespace stein

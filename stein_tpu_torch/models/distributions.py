@@ -20,6 +20,13 @@ def normal_log_prob(x, loc, scale):
     return -0.5 * z * z - log_scale - 0.5 * math.log(2.0 * math.pi)
 
 
+def sigmoid_cross_entropy_with_logits(labels, logits):
+    """Matches tf.nn.sigmoid_cross_entropy_with_logits:
+    max(x, 0) - x*z + log(1 + exp(-|x|))."""
+    return (torch.clamp(logits, min=0.0) - logits * labels
+            + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
 def gamma_log_prob(x, concentration, rate):
     """log Gamma(x; concentration alpha, rate beta).
 

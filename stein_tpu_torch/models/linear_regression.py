@@ -9,6 +9,7 @@ TF32 on), the precision the JAX model's default "high" tier stands for.
 """
 
 import dataclasses
+import math
 
 import torch
 
@@ -35,6 +36,22 @@ class LinearRegressionModel:
         X = batch["X"].to(dtype)
         y = batch["y"].to(dtype)
         return {"A": X.T @ X, "b": X.T @ y, "yty": torch.sum(y * y)}
+
+    def quadratic_form(self, batch):
+        """The log-posterior as an explicit quadratic
+        log_p(w) = -0.5 w^T A_eff w + b_eff^T w + const, gradient
+        b_eff - A_eff w: the contract of step_impl='fused_glm', whose step
+        computes every particle's gradient in one [n, p] x [p, p] product.
+        A_eff = X^T X + I (likelihood + N(0,1) prior), b_eff = X^T y [p].
+        Accepts either batch form; feed it the sufficient_batch dict so the
+        statistics are not recomputed every step."""
+        s = batch if "A" in batch else self.sufficient_batch(
+            batch, batch["X"].dtype)
+        A, b, yty = s["A"], s["b"], s["yty"]
+        p = A.shape[0]
+        A_eff = A + torch.eye(p, dtype=A.dtype, device=A.device)
+        const = -0.5 * yty - 0.5 * p * math.log(2.0 * math.pi)
+        return A_eff, b.reshape(p), const
 
     def log_p(self, params, batch):
         w = params["w"]

@@ -1,9 +1,10 @@
-"""The streaming SVGD tile (kernel B3).
+"""The streaming SVGD tile (kernel B3) and the tile on a given D (B10).
 
 PyTorch counterpart of the single-device part of
 ``stein_tpu/ops/pallas_svgd.py``: ``pallas_svgd_both_ksum`` (here
-``svgd_both_ksum``), ``pallas_svgd_phi_rect`` (``svgd_phi_rect``) and
-``pallas_svgd_phi`` (``svgd_phi``). For an [m, p] row block against [n, p]
+``svgd_both_ksum``), ``pallas_svgd_phi_rect`` (``svgd_phi_rect``),
+``pallas_svgd_phi`` (``svgd_phi``) and ``pallas_svgd_both_ksum_on_D``
+(``svgd_both_ksum_on_D``, at the end). For an [m, p] row block against [n, p]
 column particles and gradients, with the columns' mean c as the centre:
 
   D  = |r - c|^2 + |t - c|^2 - 2 (r - c)(t - c)^T       (centred, f32 dot)
@@ -134,3 +135,54 @@ def svgd_phi_rect(rows, cols, grads, h2, n_total=None, center=None):
 def svgd_phi(theta, grads, h2, center=None):
     """The SVGD direction phi for [n, p] particles and gradients."""
     return svgd_phi_rect(theta, theta, grads, h2, center=center)
+
+
+def svgd_both_ksum_on_D_plain(D_rows, u_cols, h2):
+    """Kernel B10's plain version: K = exp2(D (-log2(e)/2) / h^2) in the
+    JAX on-D tile's operation order, (K @ u, rowsum K)."""
+    K = torch.exp2(D_rows * _LOG2E_HALF / h2)
+    return torch.matmul(K, u_cols), torch.sum(K, dim=1, keepdim=True)
+
+
+def svgd_both_ksum_on_D(D_rows, u_cols, h2):
+    """(ku [m, p], ksum [m, 1]) from a given [m, n] distance block and the
+    regrouped operand u = grads - theta / h^2 [n, p], K never in device
+    memory (``stein_tpu/ops/pallas_svgd.py:pallas_svgd_both_ksum_on_D``).
+    f32 only. The CUDA kernel (``csrc/svgd_on_d.cu``) replaces
+    ``pallas_svgd.py:_svgd_on_d_tile_kernel``; B1's D-given tail
+    (step_impl='fused') runs the same tile, counted here too."""
+    m, n = D_rows.shape
+    p = u_cols.shape[1]
+    for name, t, shape in (("D_rows", D_rows, (m, n)),
+                           ("u_cols", u_cols, (n, p))):
+        if t.dtype != torch.float32:
+            raise TypeError(f"svgd tile on D is f32-only (got "
+                            f"{name}={t.dtype})")
+        if tuple(t.shape) != shape or t.device != D_rows.device:
+            raise ValueError(f"svgd tile on D: {name} must be {shape} on "
+                             f"{D_rows.device}, got {tuple(t.shape)}")
+    h2 = _scalar_on(h2, D_rows)
+    if D_rows.device.type == "cpu":
+        return svgd_both_ksum_on_D_plain(D_rows, u_cols, h2)
+    if D_rows.device.type != "cuda":
+        raise ValueError(f"svgd tile on D: no kernel for {D_rows.device}")
+    from .. import _cuda
+
+    lib = _cuda.library().lib
+    D_rows, u_cols = D_rows.contiguous(), u_cols.contiguous()
+    dev = D_rows.device
+    splits = lib.stein_on_d_splits(m, n, p)
+    part_ku = torch.empty(splits * m * p, dtype=torch.float32, device=dev)
+    part_ksum = torch.empty(splits * m, dtype=torch.float32, device=dev)
+    ku = torch.empty(m, p, dtype=torch.float32, device=dev)
+    ksum = torch.empty(m, 1, dtype=torch.float32, device=dev)
+    err = lib.stein_svgd_on_d(
+        D_rows.data_ptr(), u_cols.data_ptr(), h2.data_ptr(), m, n, p, splits,
+        part_ku.data_ptr(), part_ksum.data_ptr(), ku.data_ptr(),
+        ksum.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(err, "svgd_on_d_kernel launch")
+    svgd_both_ksum_on_D.launches += 1
+    return ku, ksum
+
+
+svgd_both_ksum_on_D.launches = 0

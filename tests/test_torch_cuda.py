@@ -12,11 +12,20 @@ import pytest
 import torch
 
 from stein_tpu_torch import Adagrad, Adam, SVGDSampler, throughput_config
-from stein_tpu_torch.models import BayesianNNModel, LinearRegressionModel
+from stein_tpu_torch.models import (
+    BayesianNNModel,
+    LinearRegressionModel,
+    LogisticRegressionModel,
+)
 from stein_tpu_torch.models import bayesian_nn
-from stein_tpu_torch.ops import fused_median, fused_step, svgd_tile
-from stein_tpu_torch.ops.median import row_subsample_block, subsample_rows
+from stein_tpu_torch.ops import fused_median, fused_step, model_grad, svgd_tile
+from stein_tpu_torch.ops.median import (
+    _strided_rows,
+    row_subsample_block,
+    subsample_rows,
+)
 from stein_tpu_torch.ops.optimizers import AdagradState, AdamState
+from stein_tpu_torch.ops.rbf import pairwise_sq_dists
 
 pytestmark = pytest.mark.cuda
 
@@ -232,3 +241,200 @@ def test_nn_sampler_runs_through_its_kernels(dev):
     torch.cuda.synchronize()
     assert [fn.launches for fn in counts] == [5, 5, 6]
     assert all(torch.isfinite(v).all() for v in aux.values())
+
+
+def _state(rule, n, p, dev, count=5):
+    nu = torch.ones(n, p, device=dev)
+    c = torch.full((), count, dtype=torch.int32, device=dev)
+    lr = torch.full((), 0.1, device=dev)
+    if rule == "adam":
+        return Adam(1e-1, decay=0.99), AdamState(torch.zeros_like(nu), nu, c,
+                                                 lr)
+    return Adagrad(5e-2), AdagradState(nu, c, lr)
+
+
+def _logistic_operands(n, d, N, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(N, d))
+    y = (X @ rng.normal(size=(d, 1)) > 0).astype(np.float64)
+    model = LogisticRegressionModel(d, 581012, N)
+    batch = {"X": torch.tensor(X, dtype=torch.float32, device=dev),
+             "y": torch.tensor(y, dtype=torch.float32, device=dev)}
+    theta = torch.tensor(rng.normal(size=(n, d + 1)) * 0.1,
+                         dtype=torch.float32, device=dev)
+    return model.inkernel_model(batch), theta
+
+
+@pytest.mark.parametrize("n,p", [(1000, 128), (50, 128), (333, 37)])
+def test_glm_stage_against_plain(dev, n, p):
+    """logp rtol 2e-5 / atol 1e-5 of max|logp|, grads <= 2e-5 max|g| (B7's
+    bounds: f32 sums in another order); two calls bitwise equal."""
+    rng = np.random.default_rng(n + p)
+    X = rng.normal(size=(2 * p, p))
+    A = torch.tensor(X.T @ X + np.eye(p), dtype=torch.float32, device=dev)
+    b = torch.tensor(rng.normal(size=(1, p)), dtype=torch.float32, device=dev)
+    theta = torch.tensor(rng.normal(size=(n, p)) * 0.1, dtype=torch.float32,
+                         device=dev)
+    launches = model_grad.glm_grads.launches
+    g, lp = model_grad.glm_grads(theta, A, b)
+    g2, lp2 = model_grad.glm_grads(theta, A, b)
+    assert model_grad.glm_grads.launches == launches + 2
+    g0, lp0 = model_grad.glm_grads_plain(theta, A, b)
+    assert torch.equal(g, g2) and torch.equal(lp, lp2)
+    torch.testing.assert_close(lp, lp0, rtol=2e-5,
+                               atol=1e-5 * lp0.abs().max().item())
+    assert (g - g0).abs().max().item() <= 2e-5 * g0.abs().max().item()
+
+
+@pytest.mark.parametrize("n,d,N", [(1000, 54, 50), (300, 6, 40),
+                                   (97, 200, 33)])
+def test_logistic_stage_against_plain(dev, n, d, N):
+    """The Covertype shape (n=1000, p=55, N=50) and two others, at the same
+    bounds (the gradients carry n_train/n_batch, so they are held relative
+    to max|g|)."""
+    ikm, theta = _logistic_operands(n, d, N, dev)
+    launches = model_grad.logistic_grads.launches
+    g, lp = ikm.grad_fn(theta, *ikm.operands)
+    assert model_grad.logistic_grads.launches == launches + 1
+    g0, lp0 = ikm.grad_fn.plain(theta, *ikm.operands)
+    torch.testing.assert_close(lp, lp0, rtol=2e-5,
+                               atol=1e-5 * lp0.abs().max().item())
+    assert (g - g0).abs().max().item() <= 2e-5 * g0.abs().max().item()
+
+
+@pytest.mark.parametrize("m,n,p", [(1000, 1000, 128), (333, 777, 50),
+                                   (200, 500, 300)])
+def test_b10_against_plain(dev, m, n, p):
+    """ku and ksum <= 1e-5 normalised against the plain version (f32 sums
+    in another order, exp2f), two calls bitwise equal."""
+    rng = np.random.default_rng(m + n + p)
+    theta = torch.tensor(rng.normal(size=(n, p)), dtype=torch.float32,
+                         device=dev)
+    D = pairwise_sq_dists(theta)[:m].contiguous()
+    h2 = fused_median.warm_search_on_value(D, torch.zeros((), device=dev),
+                                           30) / np.log(n)
+    u = torch.tensor(rng.normal(size=(n, p)), dtype=torch.float32,
+                     device=dev) - theta / h2
+    ku, ks = svgd_tile.svgd_both_ksum_on_D(D, u, h2)
+    ku2, ks2 = svgd_tile.svgd_both_ksum_on_D(D, u, h2)
+    ku0, ks0 = svgd_tile.svgd_both_ksum_on_D_plain(D, u, h2)
+    assert torch.equal(ku, ku2) and torch.equal(ks, ks2)
+    assert _norm_err(ku, ku0) <= 1e-5 and _norm_err(ks, ks0) <= 1e-5
+
+
+@pytest.mark.parametrize("rule", ["adam", "adagrad"])
+def test_b6_against_plain(dev, rule):
+    """The large-n epilogue at n=10240, p=128: rtol 2e-6 (the JAX suite's
+    bound for the epilogue), the clip active."""
+    n, p = 10240, 128
+    rng = np.random.default_rng(7)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa
+    theta = t(rng.normal(size=(n, p)))
+    ku, ksum = t(rng.normal(size=(n, p))), t(rng.uniform(1, 2, (n, 1)))
+    center = theta.mean(0, keepdim=True)
+    gd, state = _state(rule, n, p, dev)
+    norm = torch.full((), 40.0, device=dev)
+    h2 = torch.full((), 0.7, device=dev)
+    got = fused_step.fused_epilogue(ku, ksum, theta, center, h2, norm, state,
+                                    gd, n_total=n)
+    want = fused_step.fused_epilogue_plain(ku, ksum, theta, center, h2, norm,
+                                           state, gd, 10.0, n)
+    for a, b in zip([got[0], *got[1]], [want[0], *want[1]]):
+        torch.testing.assert_close(a, b, rtol=2e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("rule", ["adam", "adagrad"])
+@pytest.mark.parametrize("kind", ["glm", "logistic", "d_given"])
+def test_b1_branches_against_plain(dev, rule, kind):
+    """B1's model and D-given chains against _plain_tail's forms. glm and
+    D-given on lattice particles (glm with an integer A and b, so the
+    gradients are exact too): median and h^2 bitwise, the rest <= 1e-5
+    normalised. Logistic, on random particles (D from two dot orders, as
+    on the main path's inputs): the median within one final interval of
+    the tight bracket, the rest <= 1e-2 normalised."""
+    n, p, rows = 1000, 128, 128
+    model, D, D_sub, grads = None, None, None, None
+    rng = np.random.default_rng(2)
+    if kind == "logistic":
+        model, theta = _logistic_operands(n, 54, 50, dev)
+        p = 55
+    else:
+        theta = _lattice(n, p, dev)
+    if kind == "glm":
+        A = torch.tensor(rng.integers(-2, 3, size=(p, p)), dtype=torch.float32,
+                         device=dev)
+        b = torch.tensor(rng.integers(-3, 4, size=(p,)), dtype=torch.float32,
+                         device=dev)
+        model = fused_step.InKernelModel((A + A.T, b.reshape(1, p)),
+                                         model_grad.GlmGrad())
+    if kind == "d_given":
+        D = pairwise_sq_dists(theta)
+        D_sub = _strided_rows(D, rows)
+        grads = torch.tensor(rng.normal(size=(n, p)), dtype=torch.float32,
+                             device=dev)
+        sub = None
+    else:
+        sub = subsample_rows(theta, rows)
+    gd, state = _state(rule, n, p, dev)
+    med_prev = fused_median.warm_search_on_value(
+        D_sub if D is not None else row_subsample_block(theta, rows),
+        torch.zeros((), device=dev), 30)
+    k = fused_step.fused_warm_step_tail(
+        theta, grads, D, D_sub, med_prev, state, gd,
+        gram_in_kernel=D is None, theta_sub=sub, model=model)
+    q = fused_step._plain_tail(theta, grads, sub, med_prev, state, gd, 10.0,
+                               8, fused_step.DEFAULT_BRACKETS, D=D,
+                               D_sub=D_sub, model=model)
+    assert len(k[2]) == len(q[2]) == (3 if model is None else 4)
+    if kind == "logistic":
+        width = (1.09 - 0.92) * med_prev.item() / 4 ** 4
+        assert abs(k[2][0].item() - q[2][0].item()) <= width * 1.0001
+        bound = 1e-2
+    else:
+        assert k[2][0].item() == q[2][0].item()
+        assert k[2][2].item() == q[2][2].item()
+        bound = 1e-5
+    for a, b in zip([k[0], *k[1], *k[2]], [q[0], *q[1], *q[2]]):
+        assert _norm_err(a, b) <= bound
+
+
+def test_new_paths_run_through_their_kernels(dev):
+    """fused_glm, fused_model, fused and epilogue samplers: five steps
+    each, with each path's launch counts."""
+    rng = np.random.default_rng(0)
+    f32 = torch.float32
+    X = torch.tensor(rng.normal(size=(200, 16)), dtype=f32, device=dev)
+    lr_batch = {"X": X, "y": X @ torch.ones(16, 1, device=dev)}
+    lin = LinearRegressionModel(16)
+    ikm_model = LogisticRegressionModel(15, 1000, 50)
+    Xl = rng.normal(size=(50, 15))
+    log_batch = {"X": torch.tensor(Xl, dtype=f32, device=dev),
+                 "y": torch.tensor((Xl.sum(1, keepdims=True) > 0) * 1.0,
+                                   dtype=f32, device=dev)}
+    counters = (model_grad.glm_grads, model_grad.logistic_grads,
+                fused_step.fused_warm_step_tail,
+                svgd_tile.svgd_both_ksum_on_D, svgd_tile.svgd_both_ksum,
+                fused_step.fused_epilogue, fused_median.fused_warm_median_rows)
+    cases = [
+        (lin, lin.sufficient_batch(lr_batch), 600,
+         throughput_config(600, 16, model=lin), [5, 0, 5, 0, 0, 0, 0]),
+        (ikm_model, log_batch, 600,
+         throughput_config(600, 16, model=ikm_model), [0, 5, 5, 0, 0, 0, 0]),
+        (lin, lr_batch, 600,
+         dict(throughput_config(600, 16), step_impl="fused"),
+         [0, 0, 5, 5, 0, 0, 1]),
+        (lin, lr_batch, 4096,
+         dict(throughput_config(4096, 16), step_impl="epilogue"),
+         [0, 0, 0, 0, 5, 5, 6]),
+    ]
+    for model, batch, n, cfg, want in cases:
+        s = SVGDSampler(n, model.log_p, model.template(), Adam(1e-1),
+                        theta=rng.normal(size=(n, 16)) * 0.1, device="cuda",
+                        **cfg)
+        for fn in counters:
+            fn.launches = 0
+        aux = s.run(batch, 5)
+        torch.cuda.synchronize()
+        assert [fn.launches for fn in counters] == want, cfg["step_impl"]
+        assert all(torch.isfinite(v).all() for v in aux.values())
+        assert np.isfinite(s.samples).all()

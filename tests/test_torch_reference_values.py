@@ -1,0 +1,81 @@
+"""The JAX package's reference values that chip_smoke.py holds the port to,
+recomputed here on the CPU from chip_smoke's own recipes: each constant must
+be what the JAX package gives (the chaotic spreads to rtol 0.1, since they
+are the max abs difference of two f32 trajectories)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+import chip_smoke as cs
+import stein_tpu as sj
+from stein_tpu.models import LinearRegressionModel as JM
+from stein_tpu.models import LogisticRegressionModel as JL
+
+
+def _lr(theta0, sufficient=True):
+    """chip_smoke's LR data, its JAX model and batch, theta0 as f32."""
+    X, y, _ = cs.make_data()
+    model = JM(cs.P)
+    batch = {"X": jnp.asarray(X, jnp.float32), "y": jnp.asarray(y, jnp.float32)}
+    if sufficient:
+        batch = model.sufficient_batch(batch)
+    return X, y, model, batch, jnp.asarray(theta0, jnp.float32)
+
+
+def _sampler(model, theta0, gd, cfg):
+    return sj.SVGDSampler(theta0.shape[0], model.log_p, model.template(), gd,
+                          theta=theta0, **cfg)
+
+
+def test_logreg_log_p_mean_at_step_500():
+    X, y, theta0 = cs.logreg_data()
+    model = JL(cs.LOGREG_D, cs.LOGREG_TRAIN, cs.LOGREG_OBS)
+    cfg = sj.throughput_config(cs.LOGREG_N, cs.LOGREG_D + 1, model=model,
+                               pallas_interpret=True)
+    assert cfg["step_impl"] == "fused_model"
+    cfg.update(median_passes=16, warm_passes=6)
+    s = _sampler(model, jnp.asarray(theta0, jnp.float32),
+                 sj.Adam(learning_rate=1e-1), cfg)
+    aux = s.run({"X": jnp.asarray(X, jnp.float32),
+                 "y": jnp.asarray(y, jnp.float32)}, cs.LOGREG_STEPS)
+    assert float(aux["log_p_mean"][-1]) == pytest.approx(cs.LOGREG_LOGP_JAX,
+                                                         rel=1e-5)
+
+
+def test_glm_posterior_error_at_step_500():
+    X, y, model, batch, theta0 = _lr(cs.make_data()[2])
+    cfg = sj.throughput_config(cs.N, cs.P, model=model, pallas_interpret=True)
+    assert cfg["step_impl"] == "fused_glm"
+    s = _sampler(model, theta0, sj.Adam(learning_rate=1e-1), cfg)
+    s.run(batch, cs.GLM_STEPS)
+    post = np.linalg.solve(X.T @ X + np.eye(cs.P), X.T @ y).ravel()
+    err = float(np.max(np.abs(np.asarray(s.samples).mean(0) - post)))
+    assert err == pytest.approx(cs.POSTERIOR_GLM_JAX, rel=1e-3)
+
+
+@pytest.mark.parametrize("case", ["glm50", "fused"])
+def test_spread_of_the_jax_package_own_paths(case):
+    """The max abs difference of the samples after 10 steps between the
+    JAX package's xla path and its fused_glm (BASELINE #1's n=50 route) or
+    fused (step_impl='fused' at n=1000) path."""
+    if case == "glm50":
+        theta0 = np.random.default_rng(3).normal(size=(cs.GLM50_N, cs.P))
+        _, _, model, batch, theta0 = _lr(theta0 * 0.01)
+        fused = sj.throughput_config(cs.GLM50_N, cs.P, model=model,
+                                     pallas_interpret=True)
+        xla = dict(median="bisect", warm_median=True, median_max_rows=128,
+                   median_impl="fused", pallas_interpret=True)
+        gd, want = (lambda: sj.Adagrad(learning_rate=0.1)), cs.GLM50_SPREAD_JAX
+    else:
+        _, _, model, batch, theta0 = _lr(cs.make_data()[2], sufficient=False)
+        base = sj.throughput_config(cs.N, cs.P, pallas_interpret=True)
+        fused, xla = dict(base, step_impl="fused"), dict(base,
+                                                         step_impl="xla")
+        gd, want = (lambda: sj.Adam(learning_rate=1e-1)), cs.FUSED_SPREAD_JAX
+    a, b = _sampler(model, theta0, gd(), fused), _sampler(model, theta0, gd(),
+                                                           xla)
+    a.run(batch, 10)
+    b.run(batch, 10)
+    spread = float(np.abs(np.asarray(a.samples) - np.asarray(b.samples)).max())
+    assert spread == pytest.approx(want, rel=0.1)

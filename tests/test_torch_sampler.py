@@ -14,6 +14,8 @@ import stein_tpu_torch as st
 from stein_tpu.models import BayesianNNModel as JNN
 from stein_tpu.models import LinearRegressionModel as JModel
 from stein_tpu_torch.api import _make_grad_all
+from stein_tpu_torch.ops.fused_step import InKernelModel
+from stein_tpu_torch.ops.model_grad import GlmGrad
 from stein_tpu_torch.models import BayesianNNModel as TNN
 from stein_tpu_torch.models import LinearRegressionModel as TModel
 from stein_tpu_torch.utils.ravel import template_unraveler
@@ -255,15 +257,29 @@ def _lr_grads():
     return _make_grad_all(m.log_p, template_unraveler(m.template())[1])
 
 
+def _glm_inkernel_model(batch):
+    """The linear model's quadratic form as a generic in-kernel model."""
+    A_eff, b_eff, const = TModel(6).quadratic_form(batch)
+    return InKernelModel((A_eff, b_eff.reshape(1, -1)), GlmGrad(), const)
+
+
 @pytest.mark.parametrize("kw", [
     dict(median="bisect", kernel_impl="pallas"),
     dict(median="bisect", kernel_impl="pallas", median_impl="fused_gram",
          warm_median=True),
     dict(custom_grads="lr"),
+    dict(median="bisect", warm_median=True, step_impl="fused"),
+    dict(median="bisect", warm_median=True, step_impl="fused_glm",
+         quadratic_form=TModel(6).quadratic_form),
+    dict(median="bisect", warm_median=True, step_impl="fused_model",
+         inkernel_model=_glm_inkernel_model),
+    dict(median="bisect", warm_median=True, kernel_impl="pallas",
+         step_impl="epilogue"),
 ])
 def test_ported_options_construct_and_step(kw):
-    """Options that raised before the streaming tile, the in-kernel-Gram
-    median and custom_grads were ported: each constructs and steps."""
+    """Options that raised before they were ported (the streaming tile,
+    the in-kernel-Gram median, custom_grads, and the step tails 'fused',
+    'fused_glm', 'fused_model', 'epilogue'): each constructs and steps."""
     X, y, _ = _problem()
     if kw.get("custom_grads") == "lr":
         kw = dict(custom_grads=_lr_grads())
@@ -281,13 +297,6 @@ def test_ported_options_construct_and_step(kw):
     dict(median="bisect", kernel_impl="pallas", pallas_precision="bf16"),
     lambda: st.throughput_config(48, 6, probe_batch={}),
     lambda: st.throughput_config(48, 6, mesh=object()),
-    dict(median="bisect", warm_median=True, step_impl="fused"),
-    dict(median="bisect", warm_median=True, step_impl="fused_glm",
-         quadratic_form=lambda batch: None),
-    dict(median="bisect", warm_median=True, step_impl="fused_model",
-         inkernel_model=lambda batch: None),
-    dict(median="bisect", warm_median=True, kernel_impl="pallas",
-         step_impl="epilogue"),
     dict(median="subsample"),
     dict(median="binned"),
     dict(kernel=object()),
@@ -328,6 +337,14 @@ def test_unported_methods_raise(method, args):
           custom_grads=lambda t, b: None), "custom_grads"),
     (dict(median="bisect", warm_median=True, step_impl="fused_glm"),
      "quadratic_form"),
+    (dict(median="bisect", step_impl="fused",
+          quadratic_form=TModel(6).quadratic_form), "fused_glm"),
+    (dict(median="bisect", warm_median=True, step_impl="fused_model"),
+     "inkernel_model"),
+    (dict(median="bisect", kernel_impl="pallas", step_impl="epilogue"),
+     "warm_median"),
+    (dict(median="bisect", warm_median=True, step_impl="epilogue"),
+     "kernel_impl='pallas'"),
 ])
 def test_jax_value_error_guards_hold(kw, match):
     n = kw.pop("n_particles", 48)
@@ -341,8 +358,9 @@ def test_jax_value_error_guards_hold(kw, match):
 def test_import_loads_no_jax():
     code = ("import sys, stein_tpu_torch, stein_tpu_torch.api, "
             "stein_tpu_torch.ops.fused_step, stein_tpu_torch._cuda, "
-            "stein_tpu_torch.ops.svgd_tile, "
-            "stein_tpu_torch.models.bayesian_nn; "
+            "stein_tpu_torch.ops.svgd_tile, stein_tpu_torch.ops.model_grad, "
+            "stein_tpu_torch.models.bayesian_nn, "
+            "stein_tpu_torch.models.logistic_regression; "
             "assert 'jax' not in sys.modules, 'jax imported'; print('ok')")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
@@ -361,3 +379,107 @@ def test_batch_on_another_device_raises():
     with pytest.raises(ValueError, match="device"):
         s.run({"X": torch.zeros(2, 6, device="meta"),
                "y": torch.zeros(2, 1)}, 1)
+
+
+GD_CASES = [("Adam", dict(learning_rate=1e-1, decay=0.999)),
+            ("Adagrad", dict(learning_rate=5e-2))]
+WARM = dict(median="bisect", warm_median=True, warm_passes=6)
+
+
+def _run_both(js, ts, jb, tb, steps=15):
+    ja, ta = js.run(jb, steps), ts.run(tb, steps)
+    return ({k: np.asarray(v) for k, v in ja.items()},
+            {k: v.numpy() for k, v in ta.items()})
+
+
+@pytest.mark.parametrize("rule,gd_kw", GD_CASES)
+def test_fused_glm_trajectory_matches_jax(rule, gd_kw):
+    """step_impl='fused_glm' on the sufficient-statistics batch, 15 steps
+    against the JAX sampler in interpret mode, at tests/test_pallas_step.py
+    :245's class: medians rtol 5e-3, log_p_mean rtol 1e-4, samples rtol
+    2e-4 / atol 1e-6."""
+    X, y, theta0 = _problem()
+    jm, tm = JModel(6), TModel(6)
+    js, ts, jb, tb = _pair(
+        X, y, theta0, gd_kw,
+        dict(step_impl="fused_glm", quadratic_form=jm.quadratic_form,
+             pallas_interpret=True, **WARM),
+        dict(step_impl="fused_glm", quadratic_form=tm.quadratic_form,
+             **WARM), rule)
+    ja, ta = _run_both(js, ts, jm.sufficient_batch(jb),
+                       tm.sufficient_batch(tb))
+    np.testing.assert_allclose(ta["median"], ja["median"], rtol=5e-3)
+    np.testing.assert_allclose(ta["log_p_mean"], ja["log_p_mean"], rtol=1e-4)
+    np.testing.assert_allclose(ts.samples, js.samples, rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("rule,gd_kw", GD_CASES)
+def test_fused_d_given_trajectory_matches_jax(rule, gd_kw):
+    """step_impl='fused' (D from pairwise_sq_dists, B1's D-given branch),
+    15 steps at tests/test_pallas_step.py:48's class: the first median
+    bitwise, medians rtol 5e-3, samples rtol 2e-4 / atol 1e-6, phi_norm
+    rtol 1e-4."""
+    X, y, theta0 = _problem()
+    js, ts, jb, tb = _pair(
+        X, y, theta0, gd_kw,
+        dict(step_impl="fused", pallas_interpret=True, **WARM),
+        dict(step_impl="fused", **WARM), rule)
+    ja, ta = _run_both(js, ts, jb, tb)
+    assert ta["median"][0] == ja["median"][0]
+    np.testing.assert_allclose(ta["median"], ja["median"], rtol=5e-3)
+    np.testing.assert_allclose(ts.samples, js.samples, rtol=2e-4, atol=1e-6)
+    np.testing.assert_allclose(ta["phi_norm"], ja["phi_norm"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("rule,gd_kw", GD_CASES)
+def test_epilogue_trajectory_matches_jax(rule, gd_kw):
+    """step_impl='epilogue' (the tile, then B6), 15 steps at
+    tests/test_pallas_step.py:293's class: the first median bitwise,
+    medians, samples and phi_norm rtol 1e-5 (samples atol 1e-7)."""
+    X, y, theta0 = _problem()
+    cfg = dict(step_impl="epilogue", kernel_impl="pallas", **WARM)
+    js, ts, jb, tb = _pair(X, y, theta0, gd_kw,
+                           dict(pallas_interpret=True, **cfg), cfg, rule)
+    ja, ta = _run_both(js, ts, jb, tb)
+    assert ta["median"][0] == ja["median"][0]
+    np.testing.assert_allclose(ta["median"], ja["median"], rtol=1e-5)
+    np.testing.assert_allclose(ts.samples, js.samples, rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(ta["phi_norm"], ja["phi_norm"], rtol=1e-5)
+
+
+def test_glm_slice_matches_jax_interpret():
+    """BASELINE config #1's route (bench.py:bench_adagrad50): n=50, p=128,
+    Adagrad(0.1), throughput_config(model=LinearRegressionModel) picks
+    fused_glm; 4 steps on the sufficient batch against the JAX package at
+    the fused_glm class. Not 10: the recipe is chaotic (A = X^T X + I over
+    1000 observations, Adagrad's near-sign step), and the JAX package's own
+    xla and fused_glm paths leave that class from step 4 (by 1.9e-5 there,
+    2.2e-3 at step 10, CPU), the port from step 5."""
+    n, p = 50, 128
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(1000, p)).astype(np.float32)
+    y = (X @ rng.normal(size=(p, 1))
+         + rng.normal(size=(1000, 1)) * 0.3).astype(np.float32)
+    theta0 = (np.random.default_rng(3).normal(size=(n, p)) * 0.01
+              ).astype(np.float32)
+    jm, tm = JModel(p), TModel(p)
+    jcfg = sj.throughput_config(n, p, model=jm, pallas_interpret=True)
+    tcfg = st.throughput_config(n, p, model=tm)
+    assert tcfg["step_impl"] == "fused_glm"
+    js, ts, jb, tb = _pair(X, y, theta0, dict(learning_rate=0.1), jcfg, tcfg,
+                           "Adagrad")
+    ja, ta = _run_both(js, ts, jm.sufficient_batch(jb),
+                       tm.sufficient_batch(tb), 4)
+    np.testing.assert_allclose(ta["median"], ja["median"], rtol=5e-3)
+    np.testing.assert_allclose(ta["log_p_mean"], ja["log_p_mean"], rtol=1e-4)
+    np.testing.assert_allclose(ts.samples, js.samples, rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [50, 1000, 1024, 10240])
+@pytest.mark.parametrize("p", [16, 128, 303])
+def test_throughput_config_with_linear_model_matches_jax(n, p):
+    want = sj.throughput_config(n, p, model=JModel(p))
+    got = st.throughput_config(n, p, model=TModel(p))
+    assert got.pop("dtype") is torch.float32
+    assert want.pop("dtype") == jnp.float32
+    assert _presence(got) == _presence(want)

@@ -74,3 +74,36 @@ def test_tile_guards():
         svgd_tile.svgd_phi(t.double(), t.double(), 1.0)
     with pytest.raises(ValueError, match="grads"):
         svgd_tile.svgd_phi(t, torch.zeros(8, 4), 1.0)
+
+
+# B10: the JAX on-D tile in interpret mode, with ragged blocks on its side
+# (m, n not multiples of the block), at the B3 cases' rtol 2e-5 / atol 1e-6
+# of the largest entry.
+@pytest.mark.parametrize("m,n,p,block", [
+    (64, 64, 16, 32), (70, 100, 7, 32), (128, 300, 40, 128),
+])
+def test_plain_on_d_matches_jax(m, n, p, block):
+    from stein_tpu.ops.pallas_svgd import pallas_svgd_both_ksum_on_D
+
+    theta, grads, h2 = _inputs(n, p, m + n + p)
+    D = np.array(jrbf.pairwise_sq_dists(jnp.asarray(theta)))[:m]
+    u = (grads - theta / h2).astype(np.float32)
+    jku, jks = pallas_svgd_both_ksum_on_D(
+        jnp.asarray(D), jnp.asarray(u), jnp.float32(h2), block_i=block,
+        block_j=block, interpret=True)
+    tku, tks = svgd_tile.svgd_both_ksum_on_D(
+        torch.from_numpy(D), torch.from_numpy(u), torch.tensor(h2))
+    assert tku.shape == (m, p) and tks.shape == (m, 1)
+    np.testing.assert_allclose(tks.numpy(), np.asarray(jks), rtol=2e-5,
+                               atol=1e-6)
+    scale = np.abs(np.asarray(jku)).max()
+    np.testing.assert_allclose(tku.numpy(), np.asarray(jku), rtol=2e-5,
+                               atol=1e-6 * scale)
+
+
+def test_on_d_guards():
+    D = torch.zeros(4, 5)
+    with pytest.raises(TypeError, match="f32"):
+        svgd_tile.svgd_both_ksum_on_D(D.double(), torch.zeros(5, 2), 1.0)
+    with pytest.raises(ValueError, match="u_cols"):
+        svgd_tile.svgd_both_ksum_on_D(D, torch.zeros(4, 2), 1.0)
