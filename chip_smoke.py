@@ -42,10 +42,19 @@ results, and times the steps and the kernels. Phases:
               steps against the CPU run and the plain functions
      large-n-epilogue  step_impl='epilogue' at n=10240 (B3, B2, B6):
               counts, 4 steps against the plain functions on the card
+     mesh     the 1-D particle mesh on a one-process NCCL group:
+              throughput_config(1000, 128, mesh=) = step_impl='fused_shard'
+              with median_collectives='rounds' (B8, B3): counts, 10 steps
+              against the same sampler on a one-process gloo group on the
+              CPU and against the single-device fused_gram sampler on the
+              card, the posterior mean; mesh-grid ('grid': B9, B3),
+              mesh-ring (comm='ring': B9, B3), mesh-glm (quadratic_form:
+              B8, B3) and mesh-nn (the NN with custom_grads: B7, B8, B3)
   5. timing   per-step time of run() with the kernels and with the plain
               functions on the card, and each kernel against its plain
               version and its library call (CUDA events; plain, kernel,
               kernel, plain); a torch.profiler split of each fused path
+              and of [mesh] (with the collectives' share)
 
 Every phase prints its lines; a failed check raises and the script exits
 non-zero. The line before the last is the kernel table as JSON (each
@@ -57,6 +66,7 @@ Without a CUDA device, or without the package beside the script, it exits
 with code 2 and prints no result.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -599,6 +609,15 @@ LOGREG_STEPS = 500
 # reads -436663.66 at step 1, -207332.25 at step 10 and this at step 500;
 # the port's plain versions on the CPU -139.94336.
 LOGREG_LOGP_JAX = -139.94369506835938
+# The JAX package's own fused_shard runs of [mesh]'s and [mesh-glm]'s
+# recipes on a 1-device mesh (CPU, interpret mode, 500 steps): max |particle
+# mean - posterior mean|. The mesh paths are held to 4x these.
+POSTERIOR_MESH_JAX = 0.007894717227018955
+POSTERIOR_MESH_GLM_JAX = 0.007850189669081131
+MESH_STEPS = 500
+# The ring shape of B9's check: a 4-process mesh at n=1000 holds n_loc =
+# 250 columns (not a multiple of the 32-column tile) and m_loc = 64 rows.
+RING_M, RING_N = 64, 250
 # The H100 SXM's published peaks: f32 outside the tensor cores, and device
 # memory.
 PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -989,6 +1008,212 @@ def run_tail_paths(dev, torch, counters, X, y, theta0, batch):
     return counts, timed
 
 
+# ------------------------------------------------------------ the mesh
+
+def check_bracket_kernels(dev, torch, theta, nn_theta):
+    """B8 and B9 against their plain versions on the card: on lattice
+    particles D, mm and the counts bitwise; on the [mesh] paths' own inputs
+    ([256, 1000] x 128 and x 303) D <= 1e-5 normalised, and the counts and
+    mm those of the kernel's own D, bitwise; B9 also at the ring shape; two
+    calls bitwise. Returns (max abs errors, the timing inputs)."""
+    from stein_tpu_torch.ops import fused_median as fm
+    from stein_tpu_torch.ops import svgd_tile
+    from stein_tpu_torch.ops.median import DEFAULT_BRACKETS, count_le
+
+    rng = np.random.default_rng(6)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    errs, inputs = {"B8": 0.0, "B9": 0.0}, {}
+    ring_cols = torch.tensor(rng.normal(size=(RING_N, P)) * 0.01,
+                             dtype=torch.float32, device=dev)
+    cases = [("lattice", lattice(N, P, dev, torch), None, True),
+             (f"[mesh] path [{MEDIAN_ROWS}, {N}] p={P}", theta, None, False),
+             (f"[mesh-nn] path [{MEDIAN_ROWS}, {NN_N}] p={NN_P}", nn_theta,
+              None, False),
+             (f"ring shape [{RING_M}, {RING_N}] p={P}", ring_cols,
+              torch.tensor(rng.normal(size=(RING_M, P)) * 0.01,
+                           dtype=torch.float32, device=dev), False)]
+    for label, cols, rows, exact in cases:
+        if rows is None:
+            rows = cols[::cols.shape[0] // MEDIAN_ROWS][:MEDIAN_ROWS]
+        c = svgd_tile.column_center(cols)
+        med = fm.warm_search_on_value(fm.dist_block_plain(rows, cols, c),
+                                      zero, 30)
+        hib = 4.0 * torch.max(torch.sum((cols - c) ** 2, dim=1)) * 1.0001 \
+            + 1e-30
+        out8 = fm.fused_bracket_pass(rows, cols, med, c)
+        again8 = fm.fused_bracket_pass(rows, cols, med, c)
+        out9 = fm.fused_bracket_grid_pass(rows, cols, med, c, hib, g1=8)
+        again9 = fm.fused_bracket_grid_pass(rows, cols, med, c, hib, g1=8)
+        torch.cuda.synchronize()
+        D, mm, cnts = out8
+        Dp, mmp, cp = fm.fused_bracket_pass_plain(rows, cols, med, c)
+        _, gp = fm.fused_bracket_grid_pass_plain(rows, cols, med, c, hib,
+                                                 g1=8)
+        own = (torch.equal(cnts, count_le(D, fm._bracket_ends(
+                   med, DEFAULT_BRACKETS)))
+               and torch.equal(mm, torch.stack(
+                   [-torch.clamp(D.min(), max=0.0), D.max()]))
+               and torch.equal(out9[1], count_le(out9[0], fm.grid_edges(
+                   med, hib, DEFAULT_BRACKETS, 8)))
+               and torch.equal(out9[0], D))
+        repeat = all(torch.equal(a, b) for a, b in
+                     zip((*out8, *out9), (*again8, *again9)))
+        err = norm_err(D, Dp)
+        log(f"[kernels] B8/B9 {label}: D normalised error {err:.3e}, "
+            f"bitwise {torch.equal(D, Dp)}; counts and mm of the kernel's "
+            f"own D {own}; repeat bitwise {repeat}; B8 counts "
+            f"{cnts.tolist()} vs plain {cp.tolist()}")
+        if not (own and repeat) or err > 1e-5 or (exact and not (
+                torch.equal(D, Dp) and torch.equal(mm, mmp)
+                and torch.equal(cnts, cp) and torch.equal(out9[1], gp))):
+            fail(f"B8/B9 ({label}) disagree with their plain versions or "
+                 "themselves")
+        if not exact:
+            e = (D - Dp).abs().max().item()
+            errs["B8"] = max(errs["B8"], e)
+            errs["B9"] = max(errs["B9"], e)
+        if label.startswith("[mesh] path"):
+            inputs = {"B8": (rows, cols, med, c),
+                      "B9": (rows, cols, med, c, hib)}
+    return errs, inputs
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The mesh paths' kernels swapped for their plain versions (on the
+    card's tensors) while the block runs: B8, B9, B3 and B7."""
+    from stein_tpu_torch.models import bayesian_nn
+    from stein_tpu_torch.ops import fused_median as fm
+    from stein_tpu_torch.ops import svgd_tile
+    from stein_tpu_torch.parallel import sharded_fused
+
+    def nn_plain(theta, batch, f, H, consts):
+        return bayesian_nn.nn_grads_plain(
+            theta, batch["X"], batch["y"].reshape(-1), f, H, consts)
+
+    swaps = [(sharded_fused, "fused_bracket_pass",
+              fm.fused_bracket_pass_plain),
+             (sharded_fused, "fused_bracket_grid_pass",
+              fm.fused_bracket_grid_pass_plain),
+             (svgd_tile, "svgd_both_ksum", svgd_tile.svgd_both_ksum_plain),
+             (bayesian_nn, "nn_grads", nn_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def run_mesh_paths(dev, torch, counters, X, y, theta0, batch, nn_model):
+    """[mesh], [mesh-grid], [mesh-ring], [mesh-glm] and [mesh-nn] on a
+    one-process NCCL group (the CPU comparisons on a one-process gloo group
+    of the same process). Returns each path's launch counts and, for the
+    timing, each path's (sampler, batch), and the NCCL mesh."""
+    import torch.distributed as dist
+
+    from stein_tpu_torch import Adam, SVGDSampler, throughput_config
+    from stein_tpu_torch.models import LinearRegressionModel
+    from stein_tpu_torch.parallel import collectives as coll
+    from stein_tpu_torch.parallel import particle_mesh, setup_distributed
+
+    setup_distributed("nccl", store=dist.HashStore(), world_size=1, rank=0,
+                      device_id=dev)
+    mesh = particle_mesh()
+    cpu_mesh = particle_mesh(dist.new_group(backend="gloo"))
+    t0 = time.perf_counter()
+    coll.psum(torch.ones(1, device=dev), mesh)   # NCCL's lazy set-up
+    torch.cuda.synchronize()
+    log(f"[mesh] {mesh}; first NCCL collective "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    lin = LinearRegressionModel(P)
+    suff = lin.sufficient_batch(batch)
+    counts, timed = {}, {}
+
+    def sampler_for(n, model, theta, cfg):
+        def make(device):
+            m = mesh if device == "cuda" else cpu_mesh
+            return SVGDSampler(n, model.log_p, model.template(),
+                               Adam(0.1, decay=0.999 if model is nn_model
+                                    else 1.0),
+                               theta=theta, device=device,
+                               **dict(cfg, mesh=m))
+        return make
+
+    def run_path(label, make, b, want, lr=0.1):
+        s = make("cuda")
+        reset(counters)
+        t0 = time.perf_counter()
+        aux = s.run(b, MESH_STEPS)
+        torch.cuda.synchronize()
+        log(f"[{label}] run(batch, {MESH_STEPS}) in "
+            f"{time.perf_counter() - t0:.2f} s (first call)")
+        counts[label] = check_counts(label, counters, want)
+        check_finite(label, s, aux, MESH_STEPS)
+        log(f"[{label}] last step: " + ", ".join(
+            f"{k}={v[-1].item():.6g}" for k, v in aux.items()))
+        compare_with_cpu(make, b, 10, label, lr)
+        timed[label] = (s, b)
+        return s, aux
+
+    def posterior(label, s, bound_jax):
+        post = np.linalg.solve(X.T @ X + np.eye(P), X.T @ y).ravel()
+        err = float(np.max(np.abs(s.samples.mean(0) - post)))
+        log(f"[{label}] posterior mean max abs error {err:.4e} (JAX "
+            f"package's fused_shard on CPU: {bound_jax}, bound "
+            f"{4 * bound_jax})")
+        if not err <= 4 * bound_jax:
+            fail(f"[{label}] the particle mean is not near the posterior")
+
+    cfg = throughput_config(N, P, mesh=mesh)
+    log(f"[mesh] throughput_config({N}, {P}, mesh=) = "
+        f"{ {k: str(v) for k, v in cfg.items() if k != 'mesh'} }")
+    if cfg.get("step_impl") != "fused_shard" or \
+            cfg.get("median_collectives") != "rounds":
+        fail("[mesh] throughput_config did not pick fused_shard/rounds")
+    make = sampler_for(N, lin, theta0, cfg)
+    s, _ = run_path("mesh", make, batch, dict(B8=MESH_STEPS, B3=MESH_STEPS))
+    posterior("mesh", s, POSTERIOR_MESH_JAX)
+    single = throughput_config(N, P)
+    check_class("mesh", "the single-device fused_gram sampler on the card",
+                sampler_trial(lambda: make("cuda"), batch, 10),
+                sampler_trial(lambda: SVGDSampler(
+                    N, lin.log_p, lin.template(), Adam(0.1), theta=theta0,
+                    device="cuda", **single), batch, 10), 10, 0.1)
+
+    run_path("mesh-grid", sampler_for(
+        N, lin, theta0, dict(cfg, median_collectives="grid")), batch,
+        dict(B9=MESH_STEPS, B3=MESH_STEPS))
+    run_path("mesh-ring", sampler_for(
+        N, lin, theta0, dict(cfg, median_collectives="grid", comm="ring")),
+        batch, dict(B9=MESH_STEPS, B3=MESH_STEPS))
+
+    cfg_glm = throughput_config(N, P, mesh=mesh, model=lin)
+    if "quadratic_form" not in cfg_glm:
+        fail("[mesh-glm] throughput_config(model=) gave no quadratic_form")
+    s, _ = run_path("mesh-glm", sampler_for(N, lin, theta0, cfg_glm), suff,
+                    dict(B8=MESH_STEPS, B3=MESH_STEPS))
+    posterior("mesh-glm", s, POSTERIOR_MESH_GLM_JAX)
+
+    Xn, yn, theta_nn = nn_data(NN_N)
+    nn_batch = {"X": torch.tensor(Xn, dtype=torch.float32, device=dev),
+                "y": torch.tensor(yn, dtype=torch.float32, device=dev)}
+    cfg_nn = throughput_config(NN_N, NN_P, mesh=mesh, model=nn_model)
+    if "custom_grads" not in cfg_nn:
+        fail("[mesh-nn] throughput_config(model=) gave no custom_grads")
+    _, aux = run_path("mesh-nn", sampler_for(NN_N, nn_model, theta_nn,
+                                             cfg_nn), nn_batch,
+                      dict(B7=MESH_STEPS, B8=MESH_STEPS, B3=MESH_STEPS))
+    lp = aux["log_p_mean"][-1].item()
+    log(f"[mesh-nn] log_p_mean step {MESH_STEPS} {lp!r}; JAX package "
+        f"(single device): {NN_LOGP_JAX}")
+    if abs(lp / NN_LOGP_JAX - 1) > 0.01:
+        fail("[mesh-nn] log_p_mean is not within 1% of the JAX package's")
+    return counts, timed, mesh
+
+
 def profile_split(label, sampler, batch, steps, torch, gpu):
     """torch.profiler over `steps` steps of sampler.run after 10 warm-up
     steps: wall and device time per step, the device's busy share, and the
@@ -1017,11 +1242,16 @@ def profile_split(label, sampler, batch, steps, torch, gpu):
         log(f"[profile] {gpu}: {label}: device time not captured by "
             "torch.profiler")
         return
+    coll_us = sum(r[0] for r in rows if "nccl" in r[1].lower())
     log(f"[profile] {gpu}: {label}: wall {wall_us:.1f} us/step under the "
         f"profiler; device {dev_us:.1f} us/step; busy {dev_us / wall_us:.3f}"
-        f"; device launches {sum(r[2] for r in rows):.1f}/step")
-    log(f"[profile] {label} kernels (us/step, launches/step): " + "; ".join(
-        f"{k[:48]} {t:.1f} ({c:.0f})" for t, k, c in rows[:10]))
+        f"; device launches {sum(r[2] for r in rows):.1f}/step; collectives "
+        f"(NCCL kernels) {coll_us:.1f} us/step, share "
+        f"{coll_us / dev_us:.3f} of device time")
+    shown = rows[:10] + [r for r in rows[10:] if "stein" in r[1]]
+    log(f"[profile] {label} kernels (us/step, launches/step; the ten "
+        "largest, then the port's own): " + "; ".join(
+            f"{k[:48]} {t:.1f} ({c:.0f})" for t, k, c in shown))
 
 
 def compare_spread(label, make, batch, steps, spread, paths):
@@ -1282,6 +1512,8 @@ def main():
     lg_theta = torch.tensor(theta_l0, dtype=f32, device=dev)
     tail_errs, tail_in = check_tail_kernels(dev, torch, theta, g0, batch,
                                             lg_theta, lg_batch)
+    bracket_errs, bracket_in = check_bracket_kernels(dev, torch, theta,
+                                                     nn_theta)
 
     # ------------------------------------------------------ 4. main path
     counters = {"B1": fused_step.fused_warm_step_tail,
@@ -1292,6 +1524,8 @@ def main():
                 "B6": fused_step.fused_epilogue,
                 "B7": bayesian_nn.nn_grads,
                 "B10": svgd_tile.svgd_both_ksum_on_D,
+                "B8": fused_median.fused_bracket_pass,
+                "B9": fused_median.fused_bracket_grid_pass,
                 "glm": model_grad.glm_grads,
                 "logistic": model_grad.logistic_grads}
     kw = throughput_config(N, P)
@@ -1354,6 +1588,9 @@ def main():
     tail_counts, tail_timed = run_tail_paths(dev, torch, counters, X, y,
                                              theta0, batch)
     path_counts.update(tail_counts)
+    mesh_counts, mesh_timed, mesh = run_mesh_paths(
+        dev, torch, counters, X, y, theta0, batch, nn_model)
+    path_counts.update(mesh_counts)
 
     # --------------------------------------------------------- 5. timing
     K = 200
@@ -1514,7 +1751,51 @@ def main():
         log(f"[timing] {gpu}: B1 chain, {label}: {k_ms * 1e3:.2f} us vs "
             f"plain {p_ms * 1e3:.2f} us")
 
+    # The mesh paths (plain, kernel, kernel, plain), B8 and B9.
+    for label, (s_, b_) in mesh_timed.items():
+        def plain(k, s_=s_, b_=b_):
+            with plain_kernels():
+                s_.run(b_, k)
+        p1 = run_timed(plain, torch, 200)
+        k1 = run_timed(lambda k: s_.run(b_, k), torch, 200)
+        k2 = run_timed(lambda k: s_.run(b_, k), torch, 200)
+        p2 = run_timed(plain, torch, 200)
+        path_us[label] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        log(f"[timing] {gpu}: {label} run() {path_us[label][0]:.2f} us/step "
+            f"with the kernels, {path_us[label][1]:.2f} us/step with the "
+            "plain functions")
+    b8_ms, b8_plain = in_turns(
+        lambda: fused_median.fused_bracket_pass_plain(*bracket_in["B8"]),
+        lambda: fused_median.fused_bracket_pass(*bracket_in["B8"]), 50, torch)
+    b9_ms, b9_plain = in_turns(
+        lambda: fused_median.fused_bracket_grid_pass_plain(
+            *bracket_in["B9"], g1=8),
+        lambda: fused_median.fused_bracket_grid_pass(*bracket_in["B9"], g1=8),
+        50, torch)
+    # One-process NCCL collectives: wall µs per call on the host clock
+    # (the step's host cost), the device's share is in [profile].
+    from stein_tpu_torch.parallel import collectives as coll
+    cnt = torch.zeros(3, dtype=torch.int32, device=dev)
+    coll_us = {}
+    for name, fn in (("psum [3] int32", lambda: coll.psum(cnt, mesh)),
+                     (f"all_gather [{N}, {P}]",
+                      lambda: coll.all_gather(theta, mesh))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        coll_us[name] = (time.perf_counter() - t0) / 200 * 1e6
+    log(f"[timing] {gpu}: one-process NCCL, wall per call: " + "; ".join(
+        f"{k} {v:.2f} us" for k, v in coll_us.items()))
+    log(f"[timing] {gpu}: B8 ([{MEDIAN_ROWS}, {N}], p={P}) {b8_ms * 1e3:.2f} "
+        f"us vs plain {b8_plain * 1e3:.2f} us; B9 (g1=8) {b9_ms * 1e3:.2f} us "
+        f"vs plain {b9_plain * 1e3:.2f} us")
+
     profile_split("main (fused_gram)", sampler, batch, 20, torch, gpu)
+    for label, (s_, b_) in mesh_timed.items():
+        profile_split(label, s_, b_, 20, torch, gpu)
     for label, (s_, b_, _) in tail_timed.items():
         profile_split(label, s_, b_, 10 if label == "large-n-epilogue" else 20,
                       torch, gpu)
@@ -1579,6 +1860,18 @@ def main():
                  + 2 * (LOGREG_D + 1) + LOGREG_N),
             4 * LOGREG_N * LOGREG_OBS * (LOGREG_D + 1)
             + 10 * LOGREG_N * LOGREG_OBS),
+        # B8/B9: the [m, n] Gram (2 m n p), the centred rows and columns
+        # and their norms (3 (m + n) p), one compare per entry and
+        # threshold (6 endpoints, or the 36 grid edges at g1=8) plus the
+        # range's 2; bytes: rows, columns, centre in, D and the counts out.
+        row("bracket_pass", "B8", "bracket_pass.cu",
+            "stein_tpu/ops/pallas_median.py:91", bracket_errs["B8"], b8_ms,
+            b8_plain, 4 * (m * p + n * p + p + 1 + m * n + 2 + 6),
+            2 * m * n * p + 3 * (m + n) * p + 8 * m * n),
+        row("bracket_grid_pass", "B9", "bracket_pass.cu",
+            "stein_tpu/ops/pallas_median.py:198", bracket_errs["B9"], b9_ms,
+            b9_plain, 4 * (m * p + n * p + p + 36 + m * n + 36),
+            2 * m * n * p + 3 * (m + n) * p + 36 * m * n),
     ]
     log(f"[result] launches by path {path_counts}")
     log(f"[result] nn_step_us={nn_step_us!r} nn_plain_step_us="
@@ -1593,5 +1886,17 @@ def main():
     return 0
 
 
+def run():
+    """main(), then the process group's end, so that the exit code is the
+    script's own."""
+    try:
+        return main()
+    finally:
+        if "torch" in sys.modules:
+            import torch.distributed as dist
+            if dist.is_available() and dist.is_initialized():
+                dist.destroy_process_group()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run())

@@ -42,6 +42,12 @@ _SIGNATURES = {
          _P, _P, _P, _P, _P),               # out, scratch, stream
         _I),
     "stein_dist_block": ((_P, _P, _P, _I, _I, _I, _P, _P), _I),
+    "stein_bracket_blocks": ((_I, _I), _I),
+    "stein_bracket_pass": (
+        (_P, _P, _P, _I, _I, _I,            # rows, cols, center, m, n, p
+         _P, _P, _P, _I, _P, _I,            # med_prev, br_lo/hi, nb, edges, nc
+         _P, _P, _P, _P, _P, _P),           # D, cnts, mm, scratch, stream
+        _I),
     "stein_tile_splits": ((_I, _I, _I), _I),
     "stein_svgd_tile": (
         (_P, _P, _P, _P, _P, _I, _I, _I,    # rows .. h2, m, n, p
@@ -128,7 +134,8 @@ def _build(nvcc, sources, so):
     cmd = [nvcc, *ARCH, "-shared", "-o", tmp, *map(str, objs)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
-        os.unlink(tmp)
+        if os.path.exists(tmp):   # nvcc removes it on some failures
+            os.unlink(tmp)
         raise RuntimeError(f"stein_tpu_torch: nvcc link failed "
                            f"({res.returncode}):\n{' '.join(cmd)}\n"
                            f"{res.stdout}{res.stderr}")

@@ -14,8 +14,10 @@ Ported: the reference path (``step_impl='xla'``, ``median`` in
 {'exact', 'bisect'}, the warm median, ``median_impl`` in {'xla', 'fused',
 'fused_gram'}), the streaming tile (``kernel_impl='pallas'``), every
 single-device step tail (``step_impl`` 'fused', 'fused_gram', 'fused_glm',
-'fused_model' and 'epilogue') and ``custom_grads=``. Every other option
-raises ``NotImplementedError`` naming the ROADMAP.md item that will port it.
+'fused_model' and 'epilogue'), ``custom_grads=``, and the 1-D particle mesh
+(``mesh=``, ``parallel/``: the mesh steps and ``step_impl='fused_shard'``).
+Every other option raises ``NotImplementedError`` naming the ROADMAP.md item
+that will port it.
 """
 
 import functools
@@ -50,6 +52,8 @@ from .ops.median import (
     row_subsample_block,
     subsample_rows,
 )
+from .parallel import collectives as coll
+from .parallel.mesh import ParticleMesh
 from .utils.ravel import (
     init_particles,
     ravel_particles,
@@ -404,11 +408,10 @@ def make_epilogue_warm_step_fn(log_p, unravel_fn, gd, n_particles,
     return step_fn, init_med
 
 
-def throughput_config(n_particles, n_params, mesh=None, dtype=torch.float32,
-                      model=None, probe_batch=None):
-    """The JAX package's single-device option table (stein_tpu/api.py
-    throughput_config with mesh=None), unchanged, as a kwargs dict for
-    SVGDSampler:
+def throughput_config(n_particles, n_params, mesh=None, model_axis=None,
+                      dtype=torch.float32, model=None, probe_batch=None):
+    """The JAX package's option table (stein_tpu/api.py throughput_config),
+    unchanged, as a kwargs dict for SVGDSampler:
 
         sampler = SVGDSampler(n, log_p, template, gd, **throughput_config(n, p))
 
@@ -419,9 +422,14 @@ def throughput_config(n_particles, n_params, mesh=None, dtype=torch.float32,
     ``custom_grads`` (B7). In the small branch a model with
     ``quadratic_form`` gets step_impl='fused_glm' and one with
     ``inkernel_model`` step_impl='fused_model': B1 with its model stage
-    (``ops/model_grad.py``) computing the gradients too."""
-    if mesh is not None:
-        raise _unported("throughput_config(mesh=...)", "A12")
+    (``ops/model_grad.py``) computing the gradients too.
+
+    On a 1-D particle ``mesh`` (a ``ParticleMesh``, which the dict carries)
+    f32 shapes whose median block passes ``bracket_pass_fits`` get
+    step_impl='fused_shard' (B8 with median_collectives='rounds' on one
+    process, B9 with 'grid' on more, and B3), with a model's
+    ``quadratic_form`` or ``pallas_grads`` hook; beyond the gate, the
+    streaming tile."""
     if probe_batch is not None:
         raise _unported("throughput_config(probe_batch=...)", "A9")
     f32 = dtype == torch.float32
@@ -429,6 +437,32 @@ def throughput_config(n_particles, n_params, mesh=None, dtype=torch.float32,
     large = n_particles >= 4096
     if large:
         cfg.update(median_max_rows=128)
+    if mesh is not None:
+        _check_mesh_type(mesh)
+        if model_axis is not None:
+            raise _unported("throughput_config(model_axis=...), the 2-D "
+                            "mesh,", "A12")
+        cfg["mesh"] = mesh
+        if f32:
+            m_loc = max(min(cfg.get("median_max_rows", 512) // mesh.size,
+                            max(n_particles // mesh.size, 1)), 1)
+            if bracket_pass_fits(m_loc, n_particles, n_params):
+                cfg.update(step_impl="fused_shard",
+                           pallas_block=1024 if large else 256)
+                cfg["median_collectives"] = (
+                    "rounds" if mesh.size == 1 else "grid")
+                cfg["median_grid_g1"] = 8
+                if not large:
+                    cfg["median_max_rows"] = 256
+                if model is not None and hasattr(model, "quadratic_form"):
+                    cfg["quadratic_form"] = model.quadratic_form
+                elif model is not None and hasattr(model, "pallas_grads"):
+                    cfg["custom_grads"] = model.pallas_grads()
+            elif large:
+                cfg.update(kernel_impl="pallas", pallas_block=1024)
+            elif n_params >= 256:
+                cfg.update(kernel_impl="pallas", pallas_block=256)
+        return cfg
     if not f32:
         return cfg
     if fused_step_fits(n_particles, n_params,
@@ -455,12 +489,22 @@ def throughput_config(n_particles, n_params, mesh=None, dtype=torch.float32,
     return cfg
 
 
-def _resolve_device(device):
-    device = torch.device("cpu" if device is None else device)
+def _check_mesh_type(mesh):
+    if not isinstance(mesh, ParticleMesh):
+        raise TypeError(
+            f"mesh must be a stein_tpu_torch.parallel.ParticleMesh (see "
+            f"particle_mesh), got {type(mesh).__name__}"
+        )
+
+
+def _resolve_device(device, what="SVGDSampler"):
+    """The given device, else the current card (the default; there is no
+    fallback to the CPU)."""
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                f"SVGDSampler(device={str(device)!r}): no CUDA device is "
+                f"{what}(device={str(device)!r}): no CUDA device is "
                 "available to this process"
             )
         if device.index is None:
@@ -498,7 +542,8 @@ def _check_options(n_params, dtype, median, kernel_impl, median_max_rows,
         raise ValueError(f"unknown step_impl: {step_impl!r}")
     if step_impl == "fused_shard":
         raise ValueError(
-            "step_impl='fused_shard' is the mesh tail; it requires mesh="
+            "unknown step_impl: 'fused_shard' on a single device (it is the "
+            "mesh tail; pass mesh=)"
         )
     if step_impl == "epilogue":
         if not warm_median:
@@ -571,8 +616,102 @@ def _check_options(n_params, dtype, median, kernel_impl, median_max_rows,
         raise _unported("remat=True", "A3")
 
 
+def _check_mesh_options(dtype, median, kernel_impl, kernel, warm_median,
+                        median_impl, step_impl, custom_grads, remat,
+                        pallas_precision, quadratic_form, inkernel_model,
+                        model_axis, comm, median_collectives):
+    """The JAX sampler's ValueError guards of a mesh, in its order, then
+    the NotImplementedError of every mesh option the port does not run yet.
+    The mesh builders (parallel/sharded.py, sharded_fused.py) check the
+    rest, as the JAX builders do."""
+    if kernel_impl not in ("xla", "pallas"):
+        raise ValueError(f"unknown kernel_impl: {kernel_impl!r}")
+    if median_impl not in ("xla", "fused", "fused_gram"):
+        raise ValueError(f"unknown median_impl: {median_impl!r}")
+    if median_impl != "xla":
+        raise ValueError(
+            f"median_impl={median_impl!r} is single-device only (the mesh "
+            "warm search psums counts across ranks; a kernel cannot contain "
+            "the collective); the mesh fused-median path is "
+            "step_impl='fused_shard'"
+        )
+    if step_impl not in _STEP_IMPLS + ("fused_shard",):
+        raise ValueError(f"unknown step_impl: {step_impl!r}")
+    if step_impl not in ("xla", "fused_shard"):
+        raise ValueError(
+            f"step_impl={step_impl!r} is single-device only (the tail cannot "
+            "contain the mesh collectives); the mesh fused path is "
+            "step_impl='fused_shard'"
+        )
+    if inkernel_model is not None:
+        raise ValueError(
+            "inkernel_model= is consumed only by the single-device "
+            "step_impl='fused_model' kernel (drop the hook or the mesh)"
+        )
+    if quadratic_form is not None and step_impl != "fused_shard":
+        raise ValueError(
+            "on a mesh, quadratic_form= is consumed only by "
+            "step_impl='fused_shard' (which then gathers theta only and "
+            "derives the gradients from the gathered block)"
+        )
+    if custom_grads is not None and model_axis is not None:
+        raise ValueError(
+            "custom_grads= runs on 1-D particle meshes only: on a 2-D "
+            "(particles x model) mesh the parameter dimension is sharded "
+            "too, and the hook's contract is full [n, p] rows"
+        )
+    if custom_grads is not None and quadratic_form is not None:
+        raise ValueError(
+            "custom_grads= and quadratic_form= both replace the gradient "
+            "stage; pass one"
+        )
+    if step_impl == "fused_shard":
+        if model_axis is not None:
+            raise ValueError(
+                "step_impl='fused_shard' runs on 1-D particle meshes only "
+                "(the 2-D step tiles the model axis with its own Gram)"
+            )
+        if comm == "ring" and median_collectives != "grid":
+            raise ValueError(
+                "comm='ring' + step_impl='fused_shard' supports "
+                "median_collectives='grid' only (the rounds chain would "
+                "re-count the ring D buffer per round)"
+            )
+        if not warm_median or median != "bisect":
+            raise ValueError(
+                "step_impl='fused_shard' fuses the warm-median scan path; "
+                "set warm_median=True (and median='bisect')"
+            )
+        if kernel is not None or kernel_impl != "xla":
+            raise ValueError(
+                "step_impl='fused_shard' requires the default RBF kernel "
+                "and kernel_impl='xla' (its own streaming tile replaces the "
+                "kernel stage)"
+            )
+        if dtype != torch.float32:
+            raise ValueError("step_impl='fused_shard' is f32-only")
+    if warm_median and (median != "bisect" or kernel is not None):
+        raise ValueError("warm_median=True requires median='bisect' and "
+                         "the default RBF kernel")
+
+    if model_axis is not None:
+        raise _unported("model_axis=, the 2-D (particles x model) mesh,",
+                        "A12")
+    if median in ("subsample", "binned"):
+        raise _unported(f"median={median!r}", "A2")
+    if pallas_precision == "bf16":
+        raise _unported("pallas_precision='bf16'", "A7")
+    if pallas_precision != "f32":
+        raise ValueError(f"unknown pallas_precision: {pallas_precision!r}")
+    if kernel is not None:
+        raise _unported("kernel=", "A9")
+    if remat:
+        raise _unported("remat=True", "A3")
+
+
 class SVGDSampler:
-    """Stein variational gradient descent on one device.
+    """Stein variational gradient descent on one device or a 1-D particle
+    mesh.
 
     Parameters follow ``stein_tpu.SVGDSampler``; the differences:
 
@@ -582,9 +721,20 @@ class SVGDSampler:
         structure of [n, *shape] leaves matching ``param_template``.
     dtype : a torch dtype (float32 default).
     device : where the particles, the optimizer state and every carried
-        scalar live ("cpu" default; "cuda" runs the hand-written kernels
-        and raises when no card is present). Batches must already lie on
-        this device.
+        scalar live: the current card by default, which runs the
+        hand-written kernels (without a card the sampler raises; pass
+        device="cpu" for the plain PyTorch versions on the CPU). Batches
+        must already lie on this device.
+    mesh : a ``parallel.ParticleMesh`` (``particle_mesh()`` after
+        ``setup_distributed``): the particles are sharded over its
+        processes, each of which builds the same sampler (the same
+        ``generator`` seed or ``theta``) and keeps its block. ``device``
+        must be of the mesh's kind (NCCL: cuda, gloo: cpu). ``run``,
+        ``train_on_batch`` and ``load_state`` work on the local block;
+        ``samples`` and ``theta`` all-gather the full particles, so every
+        rank must read them. ``comm``, ``median_collectives`` and
+        ``median_grid_g1`` are the JAX sampler's; ``model_axis`` (the 2-D
+        mesh) is not ported.
     pallas_block : accepted so JAX configs carry over; the CUDA tile's
         sizes are its own.
     custom_grads : a callable (theta [n, p], batch) -> (logp [n],
@@ -604,11 +754,13 @@ class SVGDSampler:
                  generator=None, theta=None, dtype=torch.float32,
                  device=None, median="exact", kernel_impl="xla",
                  median_max_rows=512, max_phi_norm=10.0, mesh=None,
-                 pallas_block=1024, remat=False, kernel=None,
-                 median_passes=30, warm_median=False, warm_passes=8,
-                 median_impl="xla", step_impl="xla", custom_grads=None,
-                 pallas_precision="f32", quadratic_form=None,
-                 inkernel_model=None):
+                 particle_axis="particles", pallas_block=1024,
+                 model_axis=None, comm="all_gather", remat=False,
+                 kernel=None, median_passes=30, warm_median=False,
+                 warm_passes=8, median_impl="xla", step_impl="xla",
+                 custom_grads=None, pallas_precision="f32",
+                 quadratic_form=None, inkernel_model=None,
+                 median_collectives="grid", median_grid_g1=16):
         self.n_particles = int(n_particles)
         if self.n_particles < 2:
             raise ValueError(
@@ -616,17 +768,33 @@ class SVGDSampler:
                 "h^2 = median(D)/log(n) is undefined for n=1)"
             )
         self.device = _resolve_device(device)
-        if mesh is not None:
-            raise _unported("mesh=", "A12")
+        self.mesh = mesh
         self.log_p = log_p
         self.gd = gd
         self.dtype = dtype
         self.n_params, self.unravel_fn = template_unraveler(param_template)
-        _check_options(self.n_params, dtype, median, kernel_impl,
-                       median_max_rows, self.n_particles, kernel,
-                       warm_median, median_impl, step_impl, custom_grads,
-                       remat, pallas_precision, quadratic_form,
-                       inkernel_model)
+        if mesh is None:
+            _check_options(self.n_params, dtype, median, kernel_impl,
+                           median_max_rows, self.n_particles, kernel,
+                           warm_median, median_impl, step_impl, custom_grads,
+                           remat, pallas_precision, quadratic_form,
+                           inkernel_model)
+        else:
+            _check_mesh_type(mesh)
+            if self.device.type != mesh.device_type:
+                raise ValueError(
+                    f"SVGDSampler(device={str(self.device)!r}) on a mesh of "
+                    f"{mesh.device_type} tensors: NCCL meshes take "
+                    "device='cuda', gloo meshes device='cpu'"
+                )
+            if particle_axis != mesh.axis_name:
+                raise ValueError(f"particle_axis={particle_axis!r} is not "
+                                 f"the mesh's axis {mesh.axis_name!r}")
+            _check_mesh_options(dtype, median, kernel_impl, kernel,
+                                warm_median, median_impl, step_impl,
+                                custom_grads, remat, pallas_precision,
+                                quadratic_form, inkernel_model, model_axis,
+                                comm, median_collectives)
         del pallas_block  # the CUDA tile's sizes are its own
 
         if theta is not None:
@@ -650,6 +818,16 @@ class SVGDSampler:
             theta0, gd.init(tuple(theta0.shape), dtype, self.device),
             torch.zeros((), dtype=torch.int32, device=self.device),
         )
+        if mesh is not None:
+            self._build_mesh_steps(
+                mesh, median=median, max_phi_norm=max_phi_norm, comm=comm,
+                median_max_rows=median_max_rows, median_passes=median_passes,
+                kernel_impl=kernel_impl, custom_grads=custom_grads,
+                warm_median=warm_median, warm_passes=warm_passes,
+                step_impl=step_impl, quadratic_form=quadratic_form,
+                median_collectives=median_collectives,
+                median_grid_g1=median_grid_g1)
+            return
 
         if median == "exact":
             d_bytes = self.n_particles ** 2 * theta0.element_size()
@@ -706,6 +884,43 @@ class SVGDSampler:
                 )
                 self._warm_init_med = warm_phi.init_med
 
+    def _build_mesh_steps(self, mesh, median, max_phi_norm, comm,
+                          median_max_rows, median_passes, kernel_impl,
+                          custom_grads, warm_median, warm_passes, step_impl,
+                          quadratic_form, median_collectives, median_grid_g1):
+        """The mesh steps, as the JAX sampler builds them: the cold step
+        for train_on_batch on every mesh, then the fused or plain warm step
+        for run. self.state becomes this rank's block."""
+        from .parallel.sharded import (
+            make_sharded_step,
+            make_sharded_warm_step,
+        )
+        from .parallel.sharded_fused import make_sharded_fused_warm_step
+
+        full = self.state
+        self._step_fn, self.state = make_sharded_step(
+            self.log_p, self.unravel_fn, self.gd, self.n_particles, full,
+            mesh, median=median, max_phi_norm=max_phi_norm, comm=comm,
+            median_max_rows=median_max_rows, median_passes=median_passes,
+            kernel_impl=kernel_impl, custom_grads=custom_grads)
+        self._warm_step_fn = None
+        common = dict(max_phi_norm=max_phi_norm,
+                      median_max_rows=median_max_rows,
+                      median_passes=median_passes, warm_passes=warm_passes,
+                      comm=comm, custom_grads=custom_grads)
+        if step_impl == "fused_shard":
+            self._warm_step_fn, self._warm_init_med = \
+                make_sharded_fused_warm_step(
+                    self.log_p, self.unravel_fn, self.gd, self.n_particles,
+                    full, mesh, quadratic_form=quadratic_form,
+                    median_collectives=median_collectives,
+                    median_grid_g1=median_grid_g1, **common)
+        elif warm_median:
+            self._warm_step_fn, self._warm_init_med = \
+                make_sharded_warm_step(
+                    self.log_p, self.unravel_fn, self.gd, self.n_particles,
+                    mesh, kernel_impl=kernel_impl, **common)
+
     # ------------------------------------------------------------------ API
 
     def _check_batch(self, batch):
@@ -748,8 +963,11 @@ class SVGDSampler:
 
     def load_state(self, state):
         """Replace the sampler state (e.g. from
-        utils.convert.state_from_numpy), checking its shapes and device."""
-        shape = (self.n_particles, self.n_params)
+        utils.convert.state_from_numpy), checking its shapes and device. On
+        a mesh, the state is this rank's block (state_from_numpy(...,
+        mesh=))."""
+        shape = (self.n_particles // (self.mesh.size if self.mesh else 1),
+                 self.n_params)
         if tuple(state.particles.shape) != shape:
             raise ValueError(f"state particles {tuple(state.particles.shape)}"
                              f" != {shape}")
@@ -770,16 +988,23 @@ class SVGDSampler:
                 )
         self.state = state
 
+    def _particles(self):
+        if self.mesh is None:
+            return self.state.particles
+        return coll.all_gather(self.state.particles, self.mesh)
+
     @property
     def samples(self):
         """[n_particles, n_params] particle matrix as a host numpy array
-        (reference: stein_sampler.py:73-78)."""
-        return self.state.particles.detach().cpu().numpy()
+        (reference: stein_sampler.py:73-78); on a mesh, all-gathered (a
+        collective: every rank reads it)."""
+        return self._particles().detach().cpu().numpy()
 
     @property
     def theta(self):
-        """Particles as a structure of [n_particles, *shape] leaves."""
-        return unravel_particles(self.state.particles, self.unravel_fn)
+        """Particles as a structure of [n_particles, *shape] leaves (on a
+        mesh, all-gathered)."""
+        return unravel_particles(self._particles(), self.unravel_fn)
 
     def train_on_batches(self, batches):
         raise _unported("SVGDSampler.train_on_batches", "A3")

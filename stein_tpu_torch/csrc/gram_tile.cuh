@@ -2,8 +2,9 @@
 //   D[r, j] = |rows_r - c|^2 + |cols_j - c|^2 - 2 (rows_r - c).(cols_j - c)
 // by an f32 dot on the CUDA cores, for a 16 x 32 tile (16 warps: warp =
 // row, lane = column). Shared by the Gram stage of median_kernel (B1's and
-// B5's) and by dist_block_kernel (B4), so that every kernel that builds the
-// block builds bitwise the same D. p is walked in chunks of kGramChunk
+// B5's), by dist_block_kernel (B4) and by bracket_tile_kernel (B8, B9), so
+// that every kernel that builds the block builds bitwise the same D. p is
+// walked in chunks of kGramChunk
 // columns through shared memory, so any p fits; the chunk is a multiple of
 // 32 and of 4, which keeps every sum in the order of one pass over p (each
 // lane's squared norms over k = lane, lane + 32, ...; the dot in groups of
@@ -23,9 +24,11 @@ constexpr int kGramChunk = 128;
 constexpr int kGramStride = kGramChunk + 1;
 
 // rows [m, p], cols [n, p], c [p] (any memory space); writes the tile at
-// rows r0.., columns j0.. of D (row stride n). Every thread of the
-// 512-thread block calls it; it begins and ends with a block barrier.
-__device__ __forceinline__ void gram_tile(const float* rows,
+// rows r0.., columns j0.. of D (row stride n) and returns this thread's
+// entry (row r0 + warp, column j0 + lane; 0 outside the block). Every
+// thread of the 512-thread block calls it; it begins and ends with a block
+// barrier.
+__device__ __forceinline__ float gram_tile(const float* rows,
                                           const float* cols, const float* c,
                                           int m, int n, int p, int r0,
                                           int j0, float* D) {
@@ -79,10 +82,13 @@ __device__ __forceinline__ void gram_tile(const float* rows,
     if (lane == 0) rsq_c[warp + kGramRows * a] = s;
   }
   __syncthreads();
-  if (r < m && j < n)
-    D[static_cast<size_t>(r) * n + j] =
-        (rsq_r[warp] + rsq_c[lane]) - 2.0f * ((d0 + d1) + (d2 + d3));
+  float d = 0.0f;
+  if (r < m && j < n) {
+    d = (rsq_r[warp] + rsq_c[lane]) - 2.0f * ((d0 + d1) + (d2 + d3));
+    D[static_cast<size_t>(r) * n + j] = d;
+  }
   __syncthreads();
+  return d;
 }
 
 }  // namespace stein

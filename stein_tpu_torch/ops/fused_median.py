@@ -1,10 +1,11 @@
-"""Single-kernel warm-median search (kernel B2) and the in-kernel-Gram
-medians (kernels B4, B5).
+"""Single-kernel warm-median search (kernel B2), the in-kernel-Gram
+medians (kernels B4, B5) and the sharded median's bracket passes (B8, B9).
 
-PyTorch counterpart of ``stein_tpu/ops/pallas_median.py`` (the single-device
-part: ``fused_block_ok``, ``warm_search_on_value``, ``fused_warm_median_rows``,
-``bracket_pass_fits``, ``pallas_dist_block`` (here ``dist_block``) and
-``fused_warm_median_from_theta``).
+PyTorch counterpart of ``stein_tpu/ops/pallas_median.py``:
+``fused_block_ok``, ``warm_search_on_value``, ``fused_warm_median_rows``,
+``bracket_pass_fits``, ``pallas_dist_block`` (here ``dist_block``),
+``fused_warm_median_from_theta``, ``grid_edges``, ``fused_bracket_pass`` and
+``fused_bracket_grid_pass``.
 
 The CUDA kernel (``csrc/warm_search.cuh``, ``warm_median_kernel``) replaces
 ``stein_tpu/ops/pallas_median.py:_warm_kernel``: the whole search (range,
@@ -26,13 +27,29 @@ and the whole warm search in one cooperative launch. Their plain versions
 compute the block with a torch matmul; the median then sees D from another
 dot order, so B5 against its plain version is bitwise on exact (lattice) D
 and within one final bracket interval otherwise.
+
+B8 and B9 (``csrc/bracket_pass.cu``, replacing ``pallas_median.py:
+_bracket_gram_kernel`` and ``_bracket_grid_kernel``) build the same centred
+block with B4's tile, write it out, and count it at the warm search's
+bracket endpoints (B8, with the block's range) or at every ``grid_edges``
+threshold (B9): the local half of the sharded search, whose collectives
+follow outside the kernel (``ops.median.sharded_warm_from_bracket`` and
+``sharded_warm_from_grid``). Against their plain versions D agrees to the
+dot order, and the counts and range equal the plain counts over the
+kernel's own D.
 """
 
 import ctypes
+import functools
 
 import torch
 
-from .median import DEFAULT_BRACKETS, QUAD_MIN_TOTAL, _warm_search
+from .median import (
+    DEFAULT_BRACKETS,
+    QUAD_MIN_TOTAL,
+    _warm_search,
+    count_le,
+)
 from .rbf import log_n
 
 
@@ -229,3 +246,148 @@ def fused_warm_median_from_theta(rows, cols, med_prev, center,
 
 
 fused_warm_median_from_theta.launches = 0
+
+
+def _bracket_checks(rows, cols, center, what):
+    m, n = rows.shape[0], cols.shape[0]
+    center = _check_gram(rows, cols, center, what)
+    if m * n >= 2 ** 31:
+        raise ValueError(f"{what}: {m}x{n} block exceeds int32 counts")
+    return center
+
+
+@functools.lru_cache(maxsize=None)
+def _multiples(brackets, device):
+    """The bracket multiples (lo, hi) as f32 tensors on ``device``, copied
+    there once."""
+    return tuple(torch.tensor([b[i] for b in brackets], dtype=torch.float32,
+                              device=device) for i in (0, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def grid_steps(g, device):
+    """0, 1, ..., g as an f32 tensor on ``device``, made there once."""
+    return torch.arange(g + 1, dtype=torch.float32, device=device)
+
+
+def grid_edges(med_prev, hi_bound, brackets, g1):
+    """The threshold grids of the grid warm search: for every candidate
+    bracket (multiples of ``med_prev``) and the full-range fallback
+    [-1e-6 (1 + hi_bound), hi_bound], its g1 + 1 uniform edges, one f32
+    tensor of (n_brackets + 1) * (g1 + 1) values, bracket-major, tightest
+    first, fallback last. The JAX expression order: w = (hi - lo) / g1, then
+    lo + t * w. ``med_prev`` and ``hi_bound`` are 0-d f32 device tensors;
+    ``hi_bound`` must bound every entry of D."""
+    lo_m, hi_m = _multiples(tuple(brackets), hi_bound.device)
+    steps = grid_steps(g1, hi_bound.device)
+    lo_f = torch.full((1,), -1e-6, dtype=torch.float32,
+                      device=hi_bound.device) * (1.0 + hi_bound)
+    lo = torch.cat([lo_m * med_prev, lo_f])
+    hi = torch.cat([hi_m * med_prev, hi_bound.reshape(1)])
+    w = (hi - lo) / g1
+    return (lo[:, None] + steps[None, :] * w[:, None]).reshape(-1)
+
+
+def _bracket_ends(med_prev, brackets):
+    lo_m, hi_m = _multiples(tuple(brackets), med_prev.device)
+    return torch.stack([lo_m * med_prev, hi_m * med_prev], dim=1).reshape(-1)
+
+
+def fused_bracket_pass_plain(rows, cols, med_prev, center,
+                             brackets=DEFAULT_BRACKETS):
+    """Kernel B8's plain version: (D [m, n], mm [2] = [-min(min D, 0),
+    max D], cnts [2 * n_brackets] int32 at lo * med_prev, hi * med_prev)."""
+    D = dist_block_plain(rows, cols, center)
+    mm = torch.stack([-torch.clamp(D.min(), max=0.0), D.max()])
+    return D, mm, count_le(D, _bracket_ends(med_prev, brackets))
+
+
+def fused_bracket_grid_pass_plain(rows, cols, med_prev, center, hi_bound,
+                                  brackets=DEFAULT_BRACKETS, g1=16):
+    """Kernel B9's plain version: (D [m, n], cnts [(n_brackets + 1) *
+    (g1 + 1)] int32 at every ``grid_edges`` threshold)."""
+    D = dist_block_plain(rows, cols, center)
+    return D, count_le(D, grid_edges(med_prev, hi_bound, brackets, g1))
+
+
+def _launch_bracket(rows, cols, center, med, brackets, edges):
+    """Both launches of bracket_pass.cu; edges None is B8, else B9."""
+    from .. import _cuda
+
+    lib = _cuda.library().lib
+    rows, cols, center = rows.contiguous(), cols.contiguous(), \
+        center.contiguous()
+    m, p = rows.shape
+    n = cols.shape[0]
+    dev = rows.device
+    nc = 2 * len(brackets) if edges is None else edges.numel()
+    blocks = lib.stein_bracket_blocks(m, n)
+    D = torch.empty(m, n, dtype=torch.float32, device=dev)
+    cnts = torch.empty(nc, dtype=torch.int32, device=dev)
+    mm = torch.empty(2, dtype=torch.float32, device=dev)
+    part_counts = torch.empty(blocks * nc, dtype=torch.int32, device=dev)
+    part_range = torch.empty(2 * blocks, dtype=torch.float32, device=dev)
+    lo, hi = _bracket_arrays(brackets)
+    err = lib.stein_bracket_pass(
+        rows.data_ptr(), cols.data_ptr(), center.data_ptr(), m, n, p,
+        med.data_ptr(), _addr(lo), _addr(hi), len(brackets),
+        None if edges is None else edges.data_ptr(), nc, D.data_ptr(),
+        cnts.data_ptr(), None if edges is not None else mm.data_ptr(),
+        part_counts.data_ptr(), part_range.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _cuda.check(err, "bracket_tile_kernel launch")
+    return D, mm, cnts
+
+
+def fused_bracket_pass(rows, cols, med_prev, center,
+                       brackets=DEFAULT_BRACKETS):
+    """The local half of the sharded warm search's first pass in one kernel
+    (B8): the shard's centred [m, n] block of ``rows`` against ``cols``
+    about ``center``, its range and its count at every bracket endpoint.
+    Returns (D [m, n] f32, mm [2] f32 = [-min(min D, 0), max D], cnts
+    [2 * n_brackets] int32), for the caller to pmax and psum before
+    ``ops.median.sharded_warm_from_bracket`` refines on D. f32 only; gate
+    shapes with ``bracket_pass_fits``."""
+    center = _bracket_checks(rows, cols, center, "fused bracket pass")
+    med = _scalar_on(med_prev, rows)
+    if rows.device.type == "cpu":
+        return fused_bracket_pass_plain(rows, cols, med, center, brackets)
+    if rows.device.type != "cuda":
+        raise ValueError(f"fused bracket pass: no kernel for {rows.device}")
+    if len(brackets) > 8:
+        raise ValueError("fused bracket pass: the kernel takes <= 8 brackets")
+    out = _launch_bracket(rows, cols, center, med, brackets, None)
+    fused_bracket_pass.launches += 1
+    return out
+
+
+fused_bracket_pass.launches = 0
+
+
+def fused_bracket_grid_pass(rows, cols, med_prev, center, hi_bound,
+                            brackets=DEFAULT_BRACKETS, g1=16):
+    """B8 with the grid search's first round (B9): the same block, counted
+    at every ``grid_edges(med_prev, hi_bound, brackets, g1)`` threshold.
+    Returns (D [m, n] f32, cnts [(n_brackets + 1) * (g1 + 1)] int32), for
+    the caller to psum before ``ops.median.sharded_warm_from_grid``."""
+    center = _bracket_checks(rows, cols, center,
+                             "fused grid bracket pass")
+    med = _scalar_on(med_prev, rows)
+    hib = _scalar_on(hi_bound, rows)
+    if rows.device.type == "cpu":
+        return fused_bracket_grid_pass_plain(rows, cols, med, center, hib,
+                                             brackets, g1)
+    if rows.device.type != "cuda":
+        raise ValueError(f"fused grid bracket pass: no kernel for "
+                         f"{rows.device}")
+    edges = grid_edges(med, hib, brackets, g1)
+    if edges.numel() > 2048:
+        raise ValueError("fused grid bracket pass: the kernel takes <= 2048 "
+                         "thresholds")
+    D, _, cnts = _launch_bracket(rows, cols, center, med, brackets, edges)
+    fused_bracket_grid_pass.launches += 1
+    return D, cnts
+
+
+fused_bracket_grid_pass.launches = 0

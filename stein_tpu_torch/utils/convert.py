@@ -19,15 +19,21 @@ def _fields(opt_state):
     return dict(opt_state)
 
 
-def state_from_numpy(particles, opt_state, step, device="cpu"):
+def state_from_numpy(particles, opt_state, step, device=None, mesh=None):
     """The port's SVGDState from numpy arrays.
 
     ``particles`` is [n, p]; ``opt_state`` a mapping (or named tuple) with
     Adam's ``mu``, ``nu``, ``count``, ``learning_rate`` or Adagrad's
     ``hist``, ``count``, ``learning_rate``; ``step`` the completed steps.
     Floating arrays keep their dtype (f32 for the JAX package's f32
-    sampler); counts become int32."""
-    from ..api import SVGDState
+    sampler); counts become int32. ``device`` defaults to the current card
+    (raising without one). With a ``mesh`` the state is this rank's block
+    (parallel.sharded.shard_state): the rows of every [n, ...] leaf that
+    the rank holds, the scalars whole; a JAX mesh sampler's full state
+    carries across so."""
+    from ..api import SVGDState, _resolve_device
+
+    device = _resolve_device(device, "state_from_numpy")
 
     def tensor(x, dtype=None):
         arr = np.asarray(x)
@@ -49,4 +55,8 @@ def state_from_numpy(particles, opt_state, step, device="cpu"):
             f"or Adagrad (hist, count, learning_rate) state, got "
             f"{sorted(fields)}"
         )
-    return SVGDState(tensor(particles), opt, tensor(step, torch.int32))
+    state = SVGDState(tensor(particles), opt, tensor(step, torch.int32))
+    if mesh is None:
+        return state
+    from ..parallel.sharded import shard_state
+    return shard_state(state, mesh)

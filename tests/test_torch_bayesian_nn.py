@@ -140,7 +140,7 @@ def test_nn_state_handoff_from_jax():
     js = sj.SVGDSampler(n, jm.log_p, jm.template(), sj.Adam(**gd),
                         theta=jnp.asarray(theta0))
     ts = st.SVGDSampler(n, tm.log_p, tm.template(), st.Adam(**gd),
-                        theta=theta0)
+                        theta=theta0, device="cpu")
     jb = {"X": jnp.asarray(X, jnp.float32), "y": jnp.asarray(y, jnp.float32)}
     tb = {"X": torch.tensor(X, dtype=torch.float32),
           "y": torch.tensor(y, dtype=torch.float32)}
@@ -149,7 +149,7 @@ def test_nn_state_handoff_from_jax():
     ts.load_state(state_from_numpy(
         np.asarray(s.particles),
         {k: np.asarray(v) for k, v in s.opt_state._asdict().items()},
-        np.asarray(s.step)))
+        np.asarray(s.step), device="cpu"))
     ja = js.run(jb, 3)
     ta = ts.run(tb, 3)
     np.testing.assert_allclose(ts.samples, js.samples, rtol=1e-5, atol=1e-6)

@@ -438,3 +438,111 @@ def test_new_paths_run_through_their_kernels(dev):
         assert [fn.launches for fn in counters] == want, cfg["step_impl"]
         assert all(torch.isfinite(v).all() for v in aux.values())
         assert np.isfinite(s.samples).all()
+
+
+def _bracket_inputs(dev, kind, m, n, p, seed=4):
+    rng = np.random.default_rng(seed)
+    if kind == "lattice":
+        half = rng.integers(-3, 4, size=(n // 2, p))
+        cols = np.concatenate([half, -half])
+        rows = cols[:: max(n // m, 1)][:m]
+    else:
+        cols = rng.normal(size=(n, p)) * 0.3 + 1.0
+        rows = rng.normal(size=(m, p)) * 0.3 + 1.0
+    cols = torch.tensor(cols, dtype=torch.float32, device=dev)
+    rows = torch.tensor(rows, dtype=torch.float32, device=dev)
+    c = svgd_tile.column_center(cols)
+    hib = 4.0 * torch.max(torch.sum((cols - c) ** 2, dim=1)) * 1.0001 + 1e-30
+    med = fused_median.dist_block_plain(rows, cols, c).median() * 1.01
+    return rows, cols, c, med, hib
+
+
+@pytest.mark.parametrize("kind,m,n,p", [
+    ("lattice", 256, 1000, 128), ("normal", 256, 1000, 128),
+    ("normal", 256, 1000, 303), ("normal", 64, 250, 128),
+    ("lattice", 48, 200, 40)])
+def test_b8_b9_against_plain(dev, kind, m, n, p):
+    """B8 and B9 against their plain versions: on lattice particles D, mm
+    and the counts bitwise; otherwise D <= 1e-5 normalised, and the counts
+    and mm those of the kernel's own D, bitwise; two calls bitwise."""
+    rows, cols, c, med, hib = _bracket_inputs(dev, kind, m, n, p)
+    D, mm, cnts = fused_median.fused_bracket_pass(rows, cols, med, c)
+    again = fused_median.fused_bracket_pass(rows, cols, med, c)
+    G, gcnts = fused_median.fused_bracket_grid_pass(rows, cols, med, c, hib,
+                                                    g1=8)
+    torch.cuda.synchronize()
+    Dp, mmp, cp = fused_median.fused_bracket_pass_plain(rows, cols, med, c)
+    _, gp = fused_median.fused_bracket_grid_pass_plain(rows, cols, med, c,
+                                                       hib, g1=8)
+    assert all(torch.equal(a, b) for a, b in zip((D, mm, cnts), again))
+    assert torch.equal(D, G)
+    ends = fused_median._bracket_ends(med, fused_median.DEFAULT_BRACKETS)
+    edges = fused_median.grid_edges(med, hib, fused_median.DEFAULT_BRACKETS,
+                                    8)
+    assert torch.equal(cnts, fused_median.count_le(D, ends))
+    assert torch.equal(gcnts, fused_median.count_le(D, edges))
+    assert torch.equal(mm, torch.stack([-torch.clamp(D.min(), max=0.0),
+                                        D.max()]))
+    if kind == "lattice":
+        assert torch.equal(D, Dp) and torch.equal(mm, mmp)
+        assert torch.equal(cnts, cp) and torch.equal(gcnts, gp)
+    else:
+        err = ((D - Dp).abs().max() / Dp.abs().max()).item()
+        assert err <= 1e-5, err
+
+
+def test_default_device_is_cuda0(dev):
+    """No device given: the sampler and state_from_numpy take cuda:0."""
+    from stein_tpu_torch.utils.convert import state_from_numpy
+
+    m = LinearRegressionModel(4)
+    s = SVGDSampler(8, m.log_p, m.template(), Adam(0.1))
+    assert s.device == torch.device("cuda", 0)
+    assert s.state.particles.device == torch.device("cuda", 0)
+    st = state_from_numpy(np.zeros((8, 4), np.float32), {
+        "hist": np.zeros((8, 4), np.float32), "count": 0,
+        "learning_rate": np.float32(0.1)}, 0)
+    assert st.particles.device == torch.device("cuda", 0)
+
+
+def test_one_rank_nccl_fused_shard_at_the_class(dev):
+    """step_impl='fused_shard' on a one-rank NCCL group, 5 steps of
+    throughput_config(1000, 128, mesh=) against the same sampler on a gloo
+    group on the CPU (the plain versions), at the fused_gram class
+    (medians rtol 5e-3, samples rtol 2e-4 / atol 1e-6, phi_norm 1e-4); B8
+    runs once per step."""
+    import torch.distributed as dist
+
+    from stein_tpu_torch.parallel import particle_mesh, setup_distributed
+
+    setup_distributed("nccl", store=dist.HashStore(), world_size=1, rank=0,
+                      device_id=dev)
+    try:
+        mesh = particle_mesh()
+        cpu_mesh = particle_mesh(dist.new_group(backend="gloo"))
+        rng = np.random.default_rng(0)
+        X = rng.normal(size=(1000, 128))
+        y = X @ rng.normal(size=(128, 1)) + rng.normal(size=(1000, 1)) * 0.3
+        theta0 = rng.normal(size=(1000, 128)) * 0.01
+        model = LinearRegressionModel(128)
+        batch = {"X": torch.tensor(X, dtype=torch.float32),
+                 "y": torch.tensor(y, dtype=torch.float32)}
+        cfg = throughput_config(1000, 128, mesh=mesh)
+        assert cfg["step_impl"] == "fused_shard"
+        assert cfg["median_collectives"] == "rounds"
+        runs = {}
+        for d, m_ in (("cuda", mesh), ("cpu", cpu_mesh)):
+            s = SVGDSampler(1000, model.log_p, model.template(), Adam(0.1),
+                            theta=theta0, device=d, **dict(cfg, mesh=m_))
+            fused_median.fused_bracket_pass.launches = 0
+            aux = s.run({k: v.to(d) for k, v in batch.items()}, 5)
+            runs[d] = (s.samples, {k: v.cpu().numpy() for k, v in
+                                   aux.items()},
+                       fused_median.fused_bracket_pass.launches)
+        (gs, ga, glaunch), (cs, ca, _) = runs["cuda"], runs["cpu"]
+        assert glaunch == 5
+        np.testing.assert_allclose(ga["median"], ca["median"], rtol=5e-3)
+        np.testing.assert_allclose(ga["phi_norm"], ca["phi_norm"], rtol=1e-4)
+        np.testing.assert_allclose(gs, cs, rtol=2e-4, atol=1e-6)
+    finally:
+        dist.destroy_process_group()

@@ -134,7 +134,8 @@ def _pair(rule, gd_kw):
                         inkernel_model=jm.inkernel_model, **common)
     ts = st.SVGDSampler(n, tm.log_p, tm.template(),
                         getattr(st, rule)(**gd_kw), theta=theta0,
-                        inkernel_model=tm.inkernel_model, **common)
+                        device="cpu", inkernel_model=tm.inkernel_model,
+                        **common)
     jb, tb = _batches(X, y)
     return js, ts, jb, tb
 
@@ -185,7 +186,7 @@ def test_logistic_state_handoff_from_jax():
     ts.load_state(state_from_numpy(
         np.asarray(s.particles),
         {k: np.asarray(v) for k, v in s.opt_state._asdict().items()},
-        np.asarray(s.step)))
+        np.asarray(s.step), device="cpu"))
     assert int(ts.state.step) == 4 and int(ts.state.opt_state.count) == 4
     np.testing.assert_array_equal(ts.samples, js.samples)
     ja, ta = js.run(jb, 4), ts.run(tb, 4)
@@ -203,7 +204,8 @@ def test_fused_model_guards():
     refused with TypeError, on the CPU too."""
     X, y, theta0, _, tm = _logreg_problem()
     tb = {"X": torch.from_numpy(X), "y": torch.from_numpy(y)}
-    common = dict(median="bisect", warm_median=True, theta=theta0)
+    common = dict(median="bisect", warm_median=True, theta=theta0,
+                  device="cpu")
 
     def make(**kw):
         return st.SVGDSampler(48, tm.log_p, tm.template(), st.Adam(),

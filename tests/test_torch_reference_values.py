@@ -79,3 +79,27 @@ def test_spread_of_the_jax_package_own_paths(case):
     b.run(batch, 10)
     spread = float(np.abs(np.asarray(a.samples) - np.asarray(b.samples)).max())
     assert spread == pytest.approx(want, rel=0.1)
+
+
+@pytest.mark.parametrize("case", ["mesh", "mesh-glm"])
+def test_mesh_posterior_error_at_step_500(case):
+    """[mesh] and [mesh-glm]'s recipes through the JAX package's
+    throughput_config(1000, 128, mesh=) on a 1-device mesh (fused_shard,
+    interpret mode), 500 steps: max |particle mean - posterior mean|."""
+    import jax
+
+    from stein_tpu.parallel import particle_mesh
+
+    glm = case == "mesh-glm"
+    X, y, model, batch, theta0 = _lr(cs.make_data()[2], sufficient=glm)
+    cfg = sj.throughput_config(cs.N, cs.P, pallas_interpret=True,
+                               mesh=particle_mesh(jax.devices()[:1]),
+                               model=model if glm else None)
+    assert cfg["step_impl"] == "fused_shard"
+    assert ("quadratic_form" in cfg) == glm
+    s = _sampler(model, theta0, sj.Adam(learning_rate=1e-1), cfg)
+    s.run(batch, cs.MESH_STEPS)
+    post = np.linalg.solve(X.T @ X + np.eye(cs.P), X.T @ y).ravel()
+    err = float(np.max(np.abs(np.asarray(s.samples).mean(0) - post)))
+    want = cs.POSTERIOR_MESH_GLM_JAX if glm else cs.POSTERIOR_MESH_JAX
+    assert err == pytest.approx(want, rel=1e-3)

@@ -20,6 +20,7 @@ from stein_tpu_torch.models import BayesianNNModel as TNN
 from stein_tpu_torch.models import LinearRegressionModel as TModel
 from stein_tpu_torch.utils.ravel import template_unraveler
 from stein_tpu_torch.utils.convert import state_from_numpy
+from torch_mesh_runner import one_process_mesh
 
 
 # The reference path's tolerance. rtol 1e-5: f32 matmul summation orders
@@ -46,7 +47,8 @@ def _pair(X, y, theta0, gd_kw, jcfg, tcfg, rule="Adam"):
                         getattr(sj, rule)(**gd_kw),
                         theta=jnp.asarray(theta0), **jcfg)
     ts = st.SVGDSampler(theta0.shape[0], tm.log_p, tm.template(),
-                        getattr(st, rule)(**gd_kw), theta=theta0, **tcfg)
+                        getattr(st, rule)(**gd_kw), theta=theta0,
+                        device="cpu", **tcfg)
     jb = {"X": jnp.asarray(X), "y": jnp.asarray(y)}
     tb = {"X": torch.from_numpy(X), "y": torch.from_numpy(y)}
     return js, ts, jb, tb
@@ -152,7 +154,7 @@ def test_nn_slice_matches_jax_interpret():
 
     def port():
         return st.SVGDSampler(n, tm.log_p, tm.template(), st.Adam(**gd),
-                              theta=theta0, **tcfg)
+                              theta=theta0, device="cpu", **tcfg)
 
     def jax():
         return sj.SVGDSampler(n, jm.log_p, jm.template(), sj.Adam(**gd),
@@ -222,7 +224,7 @@ def test_state_handoff_from_jax(rule, gd_kw):
     ts.load_state(state_from_numpy(
         np.asarray(s.particles),
         {k: np.asarray(v) for k, v in s.opt_state._asdict().items()},
-        np.asarray(s.step)))
+        np.asarray(s.step), device="cpu"))
     assert int(ts.state.step) == 5
     js.run(jb, 5)
     ts.run(tb, 5)
@@ -238,16 +240,17 @@ def test_load_state_rejects_mismatch():
     bad = state_from_numpy(theta0[:10], {
         "mu": np.zeros((10, 6), np.float32),
         "nu": np.zeros((10, 6), np.float32),
-        "count": 0, "learning_rate": np.float32(0.1)}, 0)
+        "count": 0, "learning_rate": np.float32(0.1)}, 0, device="cpu")
     with pytest.raises(ValueError, match="particles"):
         ts.load_state(bad)
     with pytest.raises(ValueError, match="Adam"):
-        state_from_numpy(theta0, {"m": 0}, 0)
+        state_from_numpy(theta0, {"m": 0}, 0, device="cpu")
 
 
 def _sampler(**kw):
     X, y, theta0 = _problem()
     m = TModel(6)
+    kw.setdefault("device", "cpu")
     return st.SVGDSampler(48, m.log_p, m.template(), st.Adam(),
                           theta=theta0, **kw)
 
@@ -292,19 +295,35 @@ def test_ported_options_construct_and_step(kw):
     assert int(s.state.step) == 3 and np.isfinite(s.samples).all()
 
 
+@pytest.fixture(scope="module")
+def mesh1():
+    with one_process_mesh() as mesh:
+        yield mesh
+
+
 @pytest.mark.parametrize("kw", [
-    dict(mesh=object()),
+    lambda mesh: _sampler(mesh=mesh, model_axis="model"),
     dict(median="bisect", kernel_impl="pallas", pallas_precision="bf16"),
-    lambda: st.throughput_config(48, 6, probe_batch={}),
-    lambda: st.throughput_config(48, 6, mesh=object()),
+    lambda mesh: st.throughput_config(48, 6, probe_batch={}),
+    lambda mesh: st.throughput_config(48, 6, mesh=mesh, model_axis="model"),
     dict(median="subsample"),
     dict(median="binned"),
     dict(kernel=object()),
     dict(remat=True),
 ])
-def test_unported_options_raise(kw):
+def test_unported_options_raise(kw, mesh1):
+    """Options not ported yet; the 2-D mesh (model_axis=) names A12."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        kw() if callable(kw) else _sampler(**kw)
+        kw(mesh1) if callable(kw) else _sampler(**kw)
+
+
+@pytest.mark.parametrize("make", [
+    lambda: _sampler(mesh=object()),
+    lambda: st.throughput_config(48, 6, mesh=object()),
+])
+def test_mesh_must_be_a_particle_mesh(make):
+    with pytest.raises(TypeError, match="ParticleMesh"):
+        make()
 
 
 @pytest.mark.parametrize("method,args", [
@@ -352,7 +371,7 @@ def test_jax_value_error_guards_hold(kw, match):
     m = TModel(6)
     with pytest.raises(ValueError, match=match):
         st.SVGDSampler(n, m.log_p, m.template(), st.Adam(), theta=theta,
-                       **kw)
+                       device="cpu", **kw)
 
 
 def test_import_loads_no_jax():
@@ -360,7 +379,11 @@ def test_import_loads_no_jax():
             "stein_tpu_torch.ops.fused_step, stein_tpu_torch._cuda, "
             "stein_tpu_torch.ops.svgd_tile, stein_tpu_torch.ops.model_grad, "
             "stein_tpu_torch.models.bayesian_nn, "
-            "stein_tpu_torch.models.logistic_regression; "
+            "stein_tpu_torch.models.logistic_regression, "
+            "stein_tpu_torch.parallel, stein_tpu_torch.parallel.mesh, "
+            "stein_tpu_torch.parallel.collectives, "
+            "stein_tpu_torch.parallel.sharded, "
+            "stein_tpu_torch.parallel.sharded_fused; "
             "assert 'jax' not in sys.modules, 'jax imported'; print('ok')")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
@@ -372,6 +395,22 @@ def test_cuda_device_without_gpu_raises():
         pytest.skip("a CUDA device is present; this checks its absence")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _sampler(device="cuda")
+
+
+@pytest.mark.parametrize("make", [
+    lambda: _sampler(device=None),
+    lambda: state_from_numpy(_problem()[2], {
+        "hist": np.zeros((48, 6), np.float32), "count": 0,
+        "learning_rate": np.float32(0.1)}, 0),
+])
+def test_default_device_is_the_card(make):
+    """With no device given, the sampler and state_from_numpy take the
+    current card and, without one, raise (no fallback to the CPU); on the
+    card, tests/test_torch_cuda.py checks that they resolve to cuda:0."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks its absence")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
 
 
 def test_batch_on_another_device_raises():
