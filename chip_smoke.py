@@ -17,7 +17,9 @@ results, and times the steps and the kernels. Phases:
               path's block; B1's
               launch chain against the plain tail; B3, B4, B5 and B7
               against theirs; the glm and logistic stages, B10, B6, and
-              B1's model and D-given chains against theirs, at the stated
+              B1's model and D-given chains against theirs; B8/B9; B11 at
+              four shapes, and in one-tile bands bitwise equal to one
+              band; B12 on lattice and path inputs; at the stated
               tolerances
   4. main     the bench's p=128 Bayesian linear regression at n=1000
               (B1, B2): launch counts of run(batch, 500), finiteness, the
@@ -42,6 +44,15 @@ results, and times the steps and the kernels. Phases:
               steps against the CPU run and the plain functions
      large-n-epilogue  step_impl='epilogue' at n=10240 (B3, B2, B6):
               counts, 4 steps against the plain functions on the card
+     main-nn-pblock  the Bayesian NN (n=1000, p=303) in the JAX package's
+              own loop for B12: 500 steps of B7 then
+              fused_warm_step_pblock (the whole-D step tail): counts,
+              finiteness, log_p_mean at step 500 against the JAX
+              package's, the first 10 steps against the CPU loop
+     large-n-sym  B11 (svgd_phi_sym) at n=10240, p=128 in
+              benchmarks/sym_and_gram_bench.py's loop, 50 iterations:
+              counts, each phi against B3's and the plain version's, a
+              second call bitwise
      mesh     the 1-D particle mesh on a one-process NCCL group:
               throughput_config(1000, 128, mesh=) = step_impl='fused_shard'
               with median_collectives='rounds' (B8, B3): counts, 10 steps
@@ -50,11 +61,12 @@ results, and times the steps and the kernels. Phases:
               card, the posterior mean; mesh-grid ('grid': B9, B3),
               mesh-ring (comm='ring': B9, B3), mesh-glm (quadratic_form:
               B8, B3) and mesh-nn (the NN with custom_grads: B7, B8, B3)
-  5. timing   per-step time of run() with the kernels and with the plain
-              functions on the card, and each kernel against its plain
-              version and its library call (CUDA events; plain, kernel,
-              kernel, plain); a torch.profiler split of each fused path
-              and of [mesh] (with the collectives' share)
+  5. timing   per-step time of run() (and of the B12 and B11 loops) with
+              the kernels and with the plain functions on the card, and
+              each kernel against its plain version and its library call
+              (CUDA events; plain, kernel, kernel, plain); a torch.profiler
+              split of each fused path, of both loops and of the mesh
+              paths (with the collectives' share)
 
 Every phase prints its lines; a failed check raises and the script exits
 non-zero. The line before the last is the kernel table as JSON (each
@@ -1332,6 +1344,294 @@ def compare_with_plain(label, make, batch, runner, steps, lr):
                  "phi_norm": torch.stack(norms).cpu().numpy()}, steps, lr)
 
 
+# --------------------------------------------- B11 and B12, entry points
+# Neither is reached from SVGDSampler (the JAX sampler has no option for
+# them either): each path calls its function as the JAX package's own
+# test and benchmark do.
+
+PBLOCK_STEPS = 500
+# The mean log_p of the 500th gradient call of [main-nn-pblock]'s loop in
+# the JAX package (pallas_grads(interpret=True) then fused_warm_step_pblock(
+# interpret=True) under jax.jit, CPU): -17.879913 at step 1, -16.245863 at
+# step 10; tests/test_torch_reference_values.py recomputes it. The port is
+# held to 1e-4 relative: other tails of this NN land about 2e-4 from it
+# ([mesh-nn] -40.892), so a looser bound would not tell B12's full-n^2
+# median from a row subsample.
+NN_PBLOCK_LOGP_JAX = -40.900760650634766
+# [large-n-sym]: benchmarks/sym_and_gram_bench.py:108-138's loop, theta
+# <- theta + 1e-6 phi(theta) from theta0 = 0.1 N(0, I), grads N(0, I)
+# (numpy seed 0), h^2 = 1.
+SYM_N, SYM_P, SYM_ITERS = 10240, 128, 50
+
+
+class PblockLoop:
+    """[main-nn-pblock]'s loop: per step logp, grads = B7 at theta, then
+    theta, opt, (med, phi_norm, h2) = B12, med starting at 0 (the cold
+    search); Adam(0.1, decay=0.999). ``plain`` runs each kernel's plain
+    version on the same tensors. run(batch, k) advances the loop k steps
+    and returns the per-step log_p mean, median and phi_norm."""
+
+    def __init__(self, model, theta0, device, plain=False):
+        import torch
+        from types import SimpleNamespace
+
+        from stein_tpu_torch import Adam
+
+        self.model, self.plain = model, plain
+        self.gd = Adam(0.1, decay=0.999)
+        theta = torch.tensor(theta0, dtype=torch.float32, device=device)
+        self.state = SimpleNamespace(particles=theta, opt_state=self.gd.init(
+            tuple(theta.shape), device=device))
+        self.med = torch.zeros((), device=device)
+        self.grad_fn = model.pallas_grads()
+
+    def run(self, batch, steps):
+        import torch
+        from stein_tpu_torch.models import bayesian_nn
+        from stein_tpu_torch.ops import fused_step
+
+        theta, opt, med = self.state.particles, self.state.opt_state, self.med
+        out = {"log_p_mean": [], "median": [], "phi_norm": []}
+        for _ in range(steps):
+            if self.plain:
+                logp, grads = bayesian_nn.nn_grads_plain(
+                    theta, batch["X"], batch["y"].reshape(-1),
+                    self.model.n_feats, self.model.n_hidden,
+                    self.model._consts())
+                theta, opt, stats = fused_step._plain_tail(
+                    theta, grads, None, med, opt, self.gd, 10.0, 8,
+                    fused_step.DEFAULT_BRACKETS)
+            else:
+                logp, grads = self.grad_fn(theta, batch)
+                theta, opt, stats = fused_step.fused_warm_step_pblock(
+                    theta, grads, med, opt, self.gd)
+            med = stats[0]
+            out["log_p_mean"].append(logp.mean())
+            out["median"].append(stats[0])
+            out["phi_norm"].append(stats[1])
+        self.state.particles, self.state.opt_state, self.med = theta, opt, med
+        return {k: torch.stack(v) for k, v in out.items()}
+
+    @property
+    def samples(self):
+        return self.state.particles.cpu().numpy()
+
+
+class SymLoop:
+    """[large-n-sym]'s loop: theta <- theta + 1e-6 phi_fn(theta, grads,
+    h2). run(batch, k) takes k iterations (batch is unused)."""
+
+    def __init__(self, theta, grads, h2, phi_fn):
+        self.theta, self.grads, self.h2, self.phi_fn = theta, grads, h2, \
+            phi_fn
+
+    def run(self, batch, steps):
+        for _ in range(steps):
+            self.theta = self.theta + 1e-6 * self.phi_fn(self.theta,
+                                                          self.grads, self.h2)
+
+
+def sym_data(dev, torch):
+    rng = np.random.default_rng(0)
+    theta0 = rng.normal(size=(SYM_N, SYM_P)) * 0.1
+    grads = rng.normal(size=(SYM_N, SYM_P))
+    return (torch.tensor(theta0, dtype=torch.float32, device=dev),
+            torch.tensor(grads, dtype=torch.float32, device=dev))
+
+
+def check_sym_pblock_kernels(dev, torch, nn_model, nn_batch, nn_theta):
+    """B11 and B12 against their plain versions on the card. Returns (the
+    max abs error of each on its path's inputs, the timing inputs)."""
+    from stein_tpu_torch.ops import fused_median, fused_step, svgd_tile
+    from stein_tpu_torch.ops.median import row_subsample_block
+
+    f32 = torch.float32
+    zero = torch.zeros((), dtype=f32, device=dev)
+    rng = np.random.default_rng(9)
+    errs, inputs = {}, {}
+
+    # B11: the [large-n-sym] path's first input; n=1000, p=303 on the NN
+    # path's particles and gradients (n not a multiple of the 128-row
+    # tile); n=3000, p=64; and off the origin (|theta| 3.9-5.0: B11 does
+    # not centre; 1e-4, the CPU tests' bound). Near the origin 1e-5
+    # normalised (the JAX suite's B11 bound). Two calls bitwise.
+    def h2_of(theta):
+        return fused_median.warm_search_on_value(
+            row_subsample_block(theta, 128), zero, 30) / np.log(
+                theta.shape[0])
+
+    def sym_case(label, theta, grads, h2, bound):
+        got = svgd_tile.svgd_phi_sym(theta, grads, h2)
+        again = svgd_tile.svgd_phi_sym(theta, grads, h2)
+        want = svgd_tile.svgd_phi_sym_plain(
+            theta, grads, torch.as_tensor(h2, dtype=f32, device=dev))
+        torch.cuda.synchronize()
+        err = norm_err(got, want)
+        log(f"[kernels] B11 {label}: normalised error {err:.3e} (bound "
+            f"{bound:g}), repeat bitwise {torch.equal(got, again)}")
+        if err > bound or not torch.equal(got, again):
+            fail(f"B11 {label} disagrees with its plain version or itself")
+        return (got - want).abs().max().item()
+
+    theta_s, grads_s = sym_data(dev, torch)
+    errs["B11"] = sym_case(f"large-n-sym path n={SYM_N} p={SYM_P}", theta_s,
+                           grads_s, 1.0, 1e-5)
+    inputs["B11"] = (theta_s, grads_s, 1.0)
+    _, g_nn = nn_model.pallas_grads()(nn_theta, nn_batch)
+    h2_nn = h2_of(nn_theta)
+    sym_case(f"ragged n={NN_N} p={NN_P} (the NN path's inputs)", nn_theta,
+             g_nn, h2_nn, 1e-5)
+    # The upper tiles in bands of one (a 1 MiB scratch budget): the same
+    # bits as one band, the accumulator's order being the same.
+    whole = svgd_tile.svgd_phi_sym(nn_theta, g_nn, h2_nn)
+    budget, svgd_tile.SYM_SCRATCH_MIB = svgd_tile.SYM_SCRATCH_MIB, 1
+    try:
+        banded = svgd_tile.svgd_phi_sym(nn_theta, g_nn, h2_nn)
+    finally:
+        svgd_tile.SYM_SCRATCH_MIB = budget
+    log(f"[kernels] B11 ragged n={NN_N} p={NN_P} in one-tile bands: bitwise "
+        f"equal to one band {torch.equal(whole, banded)}")
+    if not torch.equal(whole, banded):
+        fail("B11's output depends on its band size")
+    t3 = torch.tensor(rng.normal(size=(3000, 64)) * 0.3, dtype=f32,
+                      device=dev)
+    sym_case("n=3000 p=64", t3, torch.randn_like(t3), h2_of(t3), 1e-5)
+    t_off = torch.tensor(rng.normal(size=(300, 130)) * 0.3 + 0.25,
+                         dtype=f32, device=dev)
+    sym_case("off the origin n=300 p=130", t_off, torch.randn_like(t_off),
+             h2_of(t_off), 1e-4)
+
+    # B12 against _plain_tail with every row kept, Adam and Adagrad. On
+    # lattice particles (D exact in any order) cold and warm: median and
+    # h^2 bitwise, the rest <= 1e-5 normalised. On the path's own inputs
+    # (theta0, B7's gradients there, the plain cold median as hint): the
+    # median within one final interval of the tight bracket, (1.09 - 0.92)
+    # hint / 4^4, the rest <= 1e-2 normalised (as B1's checks).
+    lat = lattice(NN_N, NN_P, dev, torch)
+    g_lat = torch.tensor(rng.normal(size=(NN_N, NN_P)), dtype=f32,
+                         device=dev)
+    c_nn = nn_theta.mean(0, keepdim=True)
+    hint = fused_median.warm_search_on_value(
+        fused_median.dist_block_plain(nn_theta, nn_theta, c_nn), zero, 30)
+    cases = [("lattice cold", lat, g_lat, zero, True),
+             ("lattice warm", lat, g_lat, None, True),
+             ("main-nn-pblock path", nn_theta, g_nn, hint, False)]
+    errs["B12"] = 0.0
+    for label, th, g, med_prev, exact in cases:
+        for rule in ("adam", "adagrad"):
+            gd, state = opt_state(NN_N, NN_P, rule, 1.0, dev, torch)
+            if med_prev is None:   # warm: 1.01 x the cold median
+                med_prev = q[2][0] * 1.01
+            k = fused_step.fused_warm_step_pblock(th, g, med_prev, state, gd)
+            q = fused_step._plain_tail(th, g, None, med_prev, state, gd,
+                                       10.0, 8, fused_step.DEFAULT_BRACKETS)
+            torch.cuda.synchronize()
+            med_k, med_q = k[2][0].item(), q[2][0].item()
+            es = [norm_err(a, b) for a, b in
+                  zip([k[0], *k[1], *k[2]], [q[0], *q[1], *q[2]])]
+            log(f"[kernels] B12 {label} {rule}: med {med_k!r} vs {med_q!r}, "
+                f"h2 {k[2][2].item()!r} vs {q[2][2].item()!r}, normalised "
+                f"errors {['%.2e' % e for e in es]}")
+            if int(k[1].count) != 6:
+                fail(f"B12 {label} ({rule}): optimizer count not advanced")
+            if exact and (med_k != med_q or k[2][2].item() != q[2][2].item()):
+                fail(f"B12 {label} ({rule}): median/h2 not bitwise")
+            if not exact:
+                width = (1.09 - 0.92) * med_prev.item() / 4 ** 4
+                if abs(med_k - med_q) > width * 1.0001:
+                    fail(f"B12 {label} ({rule}): median off by more than "
+                         "one interval")
+                errs["B12"] = max(errs["B12"],
+                                  (k[0] - q[0]).abs().max().item())
+                if rule == "adam":
+                    inputs["B12"] = (th, g, med_prev, state, gd)
+            if max(es) > (1e-5 if exact else 1e-2):
+                fail(f"B12 {label} ({rule}) off by {max(es):.3e}")
+    return errs, inputs
+
+
+def run_entry_paths(dev, torch, nn_model, counters):
+    """[main-nn-pblock] (B7, B12) and [large-n-sym] (B11). Returns each
+    path's launch counts and, for the timing, each path's (loop, batch,
+    plain loop)."""
+    from stein_tpu_torch.ops import fused_step, svgd_tile
+
+    counts, timed = {}, {}
+    X, y, theta0 = nn_data(NN_N)
+    batch = {"X": torch.tensor(X, dtype=torch.float32, device=dev),
+             "y": torch.tensor(y, dtype=torch.float32, device=dev)}
+    if not fused_step.pblock_step_fits(NN_N, NN_P):
+        fail(f"[main-nn-pblock] pblock_step_fits({NN_N}, {NN_P}) is False")
+    loop = PblockLoop(nn_model, theta0, dev)
+    reset(counters)
+    t0 = time.perf_counter()
+    aux = loop.run(batch, PBLOCK_STEPS)
+    torch.cuda.synchronize()
+    log(f"[main-nn-pblock] {PBLOCK_STEPS} steps of B7 then "
+        f"fused_warm_step_pblock (n={NN_N}, p={NN_P}; pblock_step_fits "
+        f"True) in {time.perf_counter() - t0:.2f} s (first call)")
+    counts["main-nn-pblock"] = check_counts(
+        "main-nn-pblock", counters, dict(B7=PBLOCK_STEPS, B12=PBLOCK_STEPS))
+    check_finite("main-nn-pblock", loop, aux, PBLOCK_STEPS)
+    lp = aux["log_p_mean"]
+    log(f"[main-nn-pblock] log_p_mean step 1 {lp[0].item():.6g}, step 10 "
+        f"{lp[9].item():.6g}, step {PBLOCK_STEPS} {lp[-1].item()!r}; JAX "
+        f"package: {NN_PBLOCK_LOGP_JAX}; last step: median "
+        f"{aux['median'][-1].item():.6g}, phi_norm "
+        f"{aux['phi_norm'][-1].item():.6g}")
+    if abs(lp[-1].item() / NN_PBLOCK_LOGP_JAX - 1) > 1e-4:
+        fail(f"[main-nn-pblock] log_p_mean at step {PBLOCK_STEPS} is not "
+             "within 1e-4 of the JAX package's")
+    compare_with_cpu(lambda d: PblockLoop(nn_model, theta0, d), batch, 10,
+                     "main-nn-pblock", 0.1)
+    timed["main-nn-pblock"] = (
+        PblockLoop(nn_model, theta0, dev), batch,
+        PblockLoop(nn_model, theta0, dev, plain=True))
+
+    # [large-n-sym]: SYM_ITERS iterations through B11, then each phi
+    # against B3's on the same theta (1e-5 normalised: theta lies near the
+    # origin, tests/test_pallas.py:117-118's bound) and against the plain
+    # version, and a second call bitwise.
+    theta, grads = sym_data(dev, torch)
+    thetas, phis = [], []
+    reset(counters)
+    t0 = time.perf_counter()
+    for _ in range(SYM_ITERS):
+        thetas.append(theta)
+        phis.append(svgd_tile.svgd_phi_sym(theta, grads, 1.0))
+        theta = theta + 1e-6 * phis[-1]
+    torch.cuda.synchronize()
+    log(f"[large-n-sym] {SYM_ITERS} iterations of theta + 1e-6 "
+        f"svgd_phi_sym(theta) (n={SYM_N}, p={SYM_P}, h2 1) in "
+        f"{time.perf_counter() - t0:.2f} s (first call)")
+    counts["large-n-sym"] = check_counts("large-n-sym", counters,
+                                         dict(B11=SYM_ITERS))
+    if not bool(theta.isfinite().all()) or not all(
+            bool(p.isfinite().all()) for p in phis):
+        fail("[large-n-sym] non-finite output")
+    h2 = torch.ones((), device=dev)
+    e3 = ep = 0.0
+    same = True
+    for th, phi in zip(thetas, phis):
+        e3 = max(e3, norm_err(phi, svgd_tile.svgd_phi(th, grads, h2)))
+        ep = max(ep, norm_err(phi, svgd_tile.svgd_phi_sym_plain(th, grads,
+                                                                h2)))
+        same = same and torch.equal(phi, svgd_tile.svgd_phi_sym(th, grads,
+                                                                1.0))
+    log(f"[large-n-sym] every phi: normalised error vs B3 {e3:.3e}, vs the "
+        f"plain version {ep:.3e} (bound 1e-05), second call bitwise {same}")
+    if e3 > 1e-5 or ep > 1e-5 or not same:
+        fail("[large-n-sym] phi disagrees with B3, its plain version or "
+             "itself")
+    del thetas, phis
+    theta0, grads = sym_data(dev, torch)
+    timed["large-n-sym"] = {
+        name: SymLoop(theta0, grads, h2, fn) for name, fn in (
+            ("B11", svgd_tile.svgd_phi_sym), ("B3", svgd_tile.svgd_phi),
+            ("plain", svgd_tile.svgd_phi_sym_plain))}
+    return counts, timed
+
+
 def run_timed(fn, torch, steps):
     """µs per step of fn(steps) by CUDA events, after a warm-up call."""
     fn(10)
@@ -1514,6 +1814,8 @@ def main():
                                             lg_theta, lg_batch)
     bracket_errs, bracket_in = check_bracket_kernels(dev, torch, theta,
                                                      nn_theta)
+    entry_errs, entry_in = check_sym_pblock_kernels(dev, torch, nn_model,
+                                                    nn_batch, nn_theta)
 
     # ------------------------------------------------------ 4. main path
     counters = {"B1": fused_step.fused_warm_step_tail,
@@ -1526,6 +1828,8 @@ def main():
                 "B10": svgd_tile.svgd_both_ksum_on_D,
                 "B8": fused_median.fused_bracket_pass,
                 "B9": fused_median.fused_bracket_grid_pass,
+                "B11": svgd_tile.svgd_phi_sym,
+                "B12": fused_step.fused_warm_step_pblock,
                 "glm": model_grad.glm_grads,
                 "logistic": model_grad.logistic_grads}
     kw = throughput_config(N, P)
@@ -1588,6 +1892,9 @@ def main():
     tail_counts, tail_timed = run_tail_paths(dev, torch, counters, X, y,
                                              theta0, batch)
     path_counts.update(tail_counts)
+    entry_counts, entry_timed = run_entry_paths(dev, torch, nn_model,
+                                                counters)
+    path_counts.update(entry_counts)
     mesh_counts, mesh_timed, mesh = run_mesh_paths(
         dev, torch, counters, X, y, theta0, batch, nn_model)
     path_counts.update(mesh_counts)
@@ -1751,6 +2058,57 @@ def main():
         log(f"[timing] {gpu}: B1 chain, {label}: {k_ms * 1e3:.2f} us vs "
             f"plain {p_ms * 1e3:.2f} us")
 
+    # [main-nn-pblock] and [large-n-sym] (plain, kernel, kernel, plain;
+    # [large-n-sym] also B3's loop), then B11 and B12 against their plain
+    # versions.
+    pb_loop, pb_batch, pb_plain = entry_timed["main-nn-pblock"]
+    p1 = run_timed(lambda k: pb_plain.run(pb_batch, k), torch, 200)
+    k1 = run_timed(lambda k: pb_loop.run(pb_batch, k), torch, 200)
+    k2 = run_timed(lambda k: pb_loop.run(pb_batch, k), torch, 200)
+    p2 = run_timed(lambda k: pb_plain.run(pb_batch, k), torch, 200)
+    path_us["main-nn-pblock"] = ((k1 + k2) / 2, (p1 + p2) / 2)
+    log(f"[timing] {gpu}: main-nn-pblock (n={NN_N}, p={NN_P}) "
+        f"{path_us['main-nn-pblock'][0]:.2f} us/step with the kernels, "
+        f"{path_us['main-nn-pblock'][1]:.2f} us/step with the plain "
+        "functions")
+    sym_loops = entry_timed["large-n-sym"]
+    sym_us = {}
+    for name in ("plain", "B11", "B3", "B3", "B11", "plain"):
+        t = run_timed(lambda k: sym_loops[name].run(None, k), torch, 10)
+        sym_us.setdefault(name, []).append(t)
+    sym_us = {k: sum(v) / len(v) for k, v in sym_us.items()}
+    path_us["large-n-sym"] = (sym_us["B11"], sym_us["plain"])
+    log(f"[timing] {gpu}: large-n-sym (n={SYM_N}, p={SYM_P}) "
+        f"{sym_us['B11']:.2f} us/iteration with B11, {sym_us['B3']:.2f} with "
+        f"B3, {sym_us['plain']:.2f} with the plain version")
+    th_s, g_s, h2_s = entry_in["B11"]
+    h2_st = torch.full((), h2_s, device=dev)
+    b11_ms, b11_plain = in_turns(
+        lambda: svgd_tile.svgd_phi_sym_plain(th_s, g_s, h2_st),
+        lambda: svgd_tile.svgd_phi_sym(th_s, g_s, h2_s), 10, torch)
+    # B11 by its scratch budget: each band costs the tile kernel a drain
+    # and the accumulator a pass; the default is SYM_SCRATCH_MIB.
+    budget, sweep = svgd_tile.SYM_SCRATCH_MIB, {}
+    try:
+        for mib in (64, 256, 512, 1024, 4096) * 2:
+            svgd_tile.SYM_SCRATCH_MIB = mib
+            sweep.setdefault(mib, []).append(cuda_ms(
+                lambda: svgd_tile.svgd_phi_sym(th_s, g_s, h2_s), 10, torch))
+    finally:
+        svgd_tile.SYM_SCRATCH_MIB = budget
+    log(f"[timing] {gpu}: B11 (n={SYM_N}, p={SYM_P}) us by scratch budget "
+        f"(MiB; default {budget}): " + ", ".join(
+            f"{mib} {sum(v) / len(v) * 1e3:.2f}" for mib, v in sweep.items()))
+    b12_args = entry_in["B12"]
+    b12_ms, b12_plain = in_turns(
+        lambda: fused_step._plain_tail(
+            b12_args[0], b12_args[1], None, b12_args[2], b12_args[3],
+            b12_args[4], 10.0, 8, fused_step.DEFAULT_BRACKETS),
+        lambda: fused_step.fused_warm_step_pblock(*b12_args), 50, torch)
+    log(f"[timing] {gpu}: B11 (n={SYM_N}, p={SYM_P}) {b11_ms * 1e3:.2f} us "
+        f"vs plain {b11_plain * 1e3:.2f} us; B12 (n={NN_N}, p={NN_P}, Adam) "
+        f"{b12_ms * 1e3:.2f} us vs plain {b12_plain * 1e3:.2f} us")
+
     # The mesh paths (plain, kernel, kernel, plain), B8 and B9.
     for label, (s_, b_) in mesh_timed.items():
         def plain(k, s_=s_, b_=b_):
@@ -1799,6 +2157,8 @@ def main():
     for label, (s_, b_, _) in tail_timed.items():
         profile_split(label, s_, b_, 10 if label == "large-n-epilogue" else 20,
                       torch, gpu)
+    profile_split("main-nn-pblock", pb_loop, pb_batch, 20, torch, gpu)
+    profile_split("large-n-sym", sym_loops["B11"], None, 10, torch, gpu)
 
     total = {k: sum(c[k] for c in path_counts.values()) for k in counters}
 
@@ -1872,6 +2232,23 @@ def main():
             "stein_tpu/ops/pallas_median.py:198", bracket_errs["B9"], b9_ms,
             b9_plain, 4 * (m * p + n * p + p + 36 + m * n + 36),
             2 * m * n * p + 3 * (m + n) * p + 36 * m * n),
+        # B11: the fewest operations of this phi, which equals (K @ (g -
+        # theta / h^2) + ksum theta / h^2) / n, a contraction p wide (B3's
+        # rule): the upper tiles' n^2 / 2 pairs take p multiply-adds for D
+        # and p for each side of K @ u, plus one exponential each; bytes:
+        # theta and grads in, phi out.
+        row("svgd_phi_sym", "B11", "svgd_sym.cu",
+            "stein_tpu/ops/pallas_svgd.py:289", entry_errs["B11"], b11_ms,
+            b11_plain, 4 * 3 * SYM_N * SYM_P,
+            3 * SYM_N * SYM_N * SYM_P + SYM_N * SYM_N // 2),
+        # B12: the full [n, n] Gram (2 n^2 p) and K @ u (2 n^2 p), the
+        # exponentials and the warm search's compares over all n^2 entries;
+        # bytes: theta, grads and Adam's two moments in, theta and the
+        # moments out.
+        row("fused_warm_step_pblock", "B12", "stein_kernels.cu",
+            "stein_tpu/ops/pallas_step.py:619", entry_errs["B12"], b12_ms,
+            b12_plain, 4 * 7 * nn_n * nn_p,
+            4 * nn_n * nn_n * nn_p + nn_n ** 2 + sweeps_warm * nn_n ** 2),
     ]
     log(f"[result] launches by path {path_counts}")
     log(f"[result] nn_step_us={nn_step_us!r} nn_plain_step_us="

@@ -61,7 +61,8 @@ _SIGNATURES = {
          _P, _P, _P, _P),                   # consts, logp, grads, stream
         _I),
     "stein_fused_step_tail": (
-        (_P, _P, _P, _I, _I, _I, _P,        # theta, grads, block, n, p, m, D
+        (_P, _P, _P, _I, _I, _I, _P, _I,    # theta, grads, block, n, p, m, D,
+                                            # d_once
          _P, _I, _I, _P, _P, _I, _F, _F,    # med_prev .. log_n, max_norm
          _I, _P, _P, _P, _P, _P, _P,        # opt kind/consts, moments, count,
                                             # lr, logp
@@ -80,6 +81,12 @@ _SIGNATURES = {
     "stein_svgd_on_d": (
         (_P, _P, _P, _I, _I, _I, _I,        # D, u, h2, m, n, p, splits
          _P, _P, _P, _P, _P),               # scratch, ku, ksum, stream
+        _I),
+    "stein_sym_tiles": ((_I,), _I),
+    "stein_sym_band": ((_I, _I, _I), _I),
+    "stein_svgd_sym": (
+        (_P, _P, _P, _I, _I, _I,            # theta, grads, h2, n, p, band
+         _P, _P, _P, _P, _P, _P),           # scratch, acc, phi, stream
         _I),
     "stein_glm_grad_smem": ((_I,), _I),
     "stein_logistic_grad_smem": ((_I, _I), _I),

@@ -27,6 +27,7 @@ from typing import Any, NamedTuple
 import torch
 from torch.func import grad_and_value, vmap
 
+from . import _device
 from .ops import rbf, svgd_tile
 from .ops.fused_median import (
     bracket_pass_fits,
@@ -497,22 +498,6 @@ def _check_mesh_type(mesh):
         )
 
 
-def _resolve_device(device, what="SVGDSampler"):
-    """The given device, else the current card (the default; there is no
-    fallback to the CPU)."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"{what}(device={str(device)!r}): no CUDA device is "
-                "available to this process"
-            )
-        if device.index is None:
-            # Tensors report their card's index; compare like with like.
-            device = torch.device("cuda", torch.cuda.current_device())
-    return device
-
-
 def _check_options(n_params, dtype, median, kernel_impl, median_max_rows,
                    n_particles, kernel, warm_median, median_impl, step_impl,
                    custom_grads, remat, pallas_precision, quadratic_form,
@@ -767,7 +752,7 @@ class SVGDSampler:
                 "SVGD needs n_particles >= 2 (the median-heuristic bandwidth "
                 "h^2 = median(D)/log(n) is undefined for n=1)"
             )
-        self.device = _resolve_device(device)
+        self.device = _device.resolve_device(device, "SVGDSampler")
         self.mesh = mesh
         self.log_p = log_p
         self.gd = gd

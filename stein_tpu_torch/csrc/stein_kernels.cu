@@ -35,6 +35,16 @@
 // B10's on D (svgd_on_d.cu); with an in-kernel model the model stage
 // (model_grad.cu) runs first and clip_update averages its log_p.
 //
+// B12 (replacing pallas_step.py:_pblock_kernel, the p-blocked whole-step
+// tail) is the same four launches with D computed once: the median
+// kernel's Gram stage writes the whole centred [n, n] D (every row kept;
+// 4 MB at n = 1000, resident in the 50 MB L2) and searches all n^2
+// entries, then B10's tile reads that D (u = g - (theta - c) / h^2 formed
+// in-kernel about the Gram stage's centre), the reduce and clip_update.
+// B1's Gram-mode chain computes the Gram twice (the median block and the
+// streaming tile's D); B12's chain runs 2 n^2 p + 2 n^2 p products, the
+// bound at n = 1000, p = 303 being 1.2 GFLOP (18 us at 67 TFLOP/s).
+//
 // Bounds on the H100 at the slice's shape (n=1000, p=128, m=256), all f32
 // on the CUDA cores (no tensor cores yet):
 //   median_kernel  Gram: 33 MFLOP over every SM; search: 5 sweeps of a 1 MB
@@ -316,18 +326,20 @@ int stein_warm_median(const float* D, int total, const float* med_prev,
 
 // B1: the fused step tail. Gram mode (D null): block is theta_sub [m, p]
 // or theta (m == n), and the median kernel's Gram stage writes the centred
-// block into dsub [m*n]. D mode: D is the given [n, n] squared distances,
-// block its [m, n] row block, searched in place; the tile is B10's on D
-// and tc = theta (no centre). Scratch: center [p], part_center
-// [blocks*p], part_counts [(1+rounds)*blocks*16] (ints), part_range
-// [2*blocks], part_ku [splits*n*p], part_ksum [splits*n], phi [n*p],
-// partials [stein_reduce_blocks(n, p)], med_h2 [2]; splits is
-// stein_tile_splits(n, n, p), or stein_on_d_splits in D mode. mom2 /
-// new_mom2 are unused by Adagrad. logp [n] (a model stage's per-row log_p)
-// or null; stats holds 3 floats, 4 with logp.
+// block into dsub [m*n]; with d_once (B12, m == n) the tile is B10's on
+// dsub. D mode: D is the given [n, n] squared distances, block its [m, n]
+// row block, searched in place; the tile is B10's on D and tc = theta (no
+// centre). Scratch: center [p], part_center [blocks*p], part_counts
+// [(1+rounds)*blocks*16] (ints), part_range [2*blocks], part_ku
+// [splits*n*p], part_ksum [splits*n], phi [n*p], partials
+// [stein_reduce_blocks(n, p)], med_h2 [2]; splits is stein_tile_splits(n,
+// n, p), or stein_on_d_splits in D mode and with d_once. mom2 / new_mom2
+// are unused by Adagrad. logp [n] (a model stage's per-row log_p) or null;
+// stats holds 3 floats, 4 with logp.
 int stein_fused_step_tail(const float* theta, const float* grads,
                           const float* block, int n, int p, int m,
-                          const float* D, const float* med_prev, int k,
+                          const float* D, int d_once, const float* med_prev,
+                          int k,
                           int rounds, const float* bracket_lo,
                           const float* bracket_hi, int n_brackets,
                           float log_n, float max_norm, int opt_kind,
@@ -343,6 +355,7 @@ int stein_fused_step_tail(const float* theta, const float* grads,
   if (n_brackets > kMaxBrackets) return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const bool gram = D == nullptr;
+  if (d_once && (!gram || m != n)) return cudaErrorInvalidValue;
   const size_t smem = gram ? gram_smem(p) : 0;
   int blocks = 0;
   cudaError_t err = median_grid(smem, &blocks);
@@ -359,10 +372,13 @@ int stein_fused_step_tail(const float* theta, const float* grads,
   const TileArgs tile{theta, theta, grads, gram ? center : nullptr,
                       med_h2 + 1, n, n, p, false, splits, part_ku, part_ksum,
                       static_cast<float>(n), nullptr, nullptr, phi, partials};
-  if (gram) {
+  if (gram && !d_once) {
     err = launch_tile(tile, stream);
   } else {
-    const OnDArgs on_d{D, nullptr, grads, theta, med_h2 + 1, n, n, p, true,
+    // B10's tile on the given D, or (d_once) on the Gram stage's own D
+    // about its centre.
+    const OnDArgs on_d{gram ? dsub : D, nullptr, grads, theta,
+                       gram ? center : nullptr, med_h2 + 1, n, n, p, true,
                        splits, part_ku, part_ksum};
     if ((err = launch_on_d(on_d, stream)) == cudaSuccess)
       err = launch_tile_reduce(tile, stream);

@@ -18,9 +18,10 @@
 //
 // u is given (B10), or formed while staging as u = g - theta / h^2 with
 // theta uncentred (B1's D-given tail, step_impl='fused', whose reduce then
-// forms phi with tc = theta). The exponent's operation order follows the
-// caller's JAX function: (D * (-log2e/2)) / h^2 for B10, D * (-log2e/2 /
-// h^2) for B1's tail.
+// forms phi with tc = theta), or as u = g - (theta - c) / h^2 about a given
+// centre (B12's whole-D tail, on the median kernel's centred D). The
+// exponent's operation order follows the caller's JAX function: (D *
+// (-log2e/2)) / h^2 for B10, D * (-log2e/2 / h^2) for B1's and B12's tails.
 //
 // Bounds on the H100 at n = 1000, p = 128 (f32 on the CUDA cores): 2 m n p
 // = 256 MFLOP (3.8 us at 67 TFLOP/s) against 4.6 MB of D, u and the
@@ -81,8 +82,14 @@ __global__ void __launch_bounds__(kThreads) svgd_on_d_kernel(OnDArgs a) {
         float v = 0.0f;
         if (j < n && k < p) {
           const size_t e = static_cast<size_t>(j) * p + k;
-          v = a.u != nullptr ? __ldg(a.u + e)
-                             : __ldg(a.grads + e) - __ldg(a.cols + e) / h2;
+          if (a.u != nullptr) {
+            v = __ldg(a.u + e);
+          } else {
+            const float t = a.center != nullptr
+                                ? __ldg(a.cols + e) - __ldg(a.center + k)
+                                : __ldg(a.cols + e);
+            v = __ldg(a.grads + e) - t / h2;
+          }
         }
         uj[jr * kUStride + lane + 32 * q] = v;
       }
@@ -170,8 +177,8 @@ int stein_svgd_on_d(const float* D, const float* u, const float* h2, int m,
                     int n, int p, int splits, float* part_ku,
                     float* part_ksum, float* ku, float* ksum, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const OnDArgs on_d{D, u, nullptr, nullptr, h2, m, n, p, false, splits,
-                     part_ku, part_ksum};
+  const OnDArgs on_d{D, u, nullptr, nullptr, nullptr, h2, m, n, p,
+                     false, splits, part_ku, part_ksum};
   cudaError_t err = launch_on_d(on_d, s);
   if (err != cudaSuccess) return err;
   TileArgs red{};

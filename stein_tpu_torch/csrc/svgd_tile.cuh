@@ -39,9 +39,11 @@ cudaError_t launch_tile_reduce(const TileArgs& a, cudaStream_t stream);
 // [splits, m] share layout, for launch_tile_reduce.
 struct OnDArgs {
   const float* D;       // [m, n] rows of squared distances
-  const float* u;       // [n, p], or null: u = grads - cols / h2
+  const float* u;       // [n, p], or null: u formed from grads and cols
   const float* grads;   // [n, p] (u null)
-  const float* cols;    // [n, p] (u null), uncentred
+  const float* cols;    // [n, p] (u null)
+  const float* center;  // [p] (u null): u = grads - (cols - center) / h2,
+                        // or null: cols uncentred
   const float* h2;      // device scalar
   int m, n, p;
   // K's exponent as D * (-log2e/2 / h2), the JAX step tail's order (B1),

@@ -1,7 +1,9 @@
-"""The fused small-n SVGD step tail (kernel B1) and the large-n epilogue (B6).
+"""The fused small-n SVGD step tail (kernel B1), the whole-D tail (B12) and
+the large-n epilogue (B6).
 
 PyTorch counterpart of ``stein_tpu/ops/pallas_step.py`` (``fused_step_fits``,
-``InKernelModel``, ``fused_warm_step_tail`` and ``fused_epilogue``). The tail
+``InKernelModel``, ``fused_warm_step_tail``, ``pblock_step_fits``,
+``fused_warm_step_pblock`` and ``fused_epilogue``). The tail
 is everything after the gradients:
 
   [model gradients ->] D -> warm median -> h^2 = med / log n -> K ->
@@ -203,9 +205,11 @@ def _new_state(kind, new_mom1, new_mom2, new_count, new_lr):
 
 
 def _launch_tail(theta, grads, block, med, opt_state, gd, max_phi_norm,
-                 warm_passes, brackets, D=None, logp=None):
+                 warm_passes, brackets, D=None, logp=None, d_once=False):
     """B1's chain. ``block`` is the median rows of theta (Gram mode) or,
-    with ``D``, the row block of D that the median searches."""
+    with ``D``, the row block of D that the median searches. ``d_once``
+    (B12, Gram mode with block = theta): the tile is B10's on the median
+    kernel's own [n, n] block, so D is computed once."""
     from .. import _cuda
 
     lib = _cuda.library().lib
@@ -221,7 +225,7 @@ def _launch_tail(theta, grads, block, med, opt_state, gd, max_phi_norm,
     blocks = _cuda.median_blocks(p if gram else 0)
     rounds = (warm_passes + 1) // 2
 
-    splits = (lib.stein_tile_splits(n, n, p) if gram
+    splits = (lib.stein_tile_splits(n, n, p) if gram and not d_once
               else lib.stein_on_d_splits(n, n, p))
     # One f32 scratch buffer, each piece 64-float aligned: dsub (the Gram
     # mode's block), center, per-block column sums, per-block ranges, the
@@ -250,7 +254,7 @@ def _launch_tail(theta, grads, block, med, opt_state, gd, max_phi_norm,
     total = m * n
     err = lib.stein_fused_step_tail(
         theta.data_ptr(), grads.data_ptr(), block.data_ptr(), n, p, m,
-        0 if gram else D.data_ptr(),
+        0 if gram else D.data_ptr(), int(d_once),
         med.data_ptr(), (total + 1) // 2, rounds,
         _addr(lo), _addr(hi), len(brackets), log_n(n), float(max_phi_norm),
         kind, _addr(consts), mom1.data_ptr(), mom2.data_ptr(),
@@ -392,6 +396,76 @@ def fused_warm_step_tail(theta, grads, D, D_sub, med_prev, opt_state, gd,
 
 
 fused_warm_step_tail.launches = 0
+
+
+def pblock_step_fits(n, p, p_tile=128):
+    """The JAX package's gate for its p-blocked tail (pallas_step.py:
+    770-774), kept as it is: the TPU kernel's [n, n] D/K scratch, the
+    [n, p] phi scratch and ~6 [n, p_tile] tile buffers within ~12 MiB of
+    VMEM. The H100 chain has no such limit; the gate says which shapes the
+    JAX package's kernel takes."""
+    return 4 * (n * n + n * p + 6 * n * p_tile) <= 12 * 2 ** 20
+
+
+def fused_warm_step_pblock(theta, grads, med_prev, opt_state, gd,
+                           max_phi_norm=10.0, warm_passes=8,
+                           brackets=DEFAULT_BRACKETS, p_tile=128):
+    """The whole step tail over the full [n, n] D (kernel B12, the
+    counterpart of ``stein_tpu/ops/pallas_step.py:fused_warm_step_pblock``).
+    Returns (new_theta, new_opt_state, (med, phi_norm, h2)).
+
+    D is the centred Gram of theta about its column mean; the median counts
+    run over all n^2 entries (k = (n^2 + 1) // 2, no row subsample; med_prev
+    <= 0 is the cold search); h^2 = med / log n; K = exp2(D (-log2e/2 /
+    h^2)); phi = (K @ (g - tc/h^2) + ksum tc / h^2) / n, clipped to norm
+    ``max_phi_norm``; then Adam's or Adagrad's update. f32 only.
+
+    The TPU kernel streamed [n, p_tile] tiles through VMEM around a resident
+    [n, n] D/K scratch; the p-tiling does not carry over (``p_tile`` is
+    accepted for parity, a positive int as the JAX function needs, and has
+    no counterpart). What does carry over is
+    that D is computed once: the CUDA chain is B1's cooperative median
+    kernel with its Gram stage writing the whole [n, n] D (4 MB at n=1000,
+    L2-resident) and searching it, B10's tile on that D with u = g - (theta
+    - c) / h^2 formed in-kernel, B3's fixed-order reduce, and clip_update
+    (csrc/stein_kernels.cu). Adam's bias corrections use ``powf`` (the
+    JAX kernel's exp/log form, ``update_kernel``, is ~1 ulp away). The
+    plain version is ``_plain_tail`` with every row kept."""
+    n, p = theta.shape
+    if int(p_tile) < 1:
+        raise ValueError(f"fused pblock step: p_tile must be positive (got "
+                         f"{p_tile}; it is accepted for parity with the JAX "
+                         "function and does not change the CUDA chain)")
+    for name, arr in (("theta", theta), ("grads", grads)):
+        if arr.dtype != torch.float32:
+            raise TypeError(f"fused pblock step is f32-only (got "
+                            f"{name}={arr.dtype})")
+    if n * n >= 2 ** 31:
+        raise ValueError("fused pblock step: n^2 exceeds int32 counts")
+    for leaf in opt_state:
+        if leaf.dim() != 0 and tuple(leaf.shape) != (n, p):
+            raise ValueError(
+                "fused pblock step supports optimizer states whose array "
+                f"leaves are [n, p]; got {tuple(leaf.shape)}"
+            )
+    _check_rule(gd, "fused pblock step")
+    if tuple(grads.shape) != (n, p) or grads.device != theta.device:
+        raise ValueError(f"fused pblock step: grads must be {(n, p)} on "
+                         f"{theta.device}")
+    med = _scalar_on(med_prev, theta)
+    if theta.device.type == "cpu":
+        return _plain_tail(theta, grads, None, med, opt_state, gd,
+                           max_phi_norm, warm_passes, brackets)
+    if theta.device.type != "cuda":
+        raise ValueError(f"fused pblock step: no kernel for {theta.device}")
+    theta = theta.contiguous()
+    out = _launch_tail(theta, grads.contiguous(), theta, med, opt_state, gd,
+                       max_phi_norm, warm_passes, brackets, d_once=True)
+    fused_warm_step_pblock.launches += 1
+    return out
+
+
+fused_warm_step_pblock.launches = 0
 
 
 def fused_epilogue_plain(ku, ksum, theta, center, h2, norm, opt_state, gd,

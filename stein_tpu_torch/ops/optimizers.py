@@ -14,6 +14,9 @@ Reproduced quirks (see SURVEY.md §2 #6/#7):
   squared-gradient history with first-iteration hist=phi^2, epsilon 1e-6, and
   — unlike Adam — no learning-rate decay applied inside update.
 
+``init`` puts the state on the given device, else on the current card, and
+raises without one (as every entry point of the port does).
+
 Only the ``update`` form with a float pow exists here: the JAX package's
 ``Adam.update_kernel`` (pow as exp/log) was a Mosaic work-around, and CUDA
 has ``powf``.
@@ -23,6 +26,8 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+
+from .. import _device
 
 
 def _scalar_dtype(dtype):
@@ -67,6 +72,7 @@ class Adam:
     beta_2: float = 0.999
 
     def init(self, shape, dtype=torch.float32, device=None):
+        device = _device.resolve_device(device, "Adam.init")
         return AdamState(
             mu=torch.zeros(shape, dtype=dtype, device=device),
             nu=torch.zeros(shape, dtype=dtype, device=device),
@@ -107,6 +113,7 @@ class Adagrad:
     alpha: float = 0.9
 
     def init(self, shape, dtype=torch.float32, device=None):
+        device = _device.resolve_device(device, "Adagrad.init")
         return AdagradState(
             hist=torch.zeros(shape, dtype=dtype, device=device),
             count=torch.zeros((), dtype=torch.int32, device=device),

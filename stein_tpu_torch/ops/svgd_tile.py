@@ -1,10 +1,12 @@
-"""The streaming SVGD tile (kernel B3) and the tile on a given D (B10).
+"""The streaming SVGD tile (kernel B3), the tile on a given D (B10) and the
+symmetric-traversal tile (B11).
 
 PyTorch counterpart of the single-device part of
 ``stein_tpu/ops/pallas_svgd.py``: ``pallas_svgd_both_ksum`` (here
 ``svgd_both_ksum``), ``pallas_svgd_phi_rect`` (``svgd_phi_rect``),
-``pallas_svgd_phi`` (``svgd_phi``) and ``pallas_svgd_both_ksum_on_D``
-(``svgd_both_ksum_on_D``, at the end). For an [m, p] row block against [n, p]
+``pallas_svgd_phi`` (``svgd_phi``), ``pallas_svgd_both_ksum_on_D``
+(``svgd_both_ksum_on_D``) and ``pallas_svgd_phi_sym`` (``svgd_phi_sym``, at
+the end). For an [m, p] row block against [n, p]
 column particles and gradients, with the columns' mean c as the centre:
 
   D  = |r - c|^2 + |t - c|^2 - 2 (r - c)(t - c)^T       (centred, f32 dot)
@@ -186,3 +188,92 @@ def svgd_both_ksum_on_D(D_rows, u_cols, h2):
 
 
 svgd_both_ksum_on_D.launches = 0
+
+# B11's scratch budget for one band of tile partials, MiB. At n=10240,
+# p=128 (842 MB of partials in all) it runs five bands of three waves on an
+# H100, 208 MB of scratch against the plain version's 419 MB K, at ~9% more
+# time than one band (chip_smoke.py's [timing] sweep).
+SYM_SCRATCH_MIB = 256
+
+
+def svgd_phi_sym_plain(theta, grads, h2):
+    """Kernel B11's plain version: phi of the symmetric-traversal tile, on
+    the whole array. Uncentred, as the JAX kernel is: D = rsq_i + rsq_j -
+    2 theta theta^T, K = exp2((D / h^2) (-log2(e)/2)), [attract | ktheta] =
+    K @ [g | theta], phi = (attract + (ksum theta - ktheta) / h^2) / n. In
+    f32, returned in theta's dtype."""
+    f32 = torch.float32
+    n, p = theta.shape
+    t, g = theta.to(f32), grads.to(f32)
+    rsq = torch.sum(t * t, dim=1, keepdim=True)
+    D = rsq + rsq.reshape(1, n) - 2.0 * torch.matmul(t, t.T)
+    K = torch.exp2(D / h2 * _LOG2E_HALF)
+    both = torch.matmul(K, torch.cat([g, t], dim=1))
+    ksum = torch.sum(K, dim=1, keepdim=True)
+    phi = (both[:, :p] + (ksum * t - both[:, p:]) / h2) / n
+    return phi.to(theta.dtype)
+
+
+def svgd_phi_sym(theta, grads, h2, block=512):
+    """The SVGD direction of [n, p] particles by the symmetric traversal
+    (``stein_tpu/ops/pallas_svgd.py:pallas_svgd_phi_sym``): only the tiles
+    j >= i are computed, each strictly upper tile feeding its row block
+    with K @ [g | theta] and its column block with K^T @ [g | theta].
+    Uncentred (|theta| large against the spread costs f32 digits, as in the
+    JAX kernel). Computed in f32, returned in theta's dtype. No sampler
+    option reaches it; it is an entry point of its own.
+
+    The CUDA kernel (``csrc/svgd_sym.cu``) replaces
+    ``pallas_svgd.py:_svgd_sym_tile_kernel``: one block per upper 128 x 128
+    tile writing its row and column partial sums, then a fixed-order
+    reduce (two calls give bitwise-equal output). The upper tiles run in
+    bands whose partials fit ``SYM_SCRATCH_MIB`` (or one tile's, 2 x 128 x
+    (2p + 1) floats, where that is larger), each band added into an
+    [n, 2p + 1] f32 accumulator in a fixed order before the next; the
+    output does not depend on the band size. The JAX function's ``block``
+    has no counterpart in
+    the kernel's tiling and is accepted for parity (a positive int, as the
+    JAX function needs)."""
+    if int(block) < 1:
+        raise ValueError(f"svgd_phi_sym: block must be positive (got {block}; "
+                         "it is accepted for parity with the JAX function and "
+                         "does not change the CUDA tiling)")
+    n, p = theta.shape
+    if tuple(grads.shape) != (n, p) or grads.device != theta.device:
+        raise ValueError(f"svgd_phi_sym: grads must be {(n, p)} on "
+                         f"{theta.device}, got {tuple(grads.shape)} on "
+                         f"{grads.device}")
+    for name, t in (("theta", theta), ("grads", grads)):
+        if not t.is_floating_point():
+            raise TypeError(f"svgd_phi_sym takes floating particles (got "
+                            f"{name}={t.dtype})")
+    h2 = _scalar_on(h2, theta)
+    if theta.device.type == "cpu":
+        return svgd_phi_sym_plain(theta, grads, h2)
+    if theta.device.type != "cuda":
+        raise ValueError(f"svgd_phi_sym: no kernel for {theta.device}")
+    from .. import _cuda
+
+    lib = _cuda.library().lib
+    f32 = torch.float32
+    dev = theta.device
+    t = theta.to(f32).contiguous()
+    g = grads.to(f32).contiguous()
+    with torch.cuda.device(dev):
+        band = lib.stein_sym_band(n, p, SYM_SCRATCH_MIB)
+        part = torch.empty(band * 2 * 128 * 2 * p, dtype=f32, device=dev)
+        part_ksum = torch.empty(band * 2 * 128, dtype=f32, device=dev)
+        acc = torch.empty(n * 2 * p, dtype=f32, device=dev)
+        acc_ksum = torch.empty(n, dtype=f32, device=dev)
+        phi = torch.empty(n, p, dtype=f32, device=dev)
+        err = lib.stein_svgd_sym(
+            t.data_ptr(), g.data_ptr(), h2.data_ptr(), n, p, band,
+            part.data_ptr(), part_ksum.data_ptr(), acc.data_ptr(),
+            acc_ksum.data_ptr(), phi.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(err, "sym_tile_kernel launch")
+    svgd_phi_sym.launches += 1
+    return phi.to(theta.dtype)
+
+
+svgd_phi_sym.launches = 0

@@ -10,6 +10,7 @@ builds the port's ``SVGDState`` on a device, for
 import numpy as np
 import torch
 
+from .. import _device
 from ..ops.optimizers import AdagradState, AdamState
 
 
@@ -31,9 +32,9 @@ def state_from_numpy(particles, opt_state, step, device=None, mesh=None):
     (parallel.sharded.shard_state): the rows of every [n, ...] leaf that
     the rank holds, the scalars whole; a JAX mesh sampler's full state
     carries across so."""
-    from ..api import SVGDState, _resolve_device
+    from ..api import SVGDState
 
-    device = _resolve_device(device, "state_from_numpy")
+    device = _device.resolve_device(device, "state_from_numpy")
 
     def tensor(x, dtype=None):
         arr = np.asarray(x)

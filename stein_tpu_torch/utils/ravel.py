@@ -10,6 +10,8 @@ columns in both packages.
 
 import torch
 
+from .. import _device
+
 
 def _flatten(tree):
     """Leaves in ravel_pytree order, and a function rebuilding the tree
@@ -75,6 +77,10 @@ def init_particles(generator, n_particles, n_params, dtype=torch.float32,
     """0.01 * N(0, I) init (reference: abstract_stein_sampler.py:66-74).
     ``generator`` is a ``torch.Generator`` on ``device`` (or None for the
     global one); it draws other numbers than ``jax.random`` from the same
-    seed, so parity tests pass ``theta=`` explicitly."""
+    seed, so parity tests pass ``theta=`` explicitly. ``device`` defaults to
+    the generator's, else to the current card (raising without one)."""
+    if device is None and generator is not None:
+        device = generator.device
+    device = _device.resolve_device(device, "init_particles")
     return scale * torch.randn(n_particles, n_params, generator=generator,
                                dtype=dtype, device=device)

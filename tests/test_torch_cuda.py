@@ -546,3 +546,82 @@ def test_one_rank_nccl_fused_shard_at_the_class(dev):
         np.testing.assert_allclose(gs, cs, rtol=2e-4, atol=1e-6)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("n,p,shift,bound", [(1000, 303, 0.0, 1e-5),
+                                             (2048, 64, 0.0, 1e-5),
+                                             (300, 130, 0.25, 1e-4)])
+def test_b11_against_plain(dev, n, p, shift, bound):
+    """B11 (svgd_phi_sym) against its plain version: 1e-5 normalised near
+    the origin, 1e-4 off it (B11 does not centre); two calls bitwise; the
+    launch counted once per call."""
+    rng = np.random.default_rng(n + p)
+    theta = torch.tensor(rng.normal(size=(n, p)) * 0.3 + shift,
+                         dtype=torch.float32, device=dev)
+    grads = torch.randn_like(theta)
+    h2 = fused_median.warm_search_on_value(
+        row_subsample_block(theta, 128), torch.zeros((), device=dev),
+        30) / np.log(n)
+    svgd_tile.svgd_phi_sym.launches = 0
+    got = svgd_tile.svgd_phi_sym(theta, grads, h2)
+    again = svgd_tile.svgd_phi_sym(theta, grads, h2)
+    want = svgd_tile.svgd_phi_sym_plain(theta, grads, h2)
+    torch.cuda.synchronize()
+    assert svgd_tile.svgd_phi_sym.launches == 2
+    assert torch.equal(got, again)
+    assert _norm_err(got, want) <= bound
+
+
+@pytest.mark.parametrize("n,p", [(1000, 303), (2048, 64)])
+def test_b11_bands_bitwise(dev, monkeypatch, n, p):
+    """B11 with a 1 MiB scratch budget (one tile a band at p=303, seven at
+    p=64) gives the same bits as with the default budget (one band): the
+    accumulator adds each row's partials in the same order."""
+    rng = np.random.default_rng(n)
+    theta = torch.tensor(rng.normal(size=(n, p)) * 0.3, dtype=torch.float32,
+                         device=dev)
+    grads = torch.randn_like(theta)
+    whole = svgd_tile.svgd_phi_sym(theta, grads, 0.7)
+    monkeypatch.setattr(svgd_tile, "SYM_SCRATCH_MIB", 1)
+    svgd_tile.svgd_phi_sym.launches = 0
+    banded = svgd_tile.svgd_phi_sym(theta, grads, 0.7)
+    torch.cuda.synchronize()
+    assert svgd_tile.svgd_phi_sym.launches == 1
+    assert torch.equal(whole, banded)
+
+
+@pytest.mark.parametrize("rule", ["adam", "adagrad"])
+@pytest.mark.parametrize("n,p", [(1000, 303), (259, 40)])
+def test_b12_against_plain(dev, rule, n, p):
+    """B12 (fused_warm_step_pblock) against _plain_tail with every row kept,
+    on lattice particles (D exact in any order), cold and warm: median and
+    h^2 bitwise, the rest <= 1e-5 normalised."""
+    theta = _lattice(n - n % 2, p, dev)
+    n = theta.shape[0]
+    grads = torch.randn_like(theta)
+    gd, state = _state(rule, n, p, dev)
+    med_prev = torch.zeros((), device=dev)
+    for _ in ("cold", "warm"):
+        fused_step.fused_warm_step_pblock.launches = 0
+        k = fused_step.fused_warm_step_pblock(theta, grads, med_prev, state,
+                                              gd)
+        q = fused_step._plain_tail(theta, grads, None, med_prev, state, gd,
+                                   10.0, 8, fused_step.DEFAULT_BRACKETS)
+        torch.cuda.synchronize()
+        assert fused_step.fused_warm_step_pblock.launches == 1
+        assert k[2][0].item() == q[2][0].item()
+        assert k[2][2].item() == q[2][2].item()
+        for a, b in zip([k[0], *k[1], *k[2]], [q[0], *q[1], *q[2]]):
+            assert _norm_err(a, b) <= 1e-5
+        med_prev = q[2][0] * 1.01
+
+
+def test_new_defaults_land_on_the_current_card(dev):
+    """No device given: Adam.init, Adagrad.init and init_particles (without
+    a generator) take cuda:<current>."""
+    from stein_tpu_torch.utils.ravel import init_particles
+
+    here = torch.device("cuda", torch.cuda.current_device())
+    for gd in (Adam(0.1), Adagrad(0.1)):
+        assert all(t.device == here for t in gd.init((4, 3)))
+    assert init_particles(None, 4, 3).device == here

@@ -97,7 +97,7 @@ def test_tail_refuses_other_step_rules():
 def test_tail_guards():
     theta = torch.zeros(8, 2)
     gd = topt.Adam()
-    state = gd.init((8, 2))
+    state = gd.init((8, 2), device="cpu")
     with pytest.raises(ValueError, match="searches a given D"):
         t_tail(theta, theta, None, None, 0.0, state, gd)
     with pytest.raises(ValueError, match="computes D inside"):
@@ -280,7 +280,7 @@ def test_model_and_epilogue_guards():
 
     theta = torch.zeros(8, 2)
     gd = topt.Adam()
-    state = gd.init((8, 2))
+    state = gd.init((8, 2), device="cpu")
     A, b = torch.eye(2), torch.zeros(2)
     with pytest.raises(ValueError, match="not both"):
         t_tail(theta, None, None, None, 0.0, state, gd, gram_in_kernel=True,
@@ -303,7 +303,132 @@ def test_model_and_epilogue_guards():
 
     with pytest.raises(TypeError, match="Adam and Adagrad"):
         fused_epilogue(theta, torch.ones(8, 1), theta, torch.zeros(1, 2),
-                       1.0, 1.0, Sgd().init((8, 2)), Sgd())
+                       1.0, 1.0, Sgd().init((8, 2), device="cpu"), Sgd())
     with pytest.raises(TypeError, match="f32"):
         fused_epilogue(theta.double(), torch.ones(8, 1), theta,
                        torch.zeros(1, 2), 1.0, 1.0, state, gd)
+
+
+# ------------------------------------------------------------------ B12
+
+def _eps_regime(rule, phi1, lr):
+    """Where the first step's slope in phi exceeds 10, so that no bound on
+    the new theta follows from a bound on phi (PERF.md §2's rule): Adam's
+    first step is lr (phi / (1 - b1)) / (eps + |phi| / sqrt(1 - b2)),
+    Adagrad's lr phi / (eps + |phi|)."""
+    a = np.abs(phi1)
+    if rule == "Adam":
+        slope = lr / 0.1 * 1e-8 / (1e-8 + a / np.sqrt(1e-3)) ** 2
+    else:
+        slope = lr * 1e-6 / (1e-6 + a) ** 2
+    return slope > 10
+
+
+@pytest.mark.parametrize("rule", ["Adam", "Adagrad"])
+def test_pblock_matches_jax(rule):
+    """B12's plain version against the JAX package's fused_warm_step_pblock
+    in interpret mode at its own test's shape (n=256, p=300: p not a
+    multiple of the 128-column tile, warm_passes=16), from a fresh
+    optimizer state, cold (med_prev 0) and warm (1.01 x the cold median).
+    The median searches all n^2 entries by integer counts, so it is
+    bitwise; phi_norm rtol 1e-5; the first clipped phi (Adam's mu, the
+    square root of Adagrad's history) and theta at the fused_gram class
+    (rtol 2e-4 / atol 1e-6), theta outside the first step's eps regime."""
+    from stein_tpu.ops.pallas_step import fused_warm_step_pblock as j_pblock
+    from stein_tpu_torch.ops.fused_step import fused_warm_step_pblock
+
+    rng = np.random.default_rng(0)
+    n, p = 256, 300
+    theta = (rng.normal(size=(n, p)) * 0.5 + 1.0).astype(np.float32)
+    grads = rng.normal(size=(n, p)).astype(np.float32)
+    lr = 0.1
+    if rule == "Adam":
+        jgd, tgd = jopt.Adam(lr, decay=0.999), topt.Adam(lr, decay=0.999)
+    else:
+        jgd, tgd = jopt.Adagrad(lr), topt.Adagrad(lr)
+    med_prev = 0.0
+    for kind in ("cold", "warm"):
+        jout = j_pblock(jnp.asarray(theta), jnp.asarray(grads),
+                        jnp.float32(med_prev), jgd.init((n, p), jnp.float32),
+                        jgd, warm_passes=16, p_tile=128, interpret=True)
+        tout = fused_warm_step_pblock(
+            torch.from_numpy(theta), torch.from_numpy(grads),
+            torch.tensor(med_prev, dtype=torch.float32),
+            tgd.init((n, p), device="cpu"), tgd, warm_passes=16)
+        (jt, jst, jstats), (tt, tst, tstats) = jout, tout
+        assert tstats[0].item() == float(jstats[0]), kind
+        assert tstats[2].item() == float(jstats[2]), kind
+        np.testing.assert_allclose(tstats[1].item(), float(jstats[1]),
+                                   rtol=1e-5)
+        if rule == "Adam":
+            jphi, tphi = np.asarray(jst.mu), tst.mu.numpy()
+        else:
+            jphi, tphi = np.sqrt(np.asarray(jst.hist)), tst.hist.sqrt().numpy()
+        np.testing.assert_allclose(tphi, jphi, rtol=2e-4, atol=1e-6)
+        ill = _eps_regime(rule, jphi, lr)
+        # Adam's regime (|phi| < ~1e-6) holds 1e-4 of the coordinates here,
+        # Adagrad's (eps 1e-6: |phi| < ~1e-4) 1.4%, where theta parts by up
+        # to 2.5e-4 (measured; 2.4e-7 outside it).
+        assert ill.mean() < 2e-2, (kind, ill.sum())
+        np.testing.assert_allclose(tt.numpy()[~ill], np.asarray(jt)[~ill],
+                                   rtol=2e-4, atol=1e-6)
+        assert int(tst.count) == int(jst.count) == 1
+        np.testing.assert_allclose(tst.learning_rate.numpy(),
+                                   np.asarray(jst.learning_rate), rtol=1e-7)
+        med_prev = float(jstats[0]) * 1.01
+
+
+@pytest.mark.parametrize("n,p,p_tile", [
+    (1000, 303, 128), (1000, 128, 128), (1200, 303, 128), (1500, 128, 128),
+    (256, 300, 64), (1600, 64, 32), (100, 1000, 128),
+])
+def test_pblock_step_fits_matches_jax(n, p, p_tile):
+    from stein_tpu.ops.pallas_step import pblock_step_fits as j_fits
+    from stein_tpu_torch.ops.fused_step import pblock_step_fits
+
+    assert pblock_step_fits(n, p, p_tile) == j_fits(n, p, p_tile)
+
+
+def test_pblock_guards():
+    from stein_tpu_torch.ops.fused_step import fused_warm_step_pblock as pb
+
+    theta = torch.zeros(8, 2)
+    gd = topt.Adam()
+    state = gd.init((8, 2), device="cpu")
+    with pytest.raises(TypeError, match="f32"):
+        pb(theta.double(), theta, 0.0, state, gd)
+    with pytest.raises(TypeError, match="f32"):
+        pb(theta, theta.double(), 0.0, state, gd)
+    big = torch.zeros(1, 1).expand(46341, 2)   # 46341^2 >= 2^31
+    with pytest.raises(ValueError, match="int32"):
+        pb(big, big, 0.0, state, gd)
+    with pytest.raises(ValueError, match=r"array\s+leaves are \[n, p\]"):
+        pb(theta, theta, 0.0, gd.init((8, 3), device="cpu"), gd)
+    with pytest.raises(ValueError, match="grads"):
+        pb(theta, torch.zeros(8, 3), 0.0, state, gd)
+
+    class Sgd(topt.Adagrad):
+        pass
+
+    with pytest.raises(TypeError, match="Adam and Adagrad"):
+        pb(theta, theta, 0.0, Sgd().init((8, 2), device="cpu"), Sgd())
+    with pytest.raises(ValueError, match="no kernel"):
+        pb(theta.to("meta"), theta.to("meta"), 0.0,
+           gd.init((8, 2), device="meta"), gd)
+
+
+def test_pblock_p_tile_parity():
+    """p_tile is accepted for parity: any positive value gives the same
+    step, and a value the JAX function could not tile by raises."""
+    from stein_tpu_torch.ops.fused_step import fused_warm_step_pblock as pb
+
+    rng = np.random.default_rng(4)
+    theta = torch.tensor(rng.normal(size=(40, 12)), dtype=torch.float32)
+    grads = torch.tensor(rng.normal(size=(40, 12)), dtype=torch.float32)
+    gd = topt.Adam(0.1)
+    a = pb(theta, grads, 0.0, gd.init((40, 12), device="cpu"), gd)
+    b = pb(theta, grads, 0.0, gd.init((40, 12), device="cpu"), gd, p_tile=8)
+    assert torch.equal(a[0], b[0])
+    assert all(torch.equal(x, y) for x, y in zip(a[2], b[2]))
+    with pytest.raises(ValueError, match="p_tile must be positive"):
+        pb(theta, grads, 0.0, gd.init((40, 12), device="cpu"), gd, p_tile=0)

@@ -27,7 +27,7 @@ def test_step_rule_matches_jax(name, kw):
     phis = rng.normal(size=(5, 7, 3)).astype(np.float32)
     jgd, tgd = getattr(jopt, name)(**kw), getattr(topt, name)(**kw)
     js = jgd.init((7, 3), jnp.float32)
-    ts = tgd.init((7, 3), torch.float32)
+    ts = tgd.init((7, 3), torch.float32, device="cpu")
     for phi in phis:   # the first update is the mu=phi / nu=phi^2 quirk
         jd, js = jgd.update(js, jnp.asarray(phi))
         td, ts = tgd.update(ts, torch.from_numpy(phi))
@@ -41,14 +41,26 @@ def test_step_rule_matches_jax(name, kw):
 
 def test_adam_decays_lr_and_adagrad_does_not():
     phi = torch.ones(2, 2)
-    s = topt.Adam(learning_rate=1.0, decay=0.5).init((2, 2))
+    s = topt.Adam(learning_rate=1.0, decay=0.5).init((2, 2), device="cpu")
     _, s = topt.Adam(learning_rate=1.0, decay=0.5).update(s, phi)
     assert float(s.learning_rate) == 0.5
     a = topt.Adagrad(learning_rate=1.0, decay=0.5)
-    _, s = a.update(a.init((2, 2)), phi)
+    _, s = a.update(a.init((2, 2), device="cpu"), phi)
     assert float(s.learning_rate) == 1.0
 
 
 def test_reference_aliases():
     assert topt.AdamGradientDescent is topt.Adam
     assert topt.AdagradGradientDescent is topt.Adagrad
+
+
+@pytest.mark.parametrize("rule", ["Adam", "Adagrad"])
+def test_init_default_device_is_the_card(rule, monkeypatch):
+    """No device given: init takes the current card and, without one,
+    raises (no fallback to the CPU); tests/test_torch_cuda.py checks that
+    it lands on cuda:<current>."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=f"{rule}.init.*no CUDA device"):
+        getattr(topt, rule)().init((4, 2))
+    assert getattr(topt, rule)().init((4, 2), device="cpu").count.device \
+        == torch.device("cpu")

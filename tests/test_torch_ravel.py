@@ -48,8 +48,18 @@ def test_unravel_round_trip_and_size():
 def test_init_particles_scale_and_generator(n, p):
     g1 = torch.Generator().manual_seed(5)
     g2 = torch.Generator().manual_seed(5)
-    a = trav.init_particles(g1, n, p)
-    b = trav.init_particles(g2, n, p)
+    a = trav.init_particles(g1, n, p, device="cpu")
+    b = trav.init_particles(g2, n, p, device="cpu")
     assert tuple(a.shape) == (n, p) and a.dtype == torch.float32
     assert torch.equal(a, b)
     assert float(a.abs().max()) < 0.1
+
+
+def test_init_particles_default_device(monkeypatch):
+    """No device given: the generator's device, else the current card,
+    raising without one (no fallback to the CPU)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = torch.Generator().manual_seed(5)
+    assert trav.init_particles(g, 3, 2).device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="init_particles.*no CUDA device"):
+        trav.init_particles(None, 3, 2)

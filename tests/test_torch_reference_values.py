@@ -103,3 +103,36 @@ def test_mesh_posterior_error_at_step_500(case):
     err = float(np.max(np.abs(np.asarray(s.samples).mean(0) - post)))
     want = cs.POSTERIOR_MESH_GLM_JAX if glm else cs.POSTERIOR_MESH_JAX
     assert err == pytest.approx(want, rel=1e-3)
+
+
+def test_pblock_nn_log_p_mean_at_step_500():
+    """[main-nn-pblock]'s loop in the JAX package: per step B7's gradients
+    (pallas_grads(interpret=True)), then fused_warm_step_pblock(
+    interpret=True), med starting at 0, Adam(0.1, decay=0.999), 500 steps
+    under jax.jit (~50 ms a step here); the mean log_p of the 500th
+    gradient call."""
+    import jax
+
+    from stein_tpu.models import BayesianNNModel as JNN
+    from stein_tpu.ops.pallas_step import fused_warm_step_pblock
+
+    X, y, theta0 = cs.nn_data(cs.NN_N)
+    model = JNN(1, 100, 20, 20, prior_beta=10.0)
+    gd = sj.Adam(learning_rate=0.1, decay=0.999)
+    grad_fn = model.pallas_grads(interpret=True)
+    batch = {"X": jnp.asarray(X, jnp.float32),
+             "y": jnp.asarray(y, jnp.float32)}
+
+    @jax.jit
+    def step(theta, opt, med):
+        logp, grads = grad_fn(theta, batch)
+        theta, opt, (med, _, _) = fused_warm_step_pblock(
+            theta, grads, med, opt, gd, interpret=True)
+        return theta, opt, med, jnp.mean(logp)
+
+    theta = jnp.asarray(theta0, jnp.float32)
+    opt = gd.init(theta.shape, jnp.float32)
+    med = jnp.float32(0.0)
+    for _ in range(cs.PBLOCK_STEPS):
+        theta, opt, med, lp = step(theta, opt, med)
+    assert float(lp) == pytest.approx(cs.NN_PBLOCK_LOGP_JAX, rel=1e-5)

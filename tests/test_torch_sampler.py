@@ -390,6 +390,33 @@ def test_import_loads_no_jax():
     assert res.returncode == 0 and "ok" in res.stdout, res.stderr
 
 
+def _imported_roots(path):
+    import ast
+
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_port_imports_nothing_of_the_jax_package():
+    """No module of the port, nor chip_smoke.py, imports jax or anything of
+    stein_tpu, at any depth of the code (a lazy import inside a function
+    included)."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    files = sorted((root / "stein_tpu_torch").rglob("*.py"))
+    files.append(root / "chip_smoke.py")
+    bad = {str(f.relative_to(root)): _imported_roots(f) & {"jax", "stein_tpu"}
+           for f in files}
+    assert len(files) > 20
+    assert not any(bad.values()), bad
+
+
 def test_cuda_device_without_gpu_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this checks its absence")

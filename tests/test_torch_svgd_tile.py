@@ -107,3 +107,92 @@ def test_on_d_guards():
         svgd_tile.svgd_both_ksum_on_D(D.double(), torch.zeros(5, 2), 1.0)
     with pytest.raises(ValueError, match="u_cols"):
         svgd_tile.svgd_both_ksum_on_D(D, torch.zeros(4, 2), 1.0)
+
+
+# ------------------------------------------------------------------ B11
+
+def _sym_inputs(n, p, seed, shift=0.0, dtype=np.float32):
+    """tests/test_pallas.py's B11 recipe: theta 0.3 N(0, I) (+ shift),
+    gradients N(0, I), h^2 0.7."""
+    rng = np.random.default_rng(seed)
+    theta = (rng.normal(size=(n, p)) * 0.3 + shift).astype(dtype)
+    grads = rng.normal(size=(n, p)).astype(dtype)
+    return theta, grads, 0.7
+
+
+def _sym_err(theta, grads, h2, block):
+    from stein_tpu.ops.pallas_svgd import pallas_svgd_phi_sym
+
+    want = np.asarray(pallas_svgd_phi_sym(
+        jnp.asarray(theta), jnp.asarray(grads), jnp.float32(h2), block=block,
+        interpret=True))
+    got = svgd_tile.svgd_phi_sym(torch.from_numpy(theta),
+                                 torch.from_numpy(grads), h2, block=block)
+    assert got.dtype == torch.from_numpy(theta).dtype
+    assert str(want.dtype) == str(theta.dtype)
+    return float(np.abs(got.numpy() - want).max() / np.abs(want).max())
+
+
+# tests/test_pallas.py:109's shapes and blocks (ragged n, n a multiple of
+# the block, p < 8), within its 1e-5 normalised: the two sides sum K @ [G|T]
+# in other orders (measured 1.9-2.4e-7).
+@pytest.mark.parametrize("n,p,block", [(40, 8, 16), (64, 8, 16),
+                                       (100, 5, 32)])
+def test_plain_sym_matches_jax(n, p, block):
+    theta, grads, h2 = _sym_inputs(n, p, n + p)
+    assert _sym_err(theta, grads, h2, block) < 1e-5
+
+
+# Off the origin: B11 does not centre, so the f32 cancellation in ksum theta
+# - K theta grows with |theta|^2 (measured 1.3e-6 at n=100, p=8, |theta|
+# 2.3-3.9, and 1.3e-5 at n=96, p=130, |theta| 3.9-5.0); held to 1e-4
+# normalised.
+@pytest.mark.parametrize("n,p,block,shift", [(100, 8, 32, 1.0),
+                                             (96, 130, 32, 0.25)])
+def test_plain_sym_off_origin_matches_jax(n, p, block, shift):
+    theta, grads, h2 = _sym_inputs(n, p, 3 * n + p, shift)
+    dist = np.linalg.norm(theta, axis=1)
+    assert dist.min() > 0.5 and dist.max() > 2.0
+    assert _sym_err(theta, grads, h2, block) < 1e-4
+
+
+def test_plain_sym_f64_round_trip():
+    """f64 in, f64 out, computed in f32 as the JAX function does."""
+    theta, grads, h2 = _sym_inputs(64, 8, 5, dtype=np.float64)
+    assert _sym_err(theta, grads, h2, 16) < 1e-5
+    f32 = svgd_tile.svgd_phi_sym(torch.from_numpy(theta).float(),
+                                 torch.from_numpy(grads).float(), h2)
+    f64 = svgd_tile.svgd_phi_sym(torch.from_numpy(theta),
+                                 torch.from_numpy(grads), h2)
+    assert torch.equal(f64, f32.double())
+
+
+def test_plain_sym_near_origin_matches_b3():
+    """Near the origin the uncentred symmetric tile and B3's centred tile
+    agree to 1e-5 normalised (tests/test_pallas.py:117-118's bound)."""
+    theta, grads, _ = _sym_inputs(300, 40, 9)
+    t, g = torch.from_numpy(theta * 0.3), torch.from_numpy(grads)
+    sym = svgd_tile.svgd_phi_sym(t, g, 1.0)
+    b3 = svgd_tile.svgd_phi(t, g, torch.tensor(1.0))
+    assert ((sym - b3).abs().max() / b3.abs().max()).item() < 1e-5
+
+
+def test_sym_guards():
+    theta = torch.zeros(8, 3)
+    with pytest.raises(ValueError, match="grads must be"):
+        svgd_tile.svgd_phi_sym(theta, torch.zeros(8, 4), 1.0)
+    with pytest.raises(TypeError, match="floating"):
+        svgd_tile.svgd_phi_sym(theta.long(), theta.long(), 1.0)
+    with pytest.raises(ValueError, match="no kernel"):
+        svgd_tile.svgd_phi_sym(theta.to("meta"), theta.to("meta"), 1.0)
+
+
+def test_sym_block_parity():
+    """block is accepted for parity: any positive value gives the same phi,
+    and a value the JAX function could not tile by raises."""
+    theta, grads, h2 = _sym_inputs(50, 6, 2)
+    t, g = torch.from_numpy(theta), torch.from_numpy(grads)
+    assert torch.equal(svgd_tile.svgd_phi_sym(t, g, h2, block=16),
+                       svgd_tile.svgd_phi_sym(t, g, h2))
+    with pytest.raises(ValueError, match="block must be positive"):
+        svgd_tile.svgd_phi_sym(t, g, h2, block=0)
