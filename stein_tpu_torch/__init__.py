@@ -16,6 +16,7 @@ from .api import (
     throughput_config,
 )
 from .models import BayesianNNModel, LogisticRegressionModel
+from .ops.fused_step import InKernelModel
 from .ops.optimizers import (
     Adam,
     Adagrad,
@@ -29,6 +30,7 @@ __all__ = [
     "SVGDState",
     "SteinSampler",
     "throughput_config",
+    "InKernelModel",
     "BayesianNNModel",
     "LogisticRegressionModel",
     "Adam",

@@ -49,10 +49,12 @@ _SIGNATURES = {
          _P, _P, _P, _P, _P, _P),           # D, cnts, mm, scratch, stream
         _I),
     "stein_tile_splits": ((_I, _I, _I), _I),
+    "stein_tile_prep_floats": ((_I, _I, _I), ctypes.c_longlong),
     "stein_svgd_tile": (
         (_P, _P, _P, _P, _P, _I, _I, _I,    # rows .. h2, m, n, p
          _I, _P, _P,                        # splits, scratch
-         _P, _P, _P, _F, _P),               # ku, ksum, phi, n_total, stream
+         _P, _P, _P, _F,                    # ku, ksum, phi, n_total
+         _I, _I, _P, _P),                   # bf16, div_h2, prep, stream
         _I),
     "stein_max_smem": ((), _I),
     "stein_nn_grad_smem": ((_I, _I), _I),
@@ -69,7 +71,7 @@ _SIGNATURES = {
          _P, _P, _P, _P, _P, _P,            # outputs
          _P, _P, _P, _P, _P, _I,            # median scratch, splits
          _P, _P, _P, _P, _P,                # phi scratch
-         _P),                               # stream
+         _P, _P),                           # tile prep, stream
         _I),
     "stein_fused_epilogue": (
         (_P, _P, _P, _P, _P, _P, _I, _I,    # ku, ksum, theta, center, h2,
@@ -88,7 +90,6 @@ _SIGNATURES = {
         (_P, _P, _P, _I, _I, _I,            # theta, grads, h2, n, p, band
          _P, _P, _P, _P, _P, _P),           # scratch, acc, phi, stream
         _I),
-    "stein_glm_grad_smem": ((_I,), _I),
     "stein_logistic_grad_smem": ((_I, _I), _I),
     "stein_glm_grads": (
         (_P, _I, _I, _P, _P, _P, _P, _P),   # theta, n, p, A, b, grads, logp

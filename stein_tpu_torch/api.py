@@ -12,7 +12,8 @@ the host.
 
 Ported: the reference path (``step_impl='xla'``, ``median`` in
 {'exact', 'bisect'}, the warm median, ``median_impl`` in {'xla', 'fused',
-'fused_gram'}), the streaming tile (``kernel_impl='pallas'``), every
+'fused_gram'}), the streaming tile (``kernel_impl='pallas'``, at either
+``pallas_precision``), every
 single-device step tail (``step_impl`` 'fused', 'fused_gram', 'fused_glm',
 'fused_model' and 'epilogue'), ``custom_grads=``, and the 1-D particle mesh
 (``mesh=``, ``parallel/``: the mesh steps and ``step_impl='fused_shard'``).
@@ -144,18 +145,20 @@ def _pallas_only_bisect(median):
 
 
 def make_phi_fn(n_particles, median="exact", kernel_impl="xla",
-                median_max_rows=512, median_passes=30, median_impl="xla"):
+                median_max_rows=512, median_passes=30, median_impl="xla",
+                pallas_precision="f32"):
     """Build phi_fn(theta, grads) -> (phi, aux), the cold step's phi.
     ``median_impl='fused'`` runs the cold bisect search as kernel B2 where
     the block is in its envelope (ops.fused_median.fused_block_ok);
     ``'fused_gram'`` computes the block's Gram in a kernel too (B5, or
-    B4 then B2). ``kernel_impl='pallas'`` is the streaming tile (B3)."""
+    B4 then B2). ``kernel_impl='pallas'`` is the streaming tile (B3), its
+    products at ``pallas_precision`` ('f32' or 'bf16' operands)."""
     if median_impl not in ("xla", "fused", "fused_gram"):
         raise ValueError(f"unknown median_impl: {median_impl!r}")
     if kernel_impl not in ("xla", "pallas"):
         raise ValueError(f"unknown kernel_impl: {kernel_impl!r}")
     if median in ("subsample", "binned"):
-        raise _unported(f"median={median!r}", "A2")
+        raise _unported(f"median={median!r}", "A5")
     if median not in ("exact", "bisect"):
         raise ValueError(f"unknown median mode: {median!r}")
 
@@ -199,7 +202,8 @@ def make_phi_fn(n_particles, median="exact", kernel_impl="xla",
         center = svgd_tile.column_center(theta)
         med = median_fn(theta, center)
         h2 = rbf.bandwidth_sq_from_median(med, n_particles)
-        phi = svgd_tile.svgd_phi(theta, grads, h2, center=center)
+        phi = svgd_tile.svgd_phi(theta, grads, h2, center=center,
+                                 precision=pallas_precision)
         return phi, {"h2": h2, "median": med}
 
     return phi_fn
@@ -251,10 +255,12 @@ def _make_warm_median_fns(median_max_rows=512, median_passes=30,
 
 
 def make_warm_phi_fn(n_particles, kernel_impl="xla", median_max_rows=512,
-                     median_passes=30, warm_passes=8, median_impl="xla"):
+                     median_passes=30, warm_passes=8, median_impl="xla",
+                     pallas_precision="f32"):
     """phi_fn(theta, grads, med_prev) -> (phi, aux) threading the previous
     step's median; aux['median'] is the next step's hint. Carries
-    ``init_med(theta)`` for the cold seed."""
+    ``init_med(theta)`` for the cold seed. ``pallas_precision`` is the
+    streaming tile's (kernel_impl='pallas')."""
     if kernel_impl not in ("xla", "pallas"):
         raise ValueError(f"unknown kernel_impl: {kernel_impl!r}")
     compute_med, init_med, warm_med_on_block = _make_warm_median_fns(
@@ -265,7 +271,8 @@ def make_warm_phi_fn(n_particles, kernel_impl="xla", median_max_rows=512,
             center = svgd_tile.column_center(theta)
             med = compute_med(theta, med_prev, center)
             h2 = rbf.bandwidth_sq_from_median(med, n_particles)
-            phi = svgd_tile.svgd_phi(theta, grads, h2, center=center)
+            phi = svgd_tile.svgd_phi(theta, grads, h2, center=center,
+                                     precision=pallas_precision)
             return phi, {"h2": h2, "median": med}
     else:
         def phi_fn(theta, grads, med_prev):
@@ -410,7 +417,8 @@ def make_epilogue_warm_step_fn(log_p, unravel_fn, gd, n_particles,
 
 
 def throughput_config(n_particles, n_params, mesh=None, model_axis=None,
-                      dtype=torch.float32, model=None, probe_batch=None):
+                      dtype=torch.float32, model=None, probe_batch=None,
+                      pallas_interpret=False):
     """The JAX package's option table (stein_tpu/api.py throughput_config),
     unchanged, as a kwargs dict for SVGDSampler:
 
@@ -430,9 +438,12 @@ def throughput_config(n_particles, n_params, mesh=None, model_axis=None,
     step_impl='fused_shard' (B8 with median_collectives='rounds' on one
     process, B9 with 'grid' on more, and B3), with a model's
     ``quadratic_form`` or ``pallas_grads`` hook; beyond the gate, the
-    streaming tile."""
+    streaming tile. ``pallas_interpret`` is accepted for parity and
+    ignored: the dict never carries it (the CUDA kernels have no interpret
+    mode)."""
+    del pallas_interpret
     if probe_batch is not None:
-        raise _unported("throughput_config(probe_batch=...)", "A9")
+        raise _unported("throughput_config(probe_batch=...)", "A3")
     f32 = dtype == torch.float32
     cfg = dict(median="bisect", warm_median=True, dtype=dtype)
     large = n_particles >= 4096
@@ -442,7 +453,7 @@ def throughput_config(n_particles, n_params, mesh=None, model_axis=None,
         _check_mesh_type(mesh)
         if model_axis is not None:
             raise _unported("throughput_config(model_axis=...), the 2-D "
-                            "mesh,", "A12")
+                            "mesh,", "A7")
         cfg["mesh"] = mesh
         if f32:
             m_loc = max(min(cfg.get("median_max_rows", 512) // mesh.size,
@@ -588,17 +599,15 @@ def _check_options(n_params, dtype, median, kernel_impl, median_max_rows,
         )
 
     if median in ("subsample", "binned"):
-        raise _unported(f"median={median!r}", "A2")
+        raise _unported(f"median={median!r}", "A5")
     if median not in ("exact", "bisect"):
         raise ValueError(f"unknown median mode: {median!r}")
-    if pallas_precision == "bf16":
-        raise _unported("pallas_precision='bf16'", "A7")
-    if pallas_precision != "f32":
+    if pallas_precision not in svgd_tile.PRECISIONS:
         raise ValueError(f"unknown pallas_precision: {pallas_precision!r}")
     if kernel is not None:
-        raise _unported("kernel=", "A9")
+        raise _unported("kernel=", "A3")
     if remat:
-        raise _unported("remat=True", "A3")
+        raise _unported("remat=True", "A2")
 
 
 def _check_mesh_options(dtype, median, kernel_impl, kernel, warm_median,
@@ -681,17 +690,15 @@ def _check_mesh_options(dtype, median, kernel_impl, kernel, warm_median,
 
     if model_axis is not None:
         raise _unported("model_axis=, the 2-D (particles x model) mesh,",
-                        "A12")
+                        "A7")
     if median in ("subsample", "binned"):
-        raise _unported(f"median={median!r}", "A2")
-    if pallas_precision == "bf16":
-        raise _unported("pallas_precision='bf16'", "A7")
-    if pallas_precision != "f32":
+        raise _unported(f"median={median!r}", "A5")
+    if pallas_precision not in svgd_tile.PRECISIONS:
         raise ValueError(f"unknown pallas_precision: {pallas_precision!r}")
     if kernel is not None:
-        raise _unported("kernel=", "A9")
+        raise _unported("kernel=", "A3")
     if remat:
-        raise _unported("remat=True", "A3")
+        raise _unported("remat=True", "A2")
 
 
 class SVGDSampler:
@@ -720,8 +727,17 @@ class SVGDSampler:
         rank must read them. ``comm``, ``median_collectives`` and
         ``median_grid_g1`` are the JAX sampler's; ``model_axis`` (the 2-D
         mesh) is not ported.
-    pallas_block : accepted so JAX configs carry over; the CUDA tile's
-        sizes are its own.
+    pallas_block, donate, pallas_interpret : accepted so JAX configs carry
+        over and ignored: the CUDA tile's sizes are its own, PyTorch runs
+        eagerly with no buffers to donate, and the kernels have no
+        interpret mode.
+    binned_bins, binned_block_rows : the JAX sampler's median='binned'
+        settings; a value other than the default raises
+        NotImplementedError (ROADMAP.md queue A, item 5).
+    pallas_precision : 'f32' (default) or 'bf16', the streaming tile's
+        operands (kernel_impl='pallas', on one device and on the mesh):
+        'bf16' rounds the centred particles for the dot and K and u for
+        the contraction to bf16, with f32 accumulation.
     custom_grads : a callable (theta [n, p], batch) -> (logp [n],
         grads [n, p]) replacing the autodiff gradient stage, e.g.
         ``BayesianNNModel.pallas_grads()`` (kernel B7).
@@ -739,19 +755,23 @@ class SVGDSampler:
                  generator=None, theta=None, dtype=torch.float32,
                  device=None, median="exact", kernel_impl="xla",
                  median_max_rows=512, max_phi_norm=10.0, mesh=None,
-                 particle_axis="particles", pallas_block=1024,
-                 model_axis=None, comm="all_gather", remat=False,
-                 kernel=None, median_passes=30, warm_median=False,
-                 warm_passes=8, median_impl="xla", step_impl="xla",
-                 custom_grads=None, pallas_precision="f32",
-                 quadratic_form=None, inkernel_model=None,
-                 median_collectives="grid", median_grid_g1=16):
+                 particle_axis="particles", donate=True, pallas_block=1024,
+                 pallas_interpret=False, model_axis=None, comm="all_gather",
+                 remat=False, kernel=None, binned_bins=4096,
+                 binned_block_rows=256, median_passes=30, warm_median=False,
+                 warm_passes=8, pallas_precision="f32", median_impl="xla",
+                 step_impl="xla", quadratic_form=None, inkernel_model=None,
+                 custom_grads=None, median_collectives="grid",
+                 median_grid_g1=16):
         self.n_particles = int(n_particles)
         if self.n_particles < 2:
             raise ValueError(
                 "SVGD needs n_particles >= 2 (the median-heuristic bandwidth "
                 "h^2 = median(D)/log(n) is undefined for n=1)"
             )
+        if (binned_bins, binned_block_rows) != (4096, 256):
+            raise _unported("binned_bins= and binned_block_rows= (the "
+                            "median='binned' settings)", "A5")
         self.device = _device.resolve_device(device, "SVGDSampler")
         self.mesh = mesh
         self.log_p = log_p
@@ -780,7 +800,7 @@ class SVGDSampler:
                                 custom_grads, remat, pallas_precision,
                                 quadratic_form, inkernel_model, model_axis,
                                 comm, median_collectives)
-        del pallas_block  # the CUDA tile's sizes are its own
+        del pallas_block, donate, pallas_interpret   # see the docstring
 
         if theta is not None:
             if isinstance(theta, (dict, list, tuple)):
@@ -811,7 +831,8 @@ class SVGDSampler:
                 warm_median=warm_median, warm_passes=warm_passes,
                 step_impl=step_impl, quadratic_form=quadratic_form,
                 median_collectives=median_collectives,
-                median_grid_g1=median_grid_g1)
+                median_grid_g1=median_grid_g1,
+                pallas_precision=pallas_precision)
             return
 
         if median == "exact":
@@ -830,7 +851,8 @@ class SVGDSampler:
                         kernel_impl=kernel_impl,
                         median_max_rows=median_max_rows,
                         median_passes=median_passes,
-                        median_impl=median_impl),
+                        median_impl=median_impl,
+                        pallas_precision=pallas_precision),
             max_phi_norm=max_phi_norm, custom_grads=custom_grads,
         )
         self._warm_step_fn = None
@@ -862,6 +884,7 @@ class SVGDSampler:
                     median_max_rows=median_max_rows,
                     median_passes=median_passes, warm_passes=warm_passes,
                     median_impl=median_impl,
+                    pallas_precision=pallas_precision,
                 )
                 self._warm_step_fn = make_warm_step_fn(
                     log_p, self.unravel_fn, gd, warm_phi,
@@ -872,7 +895,8 @@ class SVGDSampler:
     def _build_mesh_steps(self, mesh, median, max_phi_norm, comm,
                           median_max_rows, median_passes, kernel_impl,
                           custom_grads, warm_median, warm_passes, step_impl,
-                          quadratic_form, median_collectives, median_grid_g1):
+                          quadratic_form, median_collectives, median_grid_g1,
+                          pallas_precision):
         """The mesh steps, as the JAX sampler builds them: the cold step
         for train_on_batch on every mesh, then the fused or plain warm step
         for run. self.state becomes this rank's block."""
@@ -887,7 +911,8 @@ class SVGDSampler:
             self.log_p, self.unravel_fn, self.gd, self.n_particles, full,
             mesh, median=median, max_phi_norm=max_phi_norm, comm=comm,
             median_max_rows=median_max_rows, median_passes=median_passes,
-            kernel_impl=kernel_impl, custom_grads=custom_grads)
+            kernel_impl=kernel_impl, custom_grads=custom_grads,
+            pallas_precision=pallas_precision)
         self._warm_step_fn = None
         common = dict(max_phi_norm=max_phi_norm,
                       median_max_rows=median_max_rows,
@@ -904,7 +929,8 @@ class SVGDSampler:
             self._warm_step_fn, self._warm_init_med = \
                 make_sharded_warm_step(
                     self.log_p, self.unravel_fn, self.gd, self.n_particles,
-                    mesh, kernel_impl=kernel_impl, **common)
+                    mesh, kernel_impl=kernel_impl,
+                    pallas_precision=pallas_precision, **common)
 
     # ------------------------------------------------------------------ API
 
@@ -992,22 +1018,22 @@ class SVGDSampler:
         return unravel_particles(self._particles(), self.unravel_fn)
 
     def train_on_batches(self, batches):
-        raise _unported("SVGDSampler.train_on_batches", "A3")
+        raise _unported("SVGDSampler.train_on_batches", "A2")
 
     def train_minibatched(self, data, n_steps, n_batch, key):
-        raise _unported("SVGDSampler.train_minibatched", "A3")
+        raise _unported("SVGDSampler.train_minibatched", "A2")
 
     def function_posterior(self, func, batch, axis=None):
-        raise _unported("SVGDSampler.function_posterior", "A3")
+        raise _unported("SVGDSampler.function_posterior", "A2")
 
     def ksd(self, batch, u_statistic=False):
-        raise _unported("SVGDSampler.ksd", "A9")
+        raise _unported("SVGDSampler.ksd", "A3")
 
     def save(self, path):
-        raise _unported("SVGDSampler.save", "A10")
+        raise _unported("SVGDSampler.save", "A4")
 
     def restore(self, path):
-        raise _unported("SVGDSampler.restore", "A10")
+        raise _unported("SVGDSampler.restore", "A4")
 
 
 def _tensor_leaves(tree):

@@ -332,8 +332,10 @@ int stein_warm_median(const float* D, int total, const float* med_prev,
 // centre). Scratch: center [p], part_center [blocks*p], part_counts
 // [(1+rounds)*blocks*16] (ints), part_range [2*blocks], part_ku
 // [splits*n*p], part_ksum [splits*n], phi [n*p], partials
-// [stein_reduce_blocks(n, p)], med_h2 [2]; splits is stein_tile_splits(n,
-// n, p), or stein_on_d_splits in D mode and with d_once. mom2 / new_mom2
+// [stein_reduce_blocks(n, p)], med_h2 [2], tile_prep
+// [stein_tile_prep_floats(n, n, p)] (the tile's, Gram mode without d_once;
+// else unused); splits is stein_tile_splits(n, n, p), or stein_on_d_splits
+// in D mode and with d_once. mom2 / new_mom2
 // are unused by Adagrad. logp [n] (a model stage's per-row log_p) or null;
 // stats holds 3 floats, 4 with logp.
 int stein_fused_step_tail(const float* theta, const float* grads,
@@ -351,7 +353,8 @@ int stein_fused_step_tail(const float* theta, const float* grads,
                           float* dsub, float* center, float* part_center,
                           int* part_counts, float* part_range, int splits,
                           float* part_ku, float* part_ksum, float* phi,
-                          float* partials, float* med_h2, void* stream_ptr) {
+                          float* partials, float* med_h2, float* tile_prep,
+                          void* stream_ptr) {
   if (n_brackets > kMaxBrackets) return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const bool gram = D == nullptr;
@@ -371,7 +374,8 @@ int stein_fused_step_tail(const float* theta, const float* grads,
 
   const TileArgs tile{theta, theta, grads, gram ? center : nullptr,
                       med_h2 + 1, n, n, p, false, splits, part_ku, part_ksum,
-                      static_cast<float>(n), nullptr, nullptr, phi, partials};
+                      static_cast<float>(n), nullptr, nullptr, phi, partials,
+                      tile_prep};
   if (gram && !d_once) {
     err = launch_tile(tile, stream);
   } else {

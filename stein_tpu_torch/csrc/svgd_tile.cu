@@ -1,39 +1,66 @@
-// The streaming SVGD tile, one kernel for B1's step tail and for B3
-// (replacing stein_tpu/ops/pallas_svgd.py:_svgd_tile_kernel). Two
-// launches:
+// The streaming SVGD tile, one kernel for B1's step tail, for B3 and for the
+// mesh steps (replacing stein_tpu/ops/pallas_svgd.py:_svgd_tile_kernel), on
+// Hopper's tensor cores. Three launches:
 //
-//   svgd_tile_kernel    grid (row blocks of 32, column shares, p chunks).
-//                       Block (x, s, z) holds rows x*32 .. +32 and walks
-//                       the s-th contiguous share of the 32-column tiles.
-//                       Per tile: the centred D tile by an f32 dot, K =
-//                       exp2 of -D/(2 h^2) with the padded columns masked
-//                       to 0, then ku += K @ u for the block's chunk z of
-//                       output columns (u = g - (t - c) / h^2) and the row
-//                       sums. K never reaches device memory. Writes the
-//                       share's partial ku and row sums.
+//   tile_prep_kernel    what the JAX wrapper computes before its
+//                       pallas_call: the centred columns tc = t - c, the
+//                       regrouped operand u = g - tc / h^2 and the row norms
+//                       |tc|^2 (and, for a separate row block, the centred
+//                       rows and their norms), zero-padded to the tile's
+//                       shapes, into one scratch buffer.
+//   svgd_tile_kernel    grid (row blocks of 64, column shares, output
+//                       chunks). Block (x, s, z) holds rows x*64 .. +64, one
+//                       warp per 16 rows, and walks the s-th contiguous share
+//                       of the 32-column tiles, which stream through a
+//                       two-slot cp.async ring in shared memory. Per tile:
+//                       S = R T^T by mma.sync, D = |r|^2 + |t|^2 - 2 S, K =
+//                       exp2 of -D/(2 h^2) with the padded columns masked to
+//                       0, then ku += K U_z by mma.sync for the block's output
+//                       chunk z, and the row sums. K stays in registers: the
+//                       m16n8 accumulator of S is reused as the A operand of
+//                       the second product (for tf32 m16n8k8 by permuting the
+//                       8 contraction indices, 2t -> t and 2t+1 -> t+4, in
+//                       both operands; for bf16 m16n8k16 the layouts agree).
+//                       Writes the share's partial ku and row sums.
 //   tile_reduce_kernel  adds the shares in share order (two calls give
 //                       bitwise-equal output), then writes ku and ksum, or
-//                       phi = (ku + ksum * (r - c) / h^2) / n_total and,
-//                       for B1's clip, one ||phi||^2 partial per block.
+//                       phi = (ku + ksum * (r - c) / h^2) / n_total and, for
+//                       B1's clip, one ||phi||^2 partial per block.
 //
-// Rectangular [m, n], any n (the last tile is masked) and any p. A p chunk
-// is 32 * OUT columns, OUT <= 12 per lane. When p fits one chunk (p <=
-// 384) the block's rows stay in shared memory for the whole walk; wider p
-// runs gridDim.z = ceil(p / 384) chunks, each block restaging the rows
-// and columns chunk by chunk for the dot and keeping u for its own chunk
-// only (the dot is repeated per chunk). h^2 is read from device memory.
-// The TPU kernel's [BI, BJ] blocks do not carry over: the tile sizes here
-// are this kernel's own.
+// Precision. 'f32' (every path's default) runs 3xTF32: each operand x is
+// split into big = tf32(x) and small = tf32(x - big), and each product is
+// big*small + small*big + big*big with f32 accumulation, which keeps the f32
+// tolerance class. The tensor cores truncate as they accumulate, so each
+// run of 32 contraction indices is summed in fresh registers and added
+// into the running sum by an IEEE add (without it the NN path's n=3000
+// trajectory left the f32 class by step 5). 'bf16' (pallas_precision='bf16', B3 only) rounds the
+// centred rows and columns for the dot, and K and u for the contraction, to
+// bf16 (the JAX kernel's mxu_dtype casts) and runs one m16n8k16 product each;
+// the norms, D, K and the row sums stay f32.
 //
-// Bounds on the H100, f32 on the CUDA cores (no tensor cores yet): the dot
-// and K @ u are 4 m n p FLOP (1.2 GFLOP at m = n = 1000, p = 303; 54 GFLOP
-// at n = 10240, p = 128). Each warp register-blocks 4 rows (float4 shared
-// loads, 5 loads per 16 FMAs) and prefetches the next tile's columns and
-// gradients into registers while it computes. At n = 1000 there are only
-// 32 row blocks, so the column tiles are split into shares as well (4:
-// 128 blocks for 132 SMs).
+// Shapes. Rectangular [m, n], any n (the last tile is masked) and any p: p
+// is padded to pp = 16 ceil(p / 16) with zeros. Output chunks are at most
+// 160 columns (gridDim.z = ceil(pp / 160)), each block repeating the dot.
+// Where the block's 64 rows fit shared memory beside the ring (pp <= 400
+// or so) they are loaded once; wider rows stream through the ring in
+// 128-column chunks beside the columns. Column shares cover the SMs at small
+// n (tile_splits). No atomics: the shares go to [splits, m, p] / [splits, m]
+// scratch in the layout that B10's tile (svgd_on_d.cu) also writes for
+// launch_tile_reduce.
+//
+// Bounds on the H100 for the 4 m n p FLOP of the two products: f32 on the
+// CUDA cores (67 TFLOP/s) 801 us at m = n = 10240, p = 128 and 18.1 us at
+// m = n = 1000, p = 303; on the tensor cores 3xTF32 issues three TF32
+// products (495 TFLOP/s): 325 us and 7.3 us; bf16 one (989 TFLOP/s): 54 us
+// and 1.2 us. The n^2 exp2s take ~25 us at n = 10240. The tile runs two
+// blocks of four warps per SM (what the registers and, at p = 128, 101 KB
+// of shared memory allow), too few to hide the latency of the ring and of
+// the dependent mma.sync chains: it takes several times these bounds
+// (PERF.md's kernel table).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "common.cuh"
 #include "svgd_tile.cuh"
@@ -41,224 +68,460 @@
 namespace stein {
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRowsPerWarp = 4;
-constexpr int kRows = kRowsPerWarp * kWarps;   // rows per block
-constexpr int kCols = 32;                      // tile width = lanes
-constexpr int kLoadRows = kCols / kWarps;      // tile rows each warp loads
-constexpr int kKtStride = 4 * kWarps + 4;      // K tile, transposed
-constexpr int kMaxOut = 12;                    // p chunk = 32 * OUT <= 384
+constexpr int kRows = 16 * kWarps;    // rows per block, 16 per warp
+constexpr int kCols = 32;             // columns per tile
+constexpr int kChunk = 128;           // dot chunk when the rows stream too
+constexpr int kMaxNT = 20;            // output chunk <= 8 * 20 columns
 constexpr int kReduceThreads = 256;
+constexpr int kPrepWarps = 8;
+constexpr size_t kSmemLimit = 232448;
 // -log2(e) / 2, rounded to f32 as the JAX kernels' weakly-typed constant.
 constexpr float kLog2eHalf = -1.4426950408889634f / 2.0f;
 
-int out_width(int p) {  // 32-column groups of a p chunk per lane
-  const int w = (((p + 3) & ~3) + 31) / 32;
-  if (w <= 1) return 1;
-  if (w <= 2) return 2;
-  if (w <= 4) return 4;
-  if (w <= 8) return 8;
-  return kMaxOut;
+int round_up(int x, int k) { return (x + k - 1) / k * k; }
+
+struct Geom {
+  int pp;       // p rounded up to 16, the dot's zero-padded width
+  int nt;       // 8-column output tiles of a chunk
+  int zc;       // output chunks (gridDim.z)
+  int su;       // u's row stride, zc * 8 * nt
+  int n_pad;    // columns rounded up to 64
+  int m_pad;    // rows rounded up to 64
+  int whole;    // the block's rows stay in shared memory
+};
+
+struct PrepPtrs {
+  float* colsc;   // [n_pad, pp]
+  float* u;       // [n_pad, su]
+  float* rsq_j;   // [n_pad]
+  float* rowsc;   // [m_pad, pp] (colsc when the rows are the columns)
+  float* rsq_i;   // [m_pad]
+};
+
+size_t smem_whole(int pp, int w) {
+  return sizeof(float) *
+         (static_cast<size_t>(kRows) * (pp + 4) +
+          2 * (static_cast<size_t>(kCols) * (pp + 4) + kCols * (w + 4) + kCols));
 }
 
-int tile_chunks(int p) {
-  const int w = 32 * out_width(p);
-  return (p + w - 1) / w;
+size_t smem_chunked(int w) {
+  return sizeof(float) * 2 *
+         (static_cast<size_t>(kRows + kCols) * (kChunk + 4) +
+          kCols * (w + 4) + kCols);
 }
 
-// Shared rows have stride cw + 4 (cw = the chunk, or p rounded up to 4 when
-// p is one chunk; zero-padded), so the dot reads float4s without bank
-// conflicts.
-size_t tile_smem(int p) {
-  const int pp = (p + 3) & ~3;
-  const int cw = pp < 32 * out_width(p) ? pp : 32 * out_width(p);
-  return sizeof(float) * ((kRows + 2 * kCols) * (cw + 4)
-                          + kCols * kKtStride + kCols);
+Geom geom(int m, int n, int p) {
+  Geom g;
+  g.pp = round_up(p, 16);
+  const int pp8 = g.pp / 8;
+  g.zc = (pp8 + kMaxNT - 1) / kMaxNT;
+  const int need = (pp8 + g.zc - 1) / g.zc;
+  g.nt = need <= 4 ? 4 : need <= 8 ? 8 : need <= 12 ? 12 : need <= 16 ? 16 : 20;
+  g.su = g.zc * 8 * g.nt;
+  g.n_pad = round_up(n, kRows);
+  g.m_pad = round_up(m, kRows);
+  g.whole = smem_whole(g.pp, 8 * g.nt) <= kSmemLimit;
+  return g;
 }
 
-// Warp w owns rows 4w .. 4w+3 of the block; lane l owns tile column l in
-// the dot, and chunk columns l + 32q (q < OUT) everywhere else.
-template <int OUT>
-__global__ void __launch_bounds__(kThreads) svgd_tile_kernel(TileArgs a) {
-  constexpr int kW = 32 * OUT;
-  extern __shared__ float4 sm4[];
-  float* sm = reinterpret_cast<float*>(sm4);
-  const int m = a.m, n = a.n, p = a.p, nc = gridDim.z;
-  const int pp = (p + 3) & ~3;
-  const int cw = pp < kW ? pp : kW, ps = cw + 4;
-  float* ti = sm;                               // [kRows][ps]
-  float* tj = ti + kRows * ps;                  // [kCols][ps]
-  float* uj = tj + kCols * ps;                  // [kCols][ps]
-  float* kt = uj + kCols * ps;                  // [kCols][kKtStride]
-  float* rsq_j = kt + kCols * kKtStride;        // [kCols]
+size_t tile_smem(const Geom& g) {
+  return g.whole ? smem_whole(g.pp, 8 * g.nt) : smem_chunked(8 * g.nt);
+}
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int z = blockIdx.z;
-  const float h2 = __ldg(a.h2);
-  const float scale = __fdiv_rn(kLog2eHalf, h2);
-  const int row0 = blockIdx.x * kRows + kRowsPerWarp * warp;
+size_t prep_floats(const Geom& g) {
+  return static_cast<size_t>(g.n_pad) * (g.pp + g.su + 1) +
+         static_cast<size_t>(g.m_pad) * (g.pp + 1);
+}
 
-  float cr[OUT];   // the centre at this lane's columns of the chunk
-  auto load_center = [&](int c0) {
-#pragma unroll
-    for (int q = 0; q < OUT; ++q) {
-      const int k = c0 + lane + 32 * q;
-      cr[q] = k < p ? __ldg(a.center + k) : 0.0f;
-    }
+PrepPtrs prep_ptrs(float* base, const Geom& g, bool shared_rows) {
+  PrepPtrs q;
+  q.colsc = base;
+  q.u = q.colsc + static_cast<size_t>(g.n_pad) * g.pp;
+  q.rsq_j = q.u + static_cast<size_t>(g.n_pad) * g.su;
+  float* rows = q.rsq_j + g.n_pad;
+  q.rowsc = shared_rows ? q.colsc : rows;
+  q.rsq_i = shared_rows ? q.rsq_j : rows + static_cast<size_t>(g.m_pad) * g.pp;
+  return q;
+}
+
+// ------------------------------------------------------------- the prep
+
+// One warp per padded row: the columns (r < n_pad), then the separate rows.
+__global__ void __launch_bounds__(32 * kPrepWarps)
+    tile_prep_kernel(TileArgs a, Geom g, PrepPtrs q, int rows_too) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kPrepWarps + (threadIdx.x >> 5);
+  const bool col = r < g.n_pad;
+  if (!col && !(rows_too && r < g.n_pad + g.m_pad)) return;
+  const int i = col ? r : r - g.n_pad;
+  const int lim = col ? a.n : a.m;
+  const float* src = col ? a.cols : a.rows;
+  float* dst = col ? q.colsc : q.rowsc;
+  auto centred = [&](int k) {
+    if (i >= lim || k >= a.p) return 0.0f;
+    const float v = __ldg(src + static_cast<size_t>(i) * a.p + k);
+    return a.center != nullptr ? v - __ldg(a.center + k) : v;
   };
-  // The warp's own rows of chunk c0, centred (zero past p and m).
-  auto stage_rows = [&](int c0, float* sq) {
+  float sq = 0.0f;
+  for (int k = lane; k < g.pp; k += 32) {
+    const float v = centred(k);
+    dst[static_cast<size_t>(i) * g.pp + k] = v;
+    sq += v * v;
+  }
+  if (col) {
+    const float h2 = __ldg(a.h2);
+    for (int k = lane; k < g.su; k += 32) {
+      const float v = (i < lim && k < a.p)
+                          ? __ldg(a.grads + static_cast<size_t>(i) * a.p + k) -
+                                centred(k) / h2
+                          : 0.0f;
+      q.u[static_cast<size_t>(i) * g.su + k] = v;
+    }
+  }
+  sq = warp_sum(sq);
+  if (lane == 0) (col ? q.rsq_j : q.rsq_i)[i] = sq;
+}
+
+// ------------------------------------------------------ the tensor cores
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// x rounded to tf32, to nearest with ties away from zero: the bits of
+// cvt.rna.tf32.f32 for finite x, in two integer operations in place of the
+// conversion instruction.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small, both tf32.
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 3xTF32 of G accumulators, the two small cross terms first, then big *
+// big; each round issues G independent products, so the three that share
+// an accumulator do not wait on each other back to back.
+template <int G>
+__device__ __forceinline__ void mma_3xtf32(float (*d)[4],
+                                           const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4],
+                                           const uint32_t (*bb)[2],
+                                           const uint32_t (*bs)[2]) {
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int i = row0 + r;
+  for (int i = 0; i < G; ++i) mma_tf32(d[i], as, bb[i]);
 #pragma unroll
-      for (int q = 0; q < OUT; ++q) {
-        const int kk = lane + 32 * q, k = c0 + kk;
-        if (kk < cw) {
-          const float v = (i < m && k < p)
-                              ? __ldg(a.rows + static_cast<size_t>(i) * p + k) - cr[q]
-                              : 0.0f;
-          ti[(kRowsPerWarp * warp + r) * ps + kk] = v;
-          sq[r] += v * v;
+  for (int i = 0; i < G; ++i) mma_tf32(d[i], ab, bs[i]);
+#pragma unroll
+  for (int i = 0; i < G; ++i) mma_tf32(d[i], ab, bb[i]);
+}
+
+// The tensor cores add each product into the accumulator with truncation,
+// so a sum carried through many products drifts towards zero. Both
+// products below therefore accumulate a short run (32 contraction indices)
+// in fresh registers and add it into the running sum with an IEEE add.
+
+// s[nt] += ti[16 rows, kw] tj[8 nt + (0..8), kw]^T for the warp's 16 rows
+// (row strides sk); lane = (gid, tig) = (lane / 4, lane % 4).
+template <bool BF16>
+__device__ __forceinline__ void dot_chunk(float (&s)[4][4], const float* ti,
+                                          const float* tj, int sk, int kw,
+                                          int gid, int tig) {
+  const float* r_lo = ti + gid * sk;
+  const float* r_hi = r_lo + 8 * sk;
+  // Each of a run's k-steps accumulates into its own registers, so the
+  // products of consecutive k-steps do not wait on each other; the run's
+  // sets are added in a fixed order.
+  constexpr int kStep = BF16 ? 16 : 8;
+  constexpr int kSets = 32 / kStep;
+  for (int k1 = 0; k1 < kw; k1 += 32) {
+    float t[kSets][4][4] = {};
+#pragma unroll
+    for (int j = 0; j < kSets; ++j) {
+      const int k0 = k1 + j * kStep;
+      if (k0 >= kw) break;
+      if constexpr (BF16) {
+        const int k = k0 + 2 * tig;
+        const float2 a0 = *reinterpret_cast<const float2*>(r_lo + k);
+        const float2 a1 = *reinterpret_cast<const float2*>(r_hi + k);
+        const float2 a2 = *reinterpret_cast<const float2*>(r_lo + k + 8);
+        const float2 a3 = *reinterpret_cast<const float2*>(r_hi + k + 8);
+        const uint32_t a[4] = {pack_bf16(a0.x, a0.y), pack_bf16(a1.x, a1.y),
+                               pack_bf16(a2.x, a2.y), pack_bf16(a3.x, a3.y)};
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const float* c = tj + (8 * nt + gid) * sk + k;
+          const float2 b0 = *reinterpret_cast<const float2*>(c);
+          const float2 b1 = *reinterpret_cast<const float2*>(c + 8);
+          const uint32_t b[2] = {pack_bf16(b0.x, b0.y), pack_bf16(b1.x, b1.y)};
+          mma_bf16(t[j][nt], a, b);
         }
+      } else {
+        const int k = k0 + tig;
+        uint32_t ab[4], as[4], bb[4][2], bs[4][2];
+        split(r_lo[k], ab[0], as[0]);
+        split(r_hi[k], ab[1], as[1]);
+        split(r_lo[k + 4], ab[2], as[2]);
+        split(r_hi[k + 4], ab[3], as[3]);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const float* c = tj + (8 * nt + gid) * sk + k;
+          split(c[0], bb[nt][0], bs[nt][0]);
+          split(c[4], bb[nt][1], bs[nt][1]);
+        }
+        mma_3xtf32<4>(t[j], ab, as, bb, bs);
       }
     }
-  };
-
-  // Row norms over every chunk; with one chunk the rows stay staged.
-  float rsq_i[kRowsPerWarp] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int c = 0; c < nc; ++c) {
-    load_center(c * kW);
-    stage_rows(c * kW, rsq_i);
-  }
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) rsq_i[r] = warp_sum(rsq_i[r]);
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = t[0][nt][e];
+#pragma unroll
+        for (int j = 1; j < kSets; ++j) v += t[j][nt][e];
+        s[nt][e] += v;
+      }
+  }
+}
+
+// acc[q] += K[16 rows, 32 tile columns] U[32, 8 q + (0..8)], K held in the
+// accumulator layout of the dot (k[nt][e]: row gid + 8 (e / 2), column
+// 8 nt + 2 tig + e % 2); uj has row stride su. Each group of four output
+// tiles takes the tile's 32 columns in fresh registers, then one add.
+template <int NT, bool BF16>
+__device__ __forceinline__ void contract(float (&acc)[NT][4],
+                                         const float (&k)[4][4],
+                                         const float* uj, int su, int gid,
+                                         int tig) {
+  if constexpr (BF16) {
+    uint32_t a[2][4];
+#pragma unroll
+    for (int kb = 0; kb < 2; ++kb) {
+      a[kb][0] = pack_bf16(k[2 * kb][0], k[2 * kb][1]);
+      a[kb][1] = pack_bf16(k[2 * kb][2], k[2 * kb][3]);
+      a[kb][2] = pack_bf16(k[2 * kb + 1][0], k[2 * kb + 1][1]);
+      a[kb][3] = pack_bf16(k[2 * kb + 1][2], k[2 * kb + 1][3]);
+    }
+#pragma unroll
+    for (int q0 = 0; q0 < NT; q0 += 4) {
+      float t[4][4] = {};
+#pragma unroll
+      for (int kb = 0; kb < 2; ++kb) {
+        const float* u0 = uj + (16 * kb + 2 * tig) * su + gid + 8 * q0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float* u = u0 + 8 * i;
+          const uint32_t b[2] = {pack_bf16(u[0], u[su]),
+                                 pack_bf16(u[8 * su], u[9 * su])};
+          mma_bf16(t[i], a[kb], b);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[q0 + i][e] += t[i][e];
+    }
+  } else {
+    // Contraction slot tig holds column 2 tig, slot tig + 4 column 2 tig + 1.
+    uint32_t ab[4][4], as[4][4];
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb) {
+      split(k[kb][0], ab[kb][0], as[kb][0]);
+      split(k[kb][2], ab[kb][1], as[kb][1]);
+      split(k[kb][1], ab[kb][2], as[kb][2]);
+      split(k[kb][3], ab[kb][3], as[kb][3]);
+    }
+#pragma unroll
+    for (int q0 = 0; q0 < NT; q0 += 4) {
+      float t[4][4] = {};
+#pragma unroll
+      for (int kb = 0; kb < 4; ++kb) {
+        const float* u0 = uj + (8 * kb + 2 * tig) * su + gid + 8 * q0;
+        uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          split(u0[8 * i], bb[i][0], bs[i][0]);
+          split(u0[su + 8 * i], bb[i][1], bs[i][1]);
+        }
+        mma_3xtf32<4>(t, ab[kb], as[kb], bb, bs);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[q0 + i][e] += t[i][e];
+    }
+  }
+}
+
+// ------------------------------------------------------------- the tile
+
+template <int NT, bool BF16>
+__global__ void __launch_bounds__(kThreads)
+    svgd_tile_kernel(TileArgs a, Geom g, PrepPtrs q) {
+  constexpr int kW = 8 * NT;
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int m = a.m, n = a.n, pp = g.pp, z = blockIdx.z;
+  const int row0 = blockIdx.x * kRows;
+  const bool whole = g.whole;
+  const int sk = (whole ? pp : kChunk) + 4;   // row stride of a dot chunk
+  const int nk = whole ? 1 : (pp + kChunk - 1) / kChunk;
+  constexpr int su = kW + 4;
+  // Shared memory: [the rows, when whole] then two ring slots, each
+  // [the rows' chunk, when not whole][columns' chunk][u tile][|t|^2 tile].
+  float* ring = whole ? sm + kRows * sk : sm;
+  const int off_tj = whole ? 0 : kRows * sk;
+  const int off_u = off_tj + kCols * sk;
+  const int off_r = off_u + kCols * su;
+  const int slot = off_r + kCols;
 
   const int tiles = (n + kCols - 1) / kCols;
   const int t_begin = blockIdx.y * tiles / gridDim.y;
   const int t_end = (blockIdx.y + 1) * tiles / gridDim.y;
+  const int stages = (t_end - t_begin) * nk;
 
-  // Prefetch registers: tile rows warp + kWarps * b, chunk columns
-  // lane + 32q; the gradients only for the block's own chunk.
-  float pt[kLoadRows][OUT], pg[kLoadRows][OUT];
-  auto load = [&](int j0, int c0, bool with_g) {
-#pragma unroll
-    for (int b = 0; b < kLoadRows; ++b) {
-      const int j = j0 + warp + kWarps * b;
-#pragma unroll
-      for (int q = 0; q < OUT; ++q) {
-        const int k = c0 + lane + 32 * q;
-        const bool in = j < n && k < p;
-        const size_t e = static_cast<size_t>(j) * p + k;
-        pt[b][q] = in ? __ldg(a.cols + e) : 0.0f;
-        if (with_g) pg[b][q] = in ? __ldg(a.grads + e) : 0.0f;
+  // 16-byte copies of a [rows, width] tile, thread t taking chunks t,
+  // t + kThreads, ... in row-major order (two divisions a call).
+  auto copy = [&](float* dst, int ds, const float* src, int ss, int rows,
+                  int width) {
+    const int per_row = width / 4;
+    const int dr = kThreads / per_row, dc = kThreads - dr * per_row;
+    int r = threadIdx.x / per_row, c4 = threadIdx.x - r * per_row;
+    for (; r < rows; r += dr, c4 += dc) {
+      if (c4 >= per_row) {
+        c4 -= per_row;
+        if (++r >= rows) break;
       }
+      cp_async16(dst + r * ds + 4 * c4, src + static_cast<size_t>(r) * ss + 4 * c4);
+    }
+  };
+  // Stage s = (tile t_begin + s / nk, dot chunk s % nk); u and |t|^2 come
+  // with the tile's last chunk, where they are used.
+  auto issue = [&](int s) {
+    float* base = ring + (s & 1) * slot;
+    const int t = t_begin + s / nk, c = s % nk, c0 = c * kChunk;
+    const int kw = whole ? pp : min(kChunk, pp - c0);
+    const int j0 = t * kCols;
+    if (!whole)
+      copy(base, sk, q.rowsc + static_cast<size_t>(row0) * pp + c0, pp, kRows,
+           kw);
+    copy(base + off_tj, sk, q.colsc + static_cast<size_t>(j0) * pp + c0, pp,
+         kCols, kw);
+    if (c == nk - 1) {
+      copy(base + off_u, su, q.u + static_cast<size_t>(j0) * g.su + z * kW,
+           g.su, kCols, kW);
+      copy(base + off_r, 0, q.rsq_j + j0, 0, 1, kCols);
     }
   };
 
-  float acc[kRowsPerWarp][OUT], ksum_lane[kRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    ksum_lane[r] = 0.0f;
-#pragma unroll
-    for (int q = 0; q < OUT; ++q) acc[r][q] = 0.0f;
-  }
+  if (whole)
+    copy(sm, sk, q.rowsc + static_cast<size_t>(row0) * pp, pp, kRows, pp);
+  if (stages > 0) issue(0);
+  cp_async_commit();
 
-  if (t_begin < t_end) load(t_begin * kCols, 0, z == 0);
-  for (int t = t_begin; t < t_end; ++t) {
-    const int j0 = t * kCols;
-    float dot[kRowsPerWarp] = {0.0f, 0.0f, 0.0f, 0.0f};
-    float sq_j[kLoadRows] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int c = 0; c < nc; ++c) {
-      const int c0 = c * kW;
-      if (nc > 1) {
-        float unused[kRowsPerWarp] = {0.0f, 0.0f, 0.0f, 0.0f};
-        load_center(c0);
-        stage_rows(c0, unused);
-      }
+  const float h2 = __ldg(a.h2);
+  const float scale = __fdiv_rn(kLog2eHalf, h2);
+  const int r_lo = row0 + 16 * warp + gid;
+  const float rsq[2] = {__ldg(q.rsq_i + r_lo), __ldg(q.rsq_i + r_lo + 8)};
+  float acc[NT][4], s[4][4], ks[2] = {0.0f, 0.0f};
 #pragma unroll
-      for (int b = 0; b < kLoadRows; ++b) {
-        const int jr = warp + kWarps * b, j = j0 + jr;
+  for (int i = 0; i < NT; ++i)
 #pragma unroll
-        for (int q = 0; q < OUT; ++q) {
-          const int kk = lane + 32 * q, k = c0 + kk;
-          if (kk < cw) {
-            const bool in = j < n && k < p;
-            const float tc = in ? pt[b][q] - cr[q] : 0.0f;
-            tj[jr * ps + kk] = tc;
-            if (c == z) uj[jr * ps + kk] = in ? pg[b][q] - tc / h2 : 0.0f;
-            sq_j[b] += tc * tc;
-          }
-        }
-        if (c == nc - 1) {
-          const float s = warp_sum(sq_j[b]);
-          if (lane == 0) rsq_j[jr] = s;
-        }
-      }
-      __syncthreads();
-      // In flight during the dot: the next chunk, or the next tile.
-      if (c + 1 < nc) load(j0, c0 + kW, c + 1 == z);
-      else if (t + 1 < t_end) load(j0 + kCols, 0, z == 0);
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[i][e] = 0.0f;
 
-      // D for rows row0..row0+3 against tile column `lane`.
-      const int len4 = (pp - c0 < cw ? pp - c0 : cw) / 4;
-      const float4* b4 = reinterpret_cast<const float4*>(tj + lane * ps);
-      const float4* a4 =
-          reinterpret_cast<const float4*>(ti + kRowsPerWarp * warp * ps);
-      for (int k4 = 0; k4 < len4; ++k4) {
-        const float4 bv = b4[k4];
+  for (int st = 0; st < stages; ++st) {
+    if (st + 1 < stages) issue(st + 1);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const float* base = ring + (st & 1) * slot;
+    const int c = st % nk;
+    const int kw = whole ? pp : min(kChunk, pp - c * kChunk);
+    dot_chunk<BF16>(s, (whole ? sm : base) + 16 * warp * sk, base + off_tj,
+                    sk, kw, gid, tig);
+    if (c == nk - 1) {
+      const float* rj = base + off_r;
+      const int j0 = (t_begin + st / nk) * kCols;
 #pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) {
-          const float4 av = a4[r * (ps / 4) + k4];
-          dot[r] += av.x * bv.x + av.y * bv.y + av.z * bv.z + av.w * bv.w;
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * nt + 2 * tig + (e & 1);
+          const float d = (rsq[e >> 1] + rj[col]) - 2.0f * s[nt][e];
+          const float x = a.div_h2 ? (d / h2) * kLog2eHalf : d * scale;
+          const float kv = j0 + col < n ? exp2f(x) : 0.0f;
+          ks[e >> 1] += kv;
+          s[nt][e] = kv;
         }
       }
-      if (c + 1 < nc) __syncthreads();
-    }
-
-    float kv[kRowsPerWarp];
-    const bool col_in = j0 + lane < n;
+      contract<NT, BF16>(acc, s, base + off_u, su, gid, tig);
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const float d = (rsq_i[r] + rsq_j[lane]) - 2.0f * dot[r];
-      const float x = a.div_h2 ? (d / h2) * kLog2eHalf : d * scale;
-      kv[r] = col_in ? exp2f(x) : 0.0f;
-      ksum_lane[r] += kv[r];
-    }
-    reinterpret_cast<float4*>(kt + lane * kKtStride)[warp] =
-        make_float4(kv[0], kv[1], kv[2], kv[3]);
-    __syncwarp();
-    for (int jj = 0; jj < kCols; ++jj) {
-      const float4 k4 = reinterpret_cast<const float4*>(kt + jj * kKtStride)[warp];
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int q = 0; q < OUT; ++q) {
-        const int kk = lane + 32 * q;
-        if (kk < cw) {
-          const float u = uj[jj * ps + kk];
-          acc[0][q] += k4.x * u;
-          acc[1][q] += k4.y * u;
-          acc[2][q] += k4.z * u;
-          acc[3][q] += k4.w * u;
-        }
-      }
+        for (int e = 0; e < 4; ++e) s[i][e] = 0.0f;
     }
     __syncthreads();
   }
 
-  float* ku_out = a.part_ku + static_cast<size_t>(blockIdx.y) * m * p;
+  float* ku_out = a.part_ku + static_cast<size_t>(blockIdx.y) * m * a.p;
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int i = row0 + r;
-    const float ks = warp_sum(ksum_lane[r]);
-    if (i < m) {
+  for (int h = 0; h < 2; ++h) {
+    const int i = r_lo + 8 * h;
+    float v = ks[h];
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    if (i >= m) continue;
 #pragma unroll
-      for (int q = 0; q < OUT; ++q) {
-        const int k = z * kW + lane + 32 * q;
-        if (k < p) ku_out[static_cast<size_t>(i) * p + k] = acc[r][q];
+    for (int qq = 0; qq < NT; ++qq) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int k = z * kW + 8 * qq + 2 * tig + e;
+        if (k < a.p) ku_out[static_cast<size_t>(i) * a.p + k] = acc[qq][2 * h + e];
       }
-      if (lane == 0 && z == 0) a.part_ksum[blockIdx.y * m + i] = ks;
     }
+    if (tig == 0 && z == 0) a.part_ksum[blockIdx.y * m + i] = v;
   }
 }
 
@@ -297,27 +560,56 @@ __global__ void __launch_bounds__(kReduceThreads) tile_reduce_kernel(TileArgs a)
   }
 }
 
-template <int OUT>
-cudaError_t launch_tile_kernel(const TileArgs& a, cudaStream_t stream) {
-  const size_t smem = tile_smem(a.p);
-  cudaError_t err =
-      set_smem(reinterpret_cast<const void*>(svgd_tile_kernel<OUT>), smem);
+template <int NT, bool BF16>
+cudaError_t launch_tile_kernel(const TileArgs& a, const Geom& g,
+                               const PrepPtrs& q, cudaStream_t stream) {
+  const size_t smem = tile_smem(g);
+  cudaError_t err = set_smem(
+      reinterpret_cast<const void*>(svgd_tile_kernel<NT, BF16>), smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.m + kRows - 1) / kRows, a.splits, tile_chunks(a.p));
-  svgd_tile_kernel<OUT><<<grid, kThreads, smem, stream>>>(a);
+  const dim3 grid(g.m_pad / kRows, a.splits, g.zc);
+  svgd_tile_kernel<NT, BF16><<<grid, kThreads, smem, stream>>>(a, g, q);
   return cudaGetLastError();
+}
+
+template <bool BF16>
+cudaError_t launch_tile_nt(const TileArgs& a, const Geom& g,
+                           const PrepPtrs& q, cudaStream_t stream) {
+  switch (g.nt) {
+    case 4: return launch_tile_kernel<4, BF16>(a, g, q, stream);
+    case 8: return launch_tile_kernel<8, BF16>(a, g, q, stream);
+    case 12: return launch_tile_kernel<12, BF16>(a, g, q, stream);
+    case 16: return launch_tile_kernel<16, BF16>(a, g, q, stream);
+    default: return launch_tile_kernel<kMaxNT, BF16>(a, g, q, stream);
+  }
 }
 
 }  // namespace
 
-// Column shares: enough blocks to cover every SM once, at most 16.
+// Column shares: the fewest that fill the resident block slots' waves to
+// 90% (two blocks an SM where the shared memory allows, as the registers
+// do), else the best filling, at most 16 and at most one per tile.
 int tile_splits(int m, int n, int p) {
-  const int blocks = ((m + kRows - 1) / kRows) * tile_chunks(p);
+  const Geom g = geom(m, n, p);
+  const int blocks = (g.m_pad / kRows) * g.zc;
   const int tiles = (n + kCols - 1) / kCols;
-  int s = sm_count() / blocks;
-  if (s > tiles) s = tiles;
-  if (s > 16) s = 16;
-  return s < 1 ? 1 : s;
+  const int sms = sm_count() * (2 * tile_smem(g) <= kSmemLimit ? 2 : 1);
+  int best = 1;
+  double best_fill = 0.0;
+  for (int s = 1; s <= 16 && s <= tiles; ++s) {
+    const int b = blocks * s;
+    const double fill = static_cast<double>(b) / (((b + sms - 1) / sms) * sms);
+    if (fill >= 0.9) return s;
+    if (fill > best_fill) {
+      best_fill = fill;
+      best = s;
+    }
+  }
+  return best;
+}
+
+long long tile_prep_floats(int m, int n, int p) {
+  return static_cast<long long>(prep_floats(geom(m, n, p)));
 }
 
 int tile_reduce_blocks(int m, int p) {
@@ -326,15 +618,17 @@ int tile_reduce_blocks(int m, int p) {
 }
 
 cudaError_t launch_tile(const TileArgs& a, cudaStream_t stream) {
-  if (a.splits < 1) return cudaErrorInvalidValue;
-  cudaError_t err;
-  switch (out_width(a.p)) {
-    case 1: err = launch_tile_kernel<1>(a, stream); break;
-    case 2: err = launch_tile_kernel<2>(a, stream); break;
-    case 4: err = launch_tile_kernel<4>(a, stream); break;
-    case 8: err = launch_tile_kernel<8>(a, stream); break;
-    default: err = launch_tile_kernel<kMaxOut>(a, stream); break;
-  }
+  if (a.splits < 1 || a.prep == nullptr) return cudaErrorInvalidValue;
+  const Geom g = geom(a.m, a.n, a.p);
+  const bool shared_rows = a.rows == a.cols && a.m == a.n;
+  const PrepPtrs q = prep_ptrs(a.prep, g, shared_rows);
+  const int warps = g.n_pad + (shared_rows ? 0 : g.m_pad);
+  tile_prep_kernel<<<(warps + kPrepWarps - 1) / kPrepWarps, 32 * kPrepWarps,
+                     0, stream>>>(a, g, q, shared_rows ? 0 : 1);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = a.bf16 ? launch_tile_nt<true>(a, g, q, stream)
+               : launch_tile_nt<false>(a, g, q, stream);
   if (err != cudaSuccess) return err;
   return launch_tile_reduce(a, stream);
 }
@@ -353,17 +647,24 @@ extern "C" {
 
 int stein_tile_splits(int m, int n, int p) { return tile_splits(m, n, p); }
 
-// B3. rows [m, p]; cols, grads [n, p]; center [p]; h2 a device scalar.
-// Scratch part_ku [splits * m * p], part_ksum [splits * m]. Writes ku
+long long stein_tile_prep_floats(int m, int n, int p) {
+  return tile_prep_floats(m, n, p);
+}
+
+// B3. rows [m, p]; cols, grads [n, p]; center [p] or null; h2 a device
+// scalar; bf16 selects pallas_precision='bf16'; div_h2 the exponent order
+// (TileArgs.div_h2: B3's is 1, B1's 0). Scratch part_ku [splits * m * p],
+// part_ksum [splits * m], prep [stein_tile_prep_floats(m, n, p)]. Writes ku
 // [m, p] and ksum [m] when phi is null, else phi [m, p] (divided by
 // n_total).
 int stein_svgd_tile(const float* rows, const float* cols, const float* grads,
                     const float* center, const float* h2, int m, int n,
                     int p, int splits, float* part_ku, float* part_ksum,
                     float* ku, float* ksum, float* phi, float n_total,
-                    void* stream) {
-  const TileArgs a{rows, cols, grads, center, h2, m, n, p, true, splits,
-                   part_ku, part_ksum, n_total, ku, ksum, phi, nullptr};
+                    int bf16, int div_h2, float* prep, void* stream) {
+  const TileArgs a{rows, cols, grads, center, h2, m, n, p, div_h2 != 0,
+                   splits, part_ku, part_ksum, n_total, ku, ksum, phi,
+                   nullptr, prep, bf16 != 0};
   return launch_tile(a, static_cast<cudaStream_t>(stream));
 }
 

@@ -1,6 +1,6 @@
-// The streaming SVGD tile (svgd_tile.cu): one tile kernel and its
-// fixed-order reduce, launched by B1's step tail (stein_kernels.cu) and by
-// B3 (ops/svgd_tile.py).
+// The streaming SVGD tile (svgd_tile.cu): its prep, the tensor-core tile
+// kernel and the fixed-order reduce, launched by B1's step tail
+// (stein_kernels.cu) and by B3 (ops/svgd_tile.py).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -11,7 +11,7 @@ struct TileArgs {
   const float* rows;    // [m, p]
   const float* cols;    // [n, p]
   const float* grads;   // [n, p]
-  const float* center;  // [p]
+  const float* center;  // [p], or null: no centre
   const float* h2;      // device scalar
   int m, n, p;
   // K's exponent as (D / h2) * (-log2e/2), the JAX tile's order (B3), or
@@ -25,11 +25,15 @@ struct TileArgs {
   float* ksum;
   float* phi;           // else phi [m, p] = (ku + ksum (r - c) / h2) / n_total
   float* partials;      // and, if not null, ||phi||^2 per reduce block
+  float* prep;          // [tile_prep_floats(m, n, p)] scratch (launch_tile)
+  bool bf16;            // bf16 dot operands (pallas_precision='bf16')
 };
 
 int tile_splits(int m, int n, int p);
+long long tile_prep_floats(int m, int n, int p);
 int tile_reduce_blocks(int m, int p);
-// Both launches on `stream`; returns the first CUDA error.
+// The prep, the tile and the reduce on `stream`; returns the first CUDA
+// error.
 cudaError_t launch_tile(const TileArgs& a, cudaStream_t stream);
 // The reduce alone, over the shares of a.part_ku / a.part_ksum. With a
 // null centre the combine's tc is the rows themselves.

@@ -7,8 +7,9 @@ and the noise precision gamma = exp(log_gamma), evaluated at the exp'd
 values with no Jacobian correction as the reference does; N(0, lambda^-1/2)
 priors on all weights and biases; a Gaussian likelihood with scale
 gamma^-1/2, rescaled by n_train/n_batch; the whole log-posterior divided by
-n_train. The JAX model's ``precision=`` field has no counterpart: data
-products are f32 ``torch.matmul``s (see ``models/distributions.py``).
+n_train. The JAX model's ``precision=`` field is kept and checked and
+changes nothing: data products are f32 ``torch.matmul``s (see
+``models/distributions.py``).
 
 ``pallas_grads()`` keeps its JAX name, by which ``throughput_config(model=)``
 and user code find the hook. It returns the per-particle log-posterior and
@@ -23,7 +24,7 @@ import math
 
 import torch
 
-from .distributions import gamma_log_prob, normal_log_prob
+from .distributions import check_precision, gamma_log_prob, normal_log_prob
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -36,6 +37,10 @@ class BayesianNNModel:
     n_batch: int
     prior_alpha: float = 1.0
     prior_beta: float = 0.01
+    precision: str = "high"
+
+    def __post_init__(self):
+        check_precision(self.precision)
 
     def template(self, dtype=torch.float32):
         f, H = self.n_feats, self.n_hidden

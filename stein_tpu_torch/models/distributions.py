@@ -1,14 +1,25 @@
 """Log-density helpers matching tf.contrib.distributions semantics.
 
 PyTorch counterpart of ``stein_tpu/models/distributions.py`` (the part the
-ported models use). ``resolve_precision`` has no counterpart: f32 products
-run at full f32 unless the caller turns TF32 on, the precision the JAX
-models' default "high" tier stands for.
+ported models use). ``resolve_precision`` becomes ``check_precision``: the
+models keep the JAX ``precision=`` field, but f32 products run at full f32
+unless the caller turns TF32 on (the precision the JAX models' default
+"high" tier stands for), so the field is checked and changes nothing.
 """
 
 import math
 
 import torch
+
+# The JAX models' precision names (distributions.resolve_precision).
+PRECISIONS = ("high", "default", "highest")
+
+
+def check_precision(name):
+    """Raise for a name the JAX package's resolve_precision does not know."""
+    if name not in PRECISIONS:
+        raise ValueError(f"unknown model precision {name!r} (one of "
+                         f"{PRECISIONS}; it changes nothing in the port)")
 
 
 def normal_log_prob(x, loc, scale):

@@ -5,7 +5,8 @@ reference example's model (examples/linear_regression/main.py:18-31), an
 N(0,1) prior on the weights and a unit-variance Gaussian likelihood,
   log_p = -0.5 * sum((Xw - y)^2) + sum log N(w; 0, 1).
 Data matmuls are f32 ``torch.matmul``s (full f32 unless the caller turns
-TF32 on), the precision the JAX model's default "high" tier stands for.
+TF32 on), the precision the JAX model's default "high" tier stands for; its
+``precision=`` field is kept and checked, and changes nothing.
 """
 
 import dataclasses
@@ -13,12 +14,16 @@ import math
 
 import torch
 
-from .distributions import normal_log_prob
+from .distributions import check_precision, normal_log_prob
 
 
 @dataclasses.dataclass(frozen=True)
 class LinearRegressionModel:
     n_feats: int
+    precision: str = "high"
+
+    def __post_init__(self):
+        check_precision(self.precision)
 
     def template(self, dtype=torch.float32):
         return {"w": torch.zeros(self.n_feats, 1, dtype=dtype)}

@@ -5,8 +5,9 @@ reference example's model (examples/logistic_regression/main.py:23-49), a
 Gamma(1, 0.01) prior on the precision alpha = exp(log_alpha), evaluated at
 alpha with no Jacobian correction as the reference does, an N(0, alpha^-1/2)
 prior on the weights and the sigmoid cross-entropy likelihood rescaled by
-n_train/n_batch. The JAX model's ``precision=`` field has no counterpart:
-data products are f32 ``torch.matmul``s (see ``models/distributions.py``).
+n_train/n_batch. The JAX model's ``precision=`` field is kept and checked
+and changes nothing: data products are f32 ``torch.matmul``s (see
+``models/distributions.py``).
 
 ``inkernel_model(batch)`` packages the model for step_impl='fused_model':
 its gradients and log_p values come from the fused step's logistic stage
@@ -22,6 +23,7 @@ from ..ops.fused_step import InKernelModel
 from ..ops.model_grad import LogisticGrad
 from ..utils.ravel import template_unraveler
 from .distributions import (
+    check_precision,
     gamma_log_prob,
     normal_log_prob,
     sigmoid_cross_entropy_with_logits,
@@ -33,6 +35,10 @@ class LogisticRegressionModel:
     n_feats: int
     n_train: int
     n_batch: int
+    precision: str = "high"
+
+    def __post_init__(self):
+        check_precision(self.precision)
 
     def template(self, dtype=torch.float32):
         return {

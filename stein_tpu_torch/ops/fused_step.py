@@ -230,10 +230,13 @@ def _launch_tail(theta, grads, block, med, opt_state, gd, max_phi_norm,
     # One f32 scratch buffer, each piece 64-float aligned: dsub (the Gram
     # mode's block), center, per-block column sums, per-block ranges, the
     # column shares' K @ u and row sums, phi, ||phi||^2 partials, [med, h2];
-    # the per-block counts are int32.
+    # the tile's prep (Gram mode without d_once); the per-block counts are
+    # int32.
     sizes = (m * n if gram else 0, p, blocks * p, 2 * blocks,
              splits * n * p, splits * n, n * p,
-             lib.stein_reduce_blocks(n, p), 2)
+             lib.stein_reduce_blocks(n, p), 2,
+             lib.stein_tile_prep_floats(n, n, p) if gram and not d_once
+             else 0)
     padded = [-(-s // 64) * 64 for s in sizes]
     scratch = torch.empty(sum(padded), dtype=torch.float32, device=dev)
     ptrs, off = [], scratch.data_ptr()
@@ -241,7 +244,7 @@ def _launch_tail(theta, grads, block, med, opt_state, gd, max_phi_norm,
         ptrs.append(off)
         off += 4 * s
     (dsub, center, part_center, part_range, part_ku, part_ksum, phi,
-     partials, med_h2) = ptrs
+     partials, med_h2, tile_prep) = ptrs
     part_counts = torch.empty((1 + rounds) * blocks * 16, dtype=torch.int32,
                               device=dev)
 
@@ -263,7 +266,7 @@ def _launch_tail(theta, grads, block, med, opt_state, gd, max_phi_norm,
         new_theta.data_ptr(), new_mom1.data_ptr(), new_mom2.data_ptr(),
         new_count.data_ptr(), new_lr.data_ptr(), stats.data_ptr(),
         dsub, center, part_center, part_counts.data_ptr(), part_range,
-        splits, part_ku, part_ksum, phi, partials, med_h2,
+        splits, part_ku, part_ksum, phi, partials, med_h2, tile_prep,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda.check(err, "fused step tail launch")

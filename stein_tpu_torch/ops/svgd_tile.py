@@ -15,14 +15,20 @@ column particles and gradients, with the columns' mean c as the centre:
   phi = (ku + ksum * (r - c) / h^2) / n_total
 
 The CUDA kernel (``csrc/svgd_tile.cu``, the same tile that B1's step tail
-launches) replaces ``stein_tpu/ops/pallas_svgd.py:_svgd_tile_kernel``. K
-never reaches device memory: each block holds 32 rows and walks a share of
-the 32-column tiles (p beyond 384 in chunks), then a second launch adds the
-shares in a fixed order (two calls give bitwise-equal output) and forms
-phi. h^2 is read from device
-memory. The tile sizes are the kernel's own (the JAX functions' block
-arguments have no counterpart). For a CPU tensor the wrapper runs the plain
-version; for a CUDA tensor it launches the kernel or raises.
+launches) replaces ``stein_tpu/ops/pallas_svgd.py:_svgd_tile_kernel``. A
+prep launch forms the centred operands, u and the norms (what the JAX
+wrapper computes before its pallas_call); the tile kernel runs both
+products on the tensor cores (mma.sync: 3xTF32 for ``precision='f32'``,
+bf16 for ``'bf16'``), each block holding 64 rows and streaming a share of
+the 32-column tiles through a cp.async ring, K never in device memory;
+then a third launch adds the shares in a fixed order (two calls give
+bitwise-equal output) and forms phi. h^2 is read from device memory. The
+tile sizes are the kernel's own (the JAX functions' block arguments have no
+counterpart). ``precision='bf16'`` casts what the JAX kernel's ``mxu_dtype``
+casts: the centred rows and columns for the dot, K and u for the
+contraction; the norms, K and its row sums stay f32. For a CPU tensor the
+wrapper runs the plain version; for a CUDA tensor it launches the kernel or
+raises.
 """
 
 import torch
@@ -37,24 +43,44 @@ def column_center(cols):
     return torch.mean(cols.to(torch.float32), dim=0, keepdim=True)
 
 
-def svgd_both_ksum_plain(rows, cols, grads, h2, center):
+PRECISIONS = ("f32", "bf16")
+
+
+def _operand(x, precision):
+    """A product's operand: f32, or rounded to bf16 and back (the JAX
+    kernel's mxu_dtype cast; the product then accumulates in f32)."""
+    if precision == "bf16":
+        return x.to(torch.bfloat16).to(torch.float32)
+    return x
+
+
+def svgd_both_ksum_plain(rows, cols, grads, h2, center, precision="f32",
+                         div_h2=True):
     """Kernel B3's plain version: (ku [m, p], ksum [m, 1]), the JAX
-    kernel body on the whole block (torch matmuls)."""
+    kernel body on the whole block (torch matmuls), with the dot's and the
+    contraction's operands rounded to bf16 for ``precision='bf16'``. K's
+    exponent is (D / h^2) (-log2(e)/2), the JAX tile's order, or with
+    ``div_h2=False`` D ((-log2(e)/2) / h^2), the JAX step tail's (B1)."""
     rows_c = rows - center
     cols_c = cols - center
     u = grads - cols_c / h2
     rsq_i = torch.sum(rows_c * rows_c, dim=1, keepdim=True)
     rsq_j = torch.sum(cols_c * cols_c, dim=1, keepdim=True)
-    D = rsq_i + rsq_j.reshape(1, -1) - 2.0 * torch.matmul(rows_c, cols_c.T)
-    K = torch.exp2(D / h2 * _LOG2E_HALF)
-    return torch.matmul(K, u), torch.sum(K, dim=1, keepdim=True)
+    D = rsq_i + rsq_j.reshape(1, -1) - 2.0 * torch.matmul(
+        _operand(rows_c, precision), _operand(cols_c, precision).T)
+    K = torch.exp2(D / h2 * _LOG2E_HALF if div_h2 else
+                   D * (_LOG2E_HALF / h2))
+    return (torch.matmul(_operand(K, precision), _operand(u, precision)),
+            torch.sum(K, dim=1, keepdim=True))
 
 
 def _combine(ku, ksum, rows, center, h2, n_total):
     return (ku + ksum * (rows - center) / h2) / n_total
 
 
-def _check(rows, cols, grads, center):
+def _check(rows, cols, grads, center, precision):
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown pallas_precision: {precision!r}")
     m, p = rows.shape
     n = cols.shape[0]
     for name, t, shape in (("rows", rows, (m, p)), ("cols", cols, (n, p)),
@@ -68,8 +94,8 @@ def _check(rows, cols, grads, center):
                              f"{t.device}")
 
 
-def _launch(rows, cols, grads, h2, center, n_total):
-    """Both B3 launches; n_total=None returns (ku, ksum), else phi."""
+def _launch(rows, cols, grads, h2, center, n_total, precision, div_h2):
+    """B3's launches; n_total=None returns (ku, ksum), else phi."""
     from .. import _cuda
 
     lib = _cuda.library().lib
@@ -79,6 +105,8 @@ def _launch(rows, cols, grads, h2, center, n_total):
     splits = lib.stein_tile_splits(m, n, p)
     part_ku = torch.empty(splits * m * p, dtype=torch.float32, device=dev)
     part_ksum = torch.empty(splits * m, dtype=torch.float32, device=dev)
+    prep = torch.empty(lib.stein_tile_prep_floats(m, n, p),
+                       dtype=torch.float32, device=dev)
     if n_total is None:
         ku = torch.empty(m, p, dtype=torch.float32, device=dev)
         ksum = torch.empty(m, 1, dtype=torch.float32, device=dev)
@@ -90,40 +118,51 @@ def _launch(rows, cols, grads, h2, center, n_total):
         rows.data_ptr(), cols.data_ptr(), grads.data_ptr(),
         center.data_ptr(), h2.data_ptr(), m, n, p, splits,
         part_ku.data_ptr(), part_ksum.data_ptr(), *ptrs,
-        float(n_total or 0), torch.cuda.current_stream(dev).cuda_stream,
+        float(n_total or 0), int(precision == "bf16"), int(div_h2),
+        prep.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda.check(err, "svgd_tile_kernel launch")
     svgd_both_ksum.launches += 1
+    if precision == "bf16":
+        svgd_both_ksum.bf16_launches += 1
     return (ku, ksum) if n_total is None else phi
 
 
-def _tile(rows, cols, grads, h2, center, n_total):
+def _tile(rows, cols, grads, h2, center, n_total, precision, div_h2=True):
+    """B3 on [m, p] rows against [n, p] columns; ``div_h2=False`` is B1's
+    exponent order (the card tests drive both)."""
     center = center.reshape(1, -1)
-    _check(rows, cols, grads, center)
+    _check(rows, cols, grads, center, precision)
     h2 = _scalar_on(h2, rows)
     if rows.device.type == "cpu":
-        ku, ksum = svgd_both_ksum_plain(rows, cols, grads, h2, center)
+        ku, ksum = svgd_both_ksum_plain(rows, cols, grads, h2, center,
+                                        precision, div_h2)
         if n_total is None:
             return ku, ksum
         return _combine(ku, ksum, rows, center, h2, n_total)
     if rows.device.type != "cuda":
         raise ValueError(f"svgd tile: no kernel for {rows.device}")
     return _launch(rows.contiguous(), cols.contiguous(), grads.contiguous(),
-                   h2, center.contiguous(), n_total)
+                   h2, center.contiguous(), n_total, precision, div_h2)
 
 
-def svgd_both_ksum(rows, cols, grads, h2, center):
+def svgd_both_ksum(rows, cols, grads, h2, center, precision="f32"):
     """The raw accumulators (ku [m, p], ksum [m, 1]) of rows [m, p]
     against cols/grads [n, p] about ``center`` ([1, p]); callers combine
     phi = (ku + ksum * (rows - center) / h2) / n_total with the same
-    centre. f32 only."""
-    return _tile(rows, cols, grads, h2, center, None)
+    centre. f32 inputs; ``precision`` is the JAX function's ('f32' or
+    'bf16' dot operands)."""
+    return _tile(rows, cols, grads, h2, center, None, precision)
 
 
+# Every launch of the tile; of them, those of its bf16 route.
 svgd_both_ksum.launches = 0
+svgd_both_ksum.bf16_launches = 0
 
 
-def svgd_phi_rect(rows, cols, grads, h2, n_total=None, center=None):
+def svgd_phi_rect(rows, cols, grads, h2, n_total=None, center=None,
+                  precision="f32"):
     """phi for an [m, p] row block against [n, p] columns, centred at the
     mean of the columns (pass ``center`` when the caller already holds
     it); n_total defaults to n."""
@@ -131,12 +170,13 @@ def svgd_phi_rect(rows, cols, grads, h2, n_total=None, center=None):
         n_total = cols.shape[0]
     if center is None:
         center = column_center(cols)
-    return _tile(rows, cols, grads, h2, center, n_total)
+    return _tile(rows, cols, grads, h2, center, n_total, precision)
 
 
-def svgd_phi(theta, grads, h2, center=None):
+def svgd_phi(theta, grads, h2, center=None, precision="f32"):
     """The SVGD direction phi for [n, p] particles and gradients."""
-    return svgd_phi_rect(theta, theta, grads, h2, center=center)
+    return svgd_phi_rect(theta, theta, grads, h2, center=center,
+                         precision=precision)
 
 
 def svgd_both_ksum_on_D_plain(D_rows, u_cols, h2):

@@ -110,11 +110,12 @@ def _ring_kernel_pass(theta_loc, grads_loc, rsq_loc, h2, mesh):
     return acc_both[:, :p], acc_both[:, p:], acc_ksum
 
 
-def _ring_kernel_pass_pallas(theta_loc, grads_loc, h2, mesh):
+def _ring_kernel_pass_pallas(theta_loc, grads_loc, h2, mesh,
+                             precision="f32"):
     """The ring pass with each rotation's tile streamed through kernel B3
-    (ops.svgd_tile.svgd_both_ksum), all about the global particle mean (one
-    [p] psum). Returns (ku, ksum, center); phi = (ku + ksum (theta -
-    center) / h2) / n."""
+    (ops.svgd_tile.svgd_both_ksum, at the sampler's pallas_precision), all
+    about the global particle mean (one [p] psum). Returns (ku, ksum,
+    center); phi = (ku + ksum (theta - center) / h2) / n."""
     n_loc, p = theta_loc.shape
     center = coll.psum(
         torch.sum(theta_loc.to(torch.float32), dim=0, keepdim=True), mesh,
@@ -126,7 +127,7 @@ def _ring_kernel_pass_pallas(theta_loc, grads_loc, h2, mesh):
                            device=theta_loc.device)
     for r in range(mesh.size):
         t_ku, t_ksum = svgd_tile.svgd_both_ksum(
-            theta_loc, blk[:, p:], blk[:, :p], h2, center)
+            theta_loc, blk[:, p:], blk[:, :p], h2, center, precision)
         acc_ku = acc_ku + t_ku
         acc_ksum = acc_ksum + t_ksum
         if r + 1 < mesh.size:
@@ -146,10 +147,11 @@ def _rbf_phi_rows_xla(theta_loc, theta_all, grads_all, D_rows, h2,
     return (both[:, :p] + (ksum * theta_loc - both[:, p:]) / h2) / n_particles
 
 
-def _rbf_phi_rows_pallas(theta_loc, theta_all, grads_all, h2, n_particles):
+def _rbf_phi_rows_pallas(theta_loc, theta_all, grads_all, h2, n_particles,
+                         precision="f32"):
     """The same tile by kernel B3, centred at the gathered columns' mean."""
     return svgd_tile.svgd_phi_rect(theta_loc, theta_all, grads_all, h2,
-                                   n_total=n_particles)
+                                   n_total=n_particles, precision=precision)
 
 
 def _clip_update_aux(state, phi, log_p_vals, h2, med, gd, max_phi_norm,
@@ -178,15 +180,16 @@ def _check_divides(n_particles, mesh):
 def make_sharded_step(log_p, unravel_fn, gd, n_particles, state, mesh,
                       median="exact", max_phi_norm=10.0, comm="all_gather",
                       median_max_rows=512, median_passes=30,
-                      kernel_impl="xla", custom_grads=None):
+                      kernel_impl="xla", custom_grads=None,
+                      pallas_precision="f32"):
     """Build (step_fn, local_state): step_fn(local_state, batch) ->
     (local_state, aux) is the cold mesh step every rank runs on its block;
     local_state is this rank's block of the full ``state``.
 
     ``kernel_impl='pallas'`` streams the tiles through kernel B3: local rows
     against the gathered columns, or one [n_loc, n_loc] tile per ring
-    rotation. It needs the bisect median (the tile never materialises the
-    rows median='exact' sorts)."""
+    rotation, at ``pallas_precision``. It needs the bisect median (the tile
+    never materialises the rows median='exact' sorts)."""
     _check_divides(n_particles, mesh)
     grad_all = _make_grad_all(log_p, unravel_fn, custom_grads)
     if comm not in ("all_gather", "ring"):
@@ -211,7 +214,7 @@ def make_sharded_step(log_p, unravel_fn, gd, n_particles, state, mesh,
             "assembles the global column block the other median modes need"
         )
     if median == "binned":
-        raise _unported("median='binned'", "A2")
+        raise _unported("median='binned'", "A5")
     if median not in ("exact", "bisect"):
         raise ValueError(f"unknown sharded median mode: {median!r} (use "
                          "'exact' or 'bisect')")
@@ -227,8 +230,8 @@ def make_sharded_step(log_p, unravel_fn, gd, n_particles, state, mesh,
             h2 = rbf.bandwidth_sq_from_median(med.to(theta_loc.dtype),
                                               n_particles)
             if kernel_impl == "pallas":
-                ku, ksum, c = _ring_kernel_pass_pallas(theta_loc, grads_loc,
-                                                       h2, mesh)
+                ku, ksum, c = _ring_kernel_pass_pallas(
+                    theta_loc, grads_loc, h2, mesh, pallas_precision)
                 phi = (ku + ksum * (theta_loc - c) / h2) / n_particles
             else:
                 attract, ktheta, ksum = _ring_kernel_pass(
@@ -253,7 +256,7 @@ def make_sharded_step(log_p, unravel_fn, gd, n_particles, state, mesh,
                                               n_particles)
             if kernel_impl == "pallas":
                 phi = _rbf_phi_rows_pallas(theta_loc, theta_all, grads_all,
-                                           h2, n_particles)
+                                           h2, n_particles, pallas_precision)
             else:
                 phi = _rbf_phi_rows_xla(theta_loc, theta_all, grads_all,
                                         D_rows, h2, n_particles)
@@ -267,7 +270,7 @@ def make_sharded_warm_step(log_p, unravel_fn, gd, n_particles, mesh,
                            max_phi_norm=10.0, median_max_rows=512,
                            median_passes=30, warm_passes=8,
                            kernel_impl="xla", comm="all_gather",
-                           custom_grads=None):
+                           custom_grads=None, pallas_precision="f32"):
     """The warm-median mesh step for ``run``: the carry is (local_state,
     med_prev) and the bandwidth search refines the previous median inside a
     count-verified bracket, its counts psum'd (ops/median.
@@ -292,8 +295,8 @@ def make_sharded_warm_step(log_p, unravel_fn, gd, n_particles, mesh,
             h2 = rbf.bandwidth_sq_from_median(med.to(theta_loc.dtype),
                                               n_particles)
             if kernel_impl == "pallas":
-                ku, ksum, c = _ring_kernel_pass_pallas(theta_loc, grads_loc,
-                                                       h2, mesh)
+                ku, ksum, c = _ring_kernel_pass_pallas(
+                    theta_loc, grads_loc, h2, mesh, pallas_precision)
                 phi = (ku + ksum * (theta_loc - c) / h2) / n_particles
             else:
                 attract, ktheta, ksum = _ring_kernel_pass(
@@ -311,7 +314,7 @@ def make_sharded_warm_step(log_p, unravel_fn, gd, n_particles, mesh,
                 h2 = rbf.bandwidth_sq_from_median(med.to(theta_loc.dtype),
                                                   n_particles)
                 phi = _rbf_phi_rows_pallas(theta_loc, theta_all, grads_all,
-                                           h2, n_particles)
+                                           h2, n_particles, pallas_precision)
             else:
                 D_rows = _row_block_sq_dists(
                     theta_loc, theta_all,

@@ -40,12 +40,16 @@ def _flatten(tree):
     return [torch.as_tensor(tree)], lambda leaves: leaves[0]
 
 
-def template_unraveler(template):
+def template_unraveler(template, dtype=None):
     """Given a parameter-structure template, return (n_params, unravel_fn).
 
     ``unravel_fn`` maps a flat [p] vector back to the template's structure
     as views into the vector, in the vector's dtype (so it composes with
-    ``torch.func.vmap``; JAX's ``dtype=`` cast has nothing to do here)."""
+    ``torch.func.vmap``). ``dtype`` is accepted for parity with the JAX
+    function, whose cast of the template's leaves makes the flat vector's
+    dtype uniform; here the leaves always take the vector's dtype, so it
+    changes nothing."""
+    del dtype
     leaves, build = _flatten(template)
     shapes = [tuple(l.shape) for l in leaves]
     sizes = [int(l.numel()) for l in leaves]

@@ -155,6 +155,61 @@ def test_b3_against_plain(dev, m, n, p, lattice):
     assert _norm_err(ks_k, ks) <= (1e-5 if lattice else 1e-4)
 
 
+def _tile_inputs(m, n, p, dev, seed):
+    rng = np.random.default_rng(seed)
+    cols = torch.tensor(rng.normal(size=(n, p)), dtype=torch.float32,
+                        device=dev)
+    grads = torch.tensor(rng.normal(size=(n, p)), dtype=torch.float32,
+                         device=dev)
+    c = svgd_tile.column_center(cols)
+    D = fused_median.dist_block_plain(cols[:256], cols, c)
+    h2 = fused_median.warm_search_on_value(
+        D, torch.zeros((), device=dev), 30) / np.log(n)
+    return cols[:m].contiguous(), cols, grads, c, h2
+
+
+@pytest.mark.parametrize("div_h2", [True, False])
+@pytest.mark.parametrize("p", [55, 128, 303, 1000])
+def test_b3_widths_and_exponent_orders(dev, p, div_h2):
+    """The tensor-core tile at m=333 against n=777 columns (m != n, a
+    ragged last tile), at widths that take one output chunk (55, 128), two
+    (303) and the streamed-rows chunks (1000), in B3's exponent order and
+    B1's: ku and ksum <= 1e-4 normalised against the plain version of the
+    same order (f32 sums in other orders, 3xTF32 products); two calls
+    bitwise equal."""
+    rows, cols, grads, c, h2 = _tile_inputs(333, 777, p, dev, p)
+    got = svgd_tile._tile(rows, cols, grads, h2, c, None, "f32", div_h2)
+    again = svgd_tile._tile(rows, cols, grads, h2, c, None, "f32", div_h2)
+    want = svgd_tile.svgd_both_ksum_plain(rows, cols, grads, h2, c, "f32",
+                                          div_h2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert _norm_err(got[0], want[0]) <= 1e-4
+    assert _norm_err(got[1], want[1]) <= 1e-4
+
+
+@pytest.mark.parametrize("m,n,p", [(1000, 1000, 303), (333, 777, 128),
+                                   (2048, 2048, 64)])
+def test_b3_bf16_against_plain(dev, m, n, p):
+    """pallas_precision='bf16': <= 1e-3 normalised against the plain bf16
+    version (the same casts; another f32 summation order can move a K entry
+    across a bf16 rounding boundary, measured up to 4.2e-4 on the H100),
+    and against the f32 plain version at the JAX suite's bf16 class (rtol
+    0.05, atol 5e-3 of max|phi|); two calls bitwise equal."""
+    rows, cols, grads, c, h2 = _tile_inputs(m, n, p, dev, m + p)
+    got = svgd_tile.svgd_phi_rect(rows, cols, grads, h2, precision="bf16")
+    again = svgd_tile.svgd_phi_rect(rows, cols, grads, h2, precision="bf16")
+    assert torch.equal(got, again)
+    for prec in ("bf16", "f32"):
+        ku, ks = svgd_tile.svgd_both_ksum_plain(rows, cols, grads, h2, c,
+                                                prec)
+        want = (ku + ks * (rows - c) / h2) / n
+        if prec == "bf16":
+            assert _norm_err(got, want) <= 1e-3
+        else:
+            torch.testing.assert_close(got, want, rtol=0.05,
+                                       atol=5e-3 * want.abs().max().item())
+
+
 @pytest.mark.parametrize("lattice", [True, False])
 def test_b4_against_plain(dev, lattice):
     """The [128, 3000] block at p=303: bitwise on lattice particles,
@@ -265,7 +320,8 @@ def _logistic_operands(n, d, N, dev, seed=0):
     return model.inkernel_model(batch), theta
 
 
-@pytest.mark.parametrize("n,p", [(1000, 128), (50, 128), (333, 37)])
+@pytest.mark.parametrize("p", [37, 128, 303])
+@pytest.mark.parametrize("n", [50, 333, 1000])
 def test_glm_stage_against_plain(dev, n, p):
     """logp rtol 2e-5 / atol 1e-5 of max|logp|, grads <= 2e-5 max|g| (B7's
     bounds: f32 sums in another order); two calls bitwise equal."""

@@ -136,3 +136,35 @@ def test_pblock_nn_log_p_mean_at_step_500():
     for _ in range(cs.PBLOCK_STEPS):
         theta, opt, med, lp = step(theta, opt, med)
     assert float(lp) == pytest.approx(cs.NN_PBLOCK_LOGP_JAX, rel=1e-5)
+
+
+@pytest.mark.parametrize("case", ["main-nn", "mesh-nn", "main-nn-bf16"])
+def test_nn_log_p_mean_at_step_500(case):
+    """[main-nn]'s recipe through the JAX package's throughput_config(1000,
+    303, model=BayesianNNModel(...), pallas_interpret=True): custom_grads
+    (B7's pallas_grads), the streaming tile (B3) and the 128-row fused_gram
+    median; [mesh-nn]'s on a one-device mesh (fused_shard); [main-nn-bf16]'s
+    with pallas_precision='bf16' (interpret mode rounds the tile's operands
+    to bf16). Adam(0.1, decay=0.999), 500 steps of run(); the mean log_p of
+    the last step."""
+    import jax
+
+    from stein_tpu.models import BayesianNNModel as JNN
+    from stein_tpu.parallel import particle_mesh
+
+    X, y, theta0 = cs.nn_data(cs.NN_N)
+    model = JNN(1, 100, 20, 20, prior_beta=10.0)
+    mesh = particle_mesh(jax.devices()[:1]) if case == "mesh-nn" else None
+    cfg = sj.throughput_config(cs.NN_N, cs.NN_P, model=model, mesh=mesh,
+                               pallas_interpret=True)
+    assert cfg["step_impl" if mesh else "kernel_impl"] == (
+        "fused_shard" if mesh else "pallas")
+    if case == "main-nn-bf16":
+        cfg["pallas_precision"] = "bf16"
+    s = _sampler(model, jnp.asarray(theta0, jnp.float32),
+                 sj.Adam(learning_rate=0.1, decay=0.999), cfg)
+    aux = s.run({"X": jnp.asarray(X, jnp.float32),
+                 "y": jnp.asarray(y, jnp.float32)}, cs.NN_STEPS)
+    want = {"main-nn": cs.NN_LOGP_JAX, "mesh-nn": cs.NN_MESH_LOGP_JAX,
+            "main-nn-bf16": cs.NN_BF16_LOGP_JAX}[case]
+    assert float(aux["log_p_mean"][-1]) == pytest.approx(want, rel=1e-5)

@@ -278,11 +278,15 @@ def _glm_inkernel_model(batch):
          inkernel_model=_glm_inkernel_model),
     dict(median="bisect", warm_median=True, kernel_impl="pallas",
          step_impl="epilogue"),
+    dict(median="bisect", kernel_impl="pallas", pallas_precision="bf16"),
+    dict(donate=False, pallas_interpret=True),
 ])
 def test_ported_options_construct_and_step(kw):
     """Options that raised before they were ported (the streaming tile,
-    the in-kernel-Gram median, custom_grads, and the step tails 'fused',
-    'fused_glm', 'fused_model', 'epilogue'): each constructs and steps."""
+    the in-kernel-Gram median, custom_grads, the step tails 'fused',
+    'fused_glm', 'fused_model', 'epilogue', the tile's bf16 operands) or
+    were refused (the JAX keywords donate=, pallas_interpret=): each
+    constructs and steps."""
     X, y, _ = _problem()
     if kw.get("custom_grads") == "lr":
         kw = dict(custom_grads=_lr_grads())
@@ -303,7 +307,8 @@ def mesh1():
 
 @pytest.mark.parametrize("kw", [
     lambda mesh: _sampler(mesh=mesh, model_axis="model"),
-    dict(median="bisect", kernel_impl="pallas", pallas_precision="bf16"),
+    dict(binned_bins=1024),
+    dict(binned_block_rows=128),
     lambda mesh: st.throughput_config(48, 6, probe_batch={}),
     lambda mesh: st.throughput_config(48, 6, mesh=mesh, model_axis="model"),
     dict(median="subsample"),
@@ -312,7 +317,7 @@ def mesh1():
     dict(remat=True),
 ])
 def test_unported_options_raise(kw, mesh1):
-    """Options not ported yet; the 2-D mesh (model_axis=) names A12."""
+    """Options not ported yet; the 2-D mesh (model_axis=) names A7."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         kw(mesh1) if callable(kw) else _sampler(**kw)
 
