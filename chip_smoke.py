@@ -71,6 +71,11 @@ results, and times the steps and the kernels. Phases:
               split of each fused path, of both loops and of the mesh
               paths (with the collectives' share)
 
+With --split it stops after the build and prints only [split]: the device
+time of the median kernel's Gram stage apart from its search at each
+path's shape, of B2 cold, B10 and B1's and B12's chains (to compare two
+trees in one call, run each tree's copy of this script).
+
 Every phase prints its lines; a failed check raises and the script exits
 non-zero. The line before the last is the kernel table as JSON (each
 kernel's launches on the paths, max abs error against its plain version,
@@ -289,14 +294,15 @@ def compare_with_cpu(make, batch, steps, label, lr, eps_regime=None):
                 lr, eps_regime)
 
 
-def b2_case(label, D, fused_median, zero):
+def b2_case(label, D, fused_median, zero, brackets=None):
     """B2 bitwise against its plain version on the block D, cold (30
-    passes) and warm (8 passes, hint 1.01 x the cold median). Returns the
-    plain cold median."""
-    cold_k = fused_median.fused_warm_median_rows(D, zero, 30)
-    cold_p = fused_median.warm_search_on_value(D, zero, 30)
-    warm_k = fused_median.fused_warm_median_rows(D, cold_p * 1.01, 8)
-    warm_p = fused_median.warm_search_on_value(D, cold_p * 1.01, 8)
+    passes) and warm (8 passes, hint 1.01 x the cold median), with the
+    default brackets or the given ones. Returns the plain cold median."""
+    br = {} if brackets is None else {"brackets": brackets}
+    cold_k = fused_median.fused_warm_median_rows(D, zero, 30, **br)
+    cold_p = fused_median.warm_search_on_value(D, zero, 30, **br)
+    warm_k = fused_median.fused_warm_median_rows(D, cold_p * 1.01, 8, **br)
+    warm_p = fused_median.warm_search_on_value(D, cold_p * 1.01, 8, **br)
     log(f"[kernels] B2 {label} {list(D.shape)}: cold {cold_k.item()!r} vs "
         f"{cold_p.item()!r}, warm {warm_k.item()!r} vs {warm_p.item()!r}")
     if cold_k.item() != cold_p.item() or warm_k.item() != warm_p.item():
@@ -781,26 +787,121 @@ def bound(nbytes, ops, tf32_ops=0, bf16_ops=0):
 
 
 def device_us(fn, reps, torch):
-    """µs of device time per call of fn(): torch.profiler's CUDA kernels
-    (self time, every kernel the call launches) over reps calls after a
-    warm-up, or None when the profiler captures no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """µs of device time per call of fn(), or None where this run cannot
+    read it. The calls are queued behind a spin kernel (torch.cuda._sleep)
+    and timed by CUDA events around them, so the card runs them back to
+    back, its own gaps between launches included and the host's excluded.
+    A reading counts only if the host queued every call before the spin
+    ended (the start event still pending); else fewer calls are tried
+    (a full launch queue also blocks the host), then None."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    for calls in dict.fromkeys((reps, max(1, reps // 10), 1)):
+        t0 = time.perf_counter()
+        for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
-    for e in prof.key_averages():
-        t = (getattr(e, "self_device_time_total", None)
-             or getattr(e, "self_cuda_time_total", 0) or 0)
-        if getattr(e, "device_type", None) == DeviceType.CUDA:
-            total += t
-    return total / reps if total > 0 else None
+        # Twice the calls' wall time at up to 2 GHz: the spin outlasts the
+        # host's queueing of the same calls.
+        cycles = int(4e9 * (time.perf_counter() - t0)) + 10 ** 6
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) * 1e3 / calls
+    return None
+
+
+def redesign_split(dev, torch, gpu, reps=50):
+    """[split]: device µs (device_us) of the kernels this slice
+    redesigned, at each path's shape. The median kernel's Gram stage apart
+    from its search: on the same block and hint (warm, 8 passes), the
+    kernel with its Gram stage (stein_warm_from_theta, the centre given)
+    against the search alone (stein_warm_median on the plain version's D),
+    beside the Gram's library yardstick (one torch.addmm of the centred
+    operands into the norm sum, TF32 off); B2 cold (30 passes) alone; B10
+    (u given) at n=1000, p=128 and 303; B1's fused_gram chain and B12's
+    (n=1000, p=303). Returns {label: µs or a tuple of them}."""
+    from stein_tpu_torch.ops import fused_median, fused_step, svgd_tile
+    from stein_tpu_torch.ops.median import subsample_rows
+
+    f32 = torch.float32
+    zero = torch.zeros((), dtype=f32, device=dev)
+    theta_lr = torch.tensor(make_data()[2], dtype=f32, device=dev)
+    theta_nn = torch.tensor(nn_data(NN_N)[2], dtype=f32, device=dev)
+    out = {}
+    for label, th, m in (("B1", theta_lr, MEDIAN_ROWS),
+                         ("glm", theta_lr, 128), ("B5", theta_nn, 128),
+                         ("B12", theta_nn, NN_N)):
+        rows = subsample_rows(th, m)
+        rows = th if rows is None else rows
+        c = svgd_tile.column_center(th)
+        D = fused_median.dist_block_plain(rows, th, c)
+        hint = fused_median.warm_search_on_value(D, zero, 30) * 1.01
+        rc, cc = rows - c, th - c
+        rsq = ((rc * rc).sum(1, keepdim=True) + (cc * cc).sum(1)[None, :])
+
+        def both(rows=rows, th=th, c=c, hint=hint):
+            return fused_median.fused_warm_median_from_theta(rows, th, hint,
+                                                             c, 8)
+
+        def search(D=D, hint=hint):
+            return fused_median.fused_warm_median_rows(D, hint, 8)
+
+        dv = (device_us(both, reps, torch), device_us(search, reps, torch),
+              device_us(lambda rsq=rsq, rc=rc, cc=cc: torch.addmm(
+                  rsq, rc, cc.T, alpha=-2.0), reps, torch))
+        out[label] = dv
+        gram = None if None in dv[:2] else dv[0] - dv[1]
+        log(f"[split] {gpu}: median_kernel [{rows.shape[0]}, {th.shape[0]}] "
+            f"p={th.shape[1]} ({label}'s shape), warm 8 passes: Gram + search "
+            f"{dv[0]} us, search alone {dv[1]} us, so the Gram stage {gram} "
+            f"us; the Gram's torch.addmm {dv[2]} us (device)")
+    D = fused_median.dist_block_plain(
+        subsample_rows(theta_lr, MEDIAN_ROWS), theta_lr,
+        svgd_tile.column_center(theta_lr))
+    out["B2 cold"] = device_us(
+        lambda: fused_median.fused_warm_median_rows(D, zero, 30), reps, torch)
+    rng = np.random.default_rng(9)
+    for label, th in (("B10 p=128", theta_lr), ("B10 p=303", theta_nn)):
+        D = fused_median.dist_block_plain(th, th, svgd_tile.column_center(th))
+        h2 = fused_median.warm_search_on_value(D, zero, 30) / np.log(N)
+        u = torch.tensor(rng.normal(size=tuple(th.shape)), dtype=f32,
+                         device=dev) - th / h2
+        out[label] = device_us(
+            lambda D=D, u=u, h2=h2: svgd_tile.svgd_both_ksum_on_D(D, u, h2),
+            reps, torch)
+    for label, th, rows in (("B1 chain", theta_lr, MEDIAN_ROWS),
+                            ("B12 chain", theta_nn, None)):
+        n, p = th.shape
+        g = torch.tensor(rng.normal(size=(n, p)), dtype=f32, device=dev)
+        gd, state = opt_state(n, p, "adam", 1.0, dev, torch)
+        med = fused_median.warm_search_on_value(
+            fused_median.dist_block_plain(th, th, th.mean(0)), zero, 30)
+        if rows is None:
+            def step(th=th, g=g, med=med, state=state, gd=gd):
+                return fused_step.fused_warm_step_pblock(th, g, med, state,
+                                                         gd)
+        else:
+            sub = subsample_rows(th, rows)
+
+            def step(th=th, g=g, med=med, state=state, gd=gd, sub=sub):
+                return fused_step.fused_warm_step_tail(
+                    th, g, None, None, med, state, gd, gram_in_kernel=True,
+                    theta_sub=sub)
+        out[label] = device_us(step, reps, torch)
+    log(f"[split] {gpu}: device us: B2 cold (30 passes, [{MEDIAN_ROWS}, {N}]) "
+        f"{out['B2 cold']}; B10 ([{N}, {N}] x [{N}, 128] / x [{N}, {NN_P}], "
+        f"u given) {out['B10 p=128']} / {out['B10 p=303']}; B1's fused_gram "
+        f"chain (n={N}, p={P}, m={MEDIAN_ROWS}) {out['B1 chain']}; B12's "
+        f"chain (n={NN_N}, p={NN_P}) {out['B12 chain']}")
+    return out
 
 
 def logreg_data(seed=7):
@@ -853,6 +954,7 @@ def check_tail_kernels(dev, torch, theta, g0, batch, lg_theta, lg_batch):
     """The glm and logistic stages, B10, B6 and B1's model and D-given
     chains against their plain versions on the card, on lattice particles
     and on the paths' own inputs. Returns (errors, inputs for timing)."""
+    from stein_tpu_torch import _cuda
     from stein_tpu_torch.models import (
         LinearRegressionModel,
         LogisticRegressionModel,
@@ -929,6 +1031,32 @@ def check_tail_kernels(dev, torch, theta, g0, batch, lg_theta, lg_batch):
             fail(f"B10 {label} disagrees with its plain version or itself")
         errs.setdefault("B10", max((ku - ku0).abs().max().item(),
                                    (ks - ks0).abs().max().item()))
+    # B10 at B12's shape as B12's chain runs it: u = g - (theta - c) / h^2
+    # formed in the kernel about the centre, on the centred D of the NN
+    # path's particles; the same bounds. At n=1000 the grid must cover the
+    # 132 SMs at p = 128 and 303.
+    th_nn = torch.tensor(nn_data(NN_N)[2], dtype=f32, device=dev)
+    c_nn = svgd_tile.column_center(th_nn)
+    D_nn = fused_median.dist_block_plain(th_nn, th_nn, c_nn)
+    h2_nn = fused_median.warm_search_on_value(D_nn, zero, 30) / np.log(NN_N)
+    args = (D_nn, torch.tensor(rng.normal(size=(NN_N, NN_P)), dtype=f32,
+                               device=dev), th_nn, c_nn, h2_nn)
+    ku, ks = svgd_tile.svgd_both_ksum_on_D_about(*args)
+    ku2, ks2 = svgd_tile.svgd_both_ksum_on_D_about(*args)
+    ku0, ks0 = svgd_tile.svgd_both_ksum_on_D_about_plain(*args)
+    torch.cuda.synchronize()
+    err = max(norm_err(ku, ku0), norm_err(ks, ks0))
+    same = torch.equal(ku, ku2) and torch.equal(ks, ks2)
+    lib = _cuda.library().lib
+    grid = {p_: lib.stein_on_d_blocks(N, N, p_) for p_ in (P, NN_P)}
+    log(f"[kernels] B10 [{NN_N}, {NN_N}] x [{NN_N}, {NN_P}], u formed about "
+        f"the centre (B12's form): normalised error {err:.3e} (bound 1e-05), "
+        f"repeat bitwise {same}; grid blocks at n={N} by p {grid}")
+    if err > 1e-5 or not same:
+        fail("B10 (u formed about the centre) disagrees with its plain "
+             "version or itself")
+    if min(grid.values()) < 132:
+        fail(f"B10's grid does not cover the 132 SMs: {grid}")
 
     # B6 at [10240, 128], Adam and Adagrad, the clip active: rtol 2e-6 /
     # atol 1e-7 (the JAX suite's epilogue bound).
@@ -1861,6 +1989,9 @@ def main():
     for line in lib.build_log.splitlines():
         if any(w in line for w in ("registers", "Compiling entry", "spill")):
             log(f"[build] {line.strip()}")
+    if "--split" in sys.argv[1:]:
+        redesign_split(dev, torch, gpu)
+        return 0
 
     # --------------------------------------------------------- 3. kernels
     X, y, theta0 = make_data()
@@ -1874,6 +2005,11 @@ def main():
     D_sub = row_subsample_block(theta, MEDIAN_ROWS)
     zero = torch.zeros((), dtype=f32, device=dev)
     cold_p = b2_case("main path", D_sub, fused_median, zero)
+    # The kernel's limit of 8 brackets: 16 counts in the first sweep, then
+    # 15 (two rounds) a sweep; 30 cold passes are 15 rounds, the last alone.
+    b2_case("main path, 8 brackets", D_sub, fused_median, zero,
+            tuple((1.0 - 0.1 * (i + 1), 1.0 + 0.15 * (i + 1))
+                  for i in range(8)))
     b2_err = 0.0   # bitwise, or b2_case failed
 
     def tail_inputs(theta_in, rule, phi_sq):
@@ -2207,8 +2343,8 @@ def main():
         lambda: model_grad.glm_grads(th_g, A_g, b_g), 50, torch)
     glm_lib = cuda_ms(lambda: torch.addmm(b_g, th_g, A_g, alpha=-1), 50,
                       torch)
-    # The glm stage's row holds device times (torch.profiler, one call):
-    # the events above are mostly the host's dispatch at this size.
+    # The glm stage's row holds device times (device_us): the events above
+    # are mostly the host's dispatch at this size.
     glm_dev = {name: device_us(fn, 50, torch) for name, fn in (
         ("kernel", lambda: model_grad.glm_grads(th_g, A_g, b_g)),
         ("plain", lambda: model_grad.glm_grads_plain(th_g, A_g, b_g)),
@@ -2216,10 +2352,12 @@ def main():
     log(f"[timing] {gpu}: glm stage (n={N}, p={P}) device us: kernel "
         f"{glm_dev['kernel']}, plain {glm_dev['plain']}, torch.addmm "
         f"{glm_dev['addmm']}")
+    glm_by = "events"
     if None not in glm_dev.values():
         glm_ms, glm_plain, glm_lib = (glm_dev["kernel"] / 1e3,
                                       glm_dev["plain"] / 1e3,
                                       glm_dev["addmm"] / 1e3)
+        glm_by = "device"
     lfn, l_args = tail_in["logistic_fn"], tail_in["logistic"]
     logi_ms, logi_plain = in_turns(lambda: lfn.plain(*l_args),
                                    lambda: lfn(*l_args), 50, torch)
@@ -2308,6 +2446,46 @@ def main():
         f"vs plain {b11_plain * 1e3:.2f} us; B12 (n={NN_N}, p={NN_P}, Adam) "
         f"{b12_ms * 1e3:.2f} us vs plain {b12_plain * 1e3:.2f} us")
 
+    # The kernels this slice redesigned by device time (device_us),
+    # kernel and plain, which their rows hold (their events above include
+    # the wrapper's host work, ~30-250 us): the median kernel's split, then
+    # each row's call.
+    split = redesign_split(dev, torch, gpu)
+    gd_t, st_t = tail_inputs(theta, "adam", 1e-4)
+    sub_t = subsample_rows(theta, MEDIAN_ROWS)
+    dev_t = {key: (device_us(kern, 20, torch), device_us(plain, 20, torch))
+             for key, kern, plain in (
+        ("B1", lambda: fused_step.fused_warm_step_tail(
+            theta, g0, None, None, cold_p, st_t, gd_t, gram_in_kernel=True,
+            theta_sub=sub_t),
+         lambda: fused_step._plain_tail(theta, g0, sub_t, cold_p, st_t, gd_t,
+                                        10.0, 8, fused_step.DEFAULT_BRACKETS)),
+        ("B2", lambda: fused_median.fused_warm_median_rows(D_sub, zero, 30),
+         lambda: fused_median.warm_search_on_value(D_sub, zero, 30)),
+        ("B5", lambda: fused_median.fused_warm_median_from_theta(
+            rows_nn, nn_theta, med_nn * 1.01, c_nn, 8),
+         lambda: fused_median.warm_search_on_value(
+            fused_median.dist_block_plain(rows_nn, nn_theta, c_nn),
+            med_nn * 1.01, 8)),
+        ("B10", lambda: svgd_tile.svgd_both_ksum_on_D(D10, u10, h2_10),
+         lambda: svgd_tile.svgd_both_ksum_on_D_plain(D10, u10, h2_10)),
+        ("B12", lambda: fused_step.fused_warm_step_pblock(*b12_args),
+         lambda: fused_step._plain_tail(
+             b12_args[0], b12_args[1], None, b12_args[2], b12_args[3],
+             b12_args[4], 10.0, 8, fused_step.DEFAULT_BRACKETS)))}
+    log(f"[timing] {gpu}: device us, kernel vs plain: " + "; ".join(
+        f"{k} {v[0]} vs {v[1]}" for k, v in dev_t.items()))
+    # Each row's ms and plain_ms, and what measured them (ms_by): device
+    # time where device_us could read both, else events.
+    row_ms = {"B1": (b1_ms, b1_plain), "B2": (b2_ms, b2_plain),
+              "B5": (b5_ms, b5_plain), "B10": (b10_ms, b10_plain),
+              "B12": (b12_ms, b12_plain)}
+    row_ms = {k: (*v, "events") for k, v in row_ms.items()}
+    for key, (k_us, p_us) in dev_t.items():
+        if k_us is not None and p_us is not None:
+            row_ms[key] = (k_us / 1e3, p_us / 1e3, "device")
+    gram_lib = split["B5"][2]
+
     # The mesh paths (plain, kernel, kernel, plain), B8 and B9.
     for label, (s_, b_) in mesh_timed.items():
         def plain(k, s_=s_, b_=b_):
@@ -2365,33 +2543,36 @@ def main():
     total = {k: sum(c[k] for c in path_counts.values()) for k in counters}
 
     def row(name, key, source, replaces, err, ms, plain_ms, nbytes, ops,
-            library_ms=None, tf32_ops=0, bf16_ops=0):
+            library_ms=None, tf32_ops=0, bf16_ops=0, ms_by="events"):
         bound_ms, bound_by = bound(nbytes, ops, tf32_ops, bf16_ops)
         return {"name": f"{name} ({key})", "route": "cuda",
                 "source": f"stein_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": total[key],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by,
+                "ms_by": ms_by, "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": library_ms}
 
     # Bytes: each input read once, each output written once (f32); ops:
     # the products (2 per multiply-add), exponentials and search compares
-    # that this run's shapes need. m = median rows; search sweeps count
-    # 2 (range) + 2 per bracket + 3 per quad-ary round compares per entry.
+    # that this run's shapes need. m = median rows; the search needs, per
+    # entry, 2 compares (range) + 2 per bracket (warm; a cold search has no
+    # hint to bracket) + 3 per quad-ary round, the same whether the kernel
+    # counts two rounds a sweep or one (the fold's 12 extra counts a sweep
+    # are its own choice). The median kernel's Gram, B10's contraction and
+    # the tile's two products run 3xTF32 on the tensor cores: three TF32
+    # products each.
     n, p, m = N, P, MEDIAN_ROWS
     sweeps_warm, sweeps_cold = 2 + 6 + 3 * 4, 2 + 3 * 15
     nn_n, nn_p, r5 = NN_N, NN_P, 128
     kernels = [
-        # B1: the median block's Gram (f32, CUDA cores), the tile's two
-        # products as 3xTF32 on the tensor cores, exponentials and search.
         row("fused_step_tail", "B1", "stein_kernels.cu",
-            "stein_tpu/ops/pallas_step.py:92", b1_err, b1_ms, b1_plain,
-            4 * (7 * n * p + m * p),
-            2 * m * n * p + n * n + sweeps_warm * m * n,
-            tf32_ops=3 * 4 * n * n * p),
+            "stein_tpu/ops/pallas_step.py:92", b1_err, *row_ms["B1"][:2],
+            4 * (7 * n * p + m * p), n * n + sweeps_warm * m * n,
+            tf32_ops=3 * (2 * m * n * p + 4 * n * n * p),
+            ms_by=row_ms["B1"][2]),
         row("warm_median", "B2", "warm_search.cuh",
-            "stein_tpu/ops/pallas_median.py:85", b2_err, b2_ms, b2_plain,
-            4 * m * n, sweeps_cold * m * n, b2_lib),
+            "stein_tpu/ops/pallas_median.py:85", b2_err, *row_ms["B2"][:2],
+            4 * m * n, sweeps_cold * m * n, b2_lib, ms_by=row_ms["B2"][2]),
         # B3: 4 n^2 p FLOP on the tensor cores, three TF32 products each
         # (3xTF32) or one bf16, and n^2 exponentials; bytes: the timed
         # svgd_phi(theta, g) reads theta (rows and columns alike) and g once
@@ -2409,10 +2590,14 @@ def main():
             "stein_tpu/ops/pallas_median.py:271", errs["B4"], b4_ms,
             b4_plain, 4 * (r5 * nn_p + NN_LARGE * nn_p + r5 * NN_LARGE),
             2 * r5 * NN_LARGE * nn_p),
+        # B5's yardstick: the Gram stage's one torch.addmm (the centred
+        # operands into the norm sum); no library call does the search.
         row("warm_median_from_theta", "B5", "stein_kernels.cu",
-            "stein_tpu/ops/pallas_median.py:317", errs["B5"], b5_ms,
-            b5_plain, 4 * (r5 * nn_p + nn_n * nn_p + nn_p),
-            2 * r5 * nn_n * nn_p + sweeps_warm * r5 * nn_n),
+            "stein_tpu/ops/pallas_median.py:317", errs["B5"],
+            *row_ms["B5"][:2],
+            4 * (r5 * nn_p + nn_n * nn_p + nn_p), sweeps_warm * r5 * nn_n,
+            None if gram_lib is None else gram_lib / 1e3,
+            tf32_ops=3 * 2 * r5 * nn_n * nn_p, ms_by=row_ms["B5"][2]),
         row("epilogue", "B6", "stein_kernels.cu",
             "stein_tpu/ops/pallas_step.py:241", tail_errs["B6"], b6_ms,
             b6_plain, 4 * (7 * LARGE_N * P + LARGE_N + P),
@@ -2422,12 +2607,13 @@ def main():
             b7_plain, 4 * (2 * nn_n * nn_p + nn_n + 40),
             20 * 100 * nn_n * 14),
         row("svgd_on_d", "B10", "svgd_on_d.cu",
-            "stein_tpu/ops/pallas_svgd.py:217", tail_errs["B10"], b10_ms,
-            b10_plain, 4 * (n * n + 2 * n * p + n), 2 * n * n * p + 3 * n * n),
+            "stein_tpu/ops/pallas_svgd.py:217", tail_errs["B10"],
+            *row_ms["B10"][:2], 4 * (n * n + 2 * n * p + n), 3 * n * n,
+            tf32_ops=3 * 2 * n * n * p, ms_by=row_ms["B10"][2]),
         row("glm_grad, B1's model stage", "glm", "model_grad.cu",
             "stein_tpu/ops/pallas_step.py:78", tail_errs["glm"], glm_ms,
             glm_plain, 4 * (2 * n * p + p * p + p + n),
-            2 * n * p * p + 4 * n * p, glm_lib),
+            2 * n * p * p + 4 * n * p, glm_lib, ms_by=glm_by),
         row("logistic_grad, B1's model stage", "logistic", "model_grad.cu",
             "stein_tpu/models/logistic_regression.py:120",
             tail_errs["logistic"], logi_ms, logi_plain,
@@ -2456,14 +2642,15 @@ def main():
             "stein_tpu/ops/pallas_svgd.py:289", entry_errs["B11"], b11_ms,
             b11_plain, 4 * 3 * SYM_N * SYM_P,
             3 * SYM_N * SYM_N * SYM_P + SYM_N * SYM_N // 2),
-        # B12: the full [n, n] Gram (2 n^2 p) and K @ u (2 n^2 p), the
-        # exponentials and the warm search's compares over all n^2 entries;
-        # bytes: theta, grads and Adam's two moments in, theta and the
-        # moments out.
+        # B12: the full [n, n] Gram (2 n^2 p) and K @ u (2 n^2 p) on the
+        # tensor cores, the exponentials and the warm search's compares
+        # over all n^2 entries; bytes: theta, grads and Adam's two moments
+        # in, theta and the moments out.
         row("fused_warm_step_pblock", "B12", "stein_kernels.cu",
-            "stein_tpu/ops/pallas_step.py:619", entry_errs["B12"], b12_ms,
-            b12_plain, 4 * 7 * nn_n * nn_p,
-            4 * nn_n * nn_n * nn_p + nn_n ** 2 + sweeps_warm * nn_n ** 2),
+            "stein_tpu/ops/pallas_step.py:619", entry_errs["B12"],
+            *row_ms["B12"][:2], 4 * 7 * nn_n * nn_p,
+            nn_n ** 2 + sweeps_warm * nn_n ** 2,
+            tf32_ops=3 * 4 * nn_n * nn_n * nn_p, ms_by=row_ms["B12"][2]),
     ]
     log(f"[result] launches by path {path_counts}")
     log(f"[result] nn_step_us={nn_step_us!r} nn_plain_step_us="

@@ -32,6 +32,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "stein_median_blocks": ((_I, ctypes.POINTER(_I)), _I),
     "stein_reduce_blocks": ((_I, _I), _I),
+    "stein_gram_prep_floats": ((_I, _I, _I), _I),
     "stein_warm_median": (
         (_P, _I, _P, _I, _I, _P, _P, _I, _F,   # D .. log_n
          _P, _P, _P, _P),                      # out, scratch, stream
@@ -39,7 +40,7 @@ _SIGNATURES = {
     "stein_warm_from_theta": (
         (_P, _P, _P, _I, _I, _I,            # rows, cols, center, m, n, p
          _P, _I, _I, _P, _P, _I, _F,        # med_prev .. log_n
-         _P, _P, _P, _P, _P),               # out, scratch, stream
+         _P, _P, _P, _P, _P, _P),           # out, scratch, prep, stream
         _I),
     "stein_dist_block": ((_P, _P, _P, _I, _I, _I, _P, _P), _I),
     "stein_bracket_blocks": ((_I, _I), _I),
@@ -80,9 +81,11 @@ _SIGNATURES = {
          _P, _P, _P, _P, _P, _P),           # outputs, stream
         _I),
     "stein_on_d_splits": ((_I, _I, _I), _I),
+    "stein_on_d_blocks": ((_I, _I, _I), _I),
     "stein_svgd_on_d": (
-        (_P, _P, _P, _I, _I, _I, _I,        # D, u, h2, m, n, p, splits
-         _P, _P, _P, _P, _P),               # scratch, ku, ksum, stream
+        (_P, _P, _P, _P, _P, _P,            # D, u, grads, cols, center, h2
+         _I, _I, _I, _I,                    # m, n, p, splits
+         _P, _P, _P, _P, _P, _P),           # scratch, u_buf, ku, ksum, stream
         _I),
     "stein_sym_tiles": ((_I,), _I),
     "stein_sym_band": ((_I, _I, _I), _I),

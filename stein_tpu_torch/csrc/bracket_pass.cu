@@ -15,9 +15,11 @@
 // rounds over D stay outside the kernel, as on the TPU.
 //
 // Two launches on the caller's stream. bracket_tile_kernel: one 512-thread
-// block per 16 x 32 tile of D, built by gram_tile (gram_tile.cuh, the tile
-// of B4 and B5, so all of them build bitwise the same D for the same rows,
-// columns and centre); each thread then holds one entry, and every
+// block per 16 x 32 tile of D, built by gram_tile (gram_tile.cuh, B4's
+// tile too, so both build bitwise the same D for the same rows, columns and
+// centre; the median kernel's tensor-core Gram stage, B1's, B5's and B12's,
+// agrees with it bitwise where D is exact and to the f32 class elsewhere);
+// each thread then holds one entry, and every
 // threshold's count is a warp ballot's popcount added into a shared-memory
 // counter; min and max are warp then block reductions. The block's counts
 // and range go to its slot of device-memory scratch. bracket_reduce_kernel:

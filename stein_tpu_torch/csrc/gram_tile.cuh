@@ -1,10 +1,12 @@
 // One tile of the centred squared-distance block
 //   D[r, j] = |rows_r - c|^2 + |cols_j - c|^2 - 2 (rows_r - c).(cols_j - c)
 // by an f32 dot on the CUDA cores, for a 16 x 32 tile (16 warps: warp =
-// row, lane = column). Shared by the Gram stage of median_kernel (B1's and
-// B5's), by dist_block_kernel (B4) and by bracket_tile_kernel (B8, B9), so
-// that every kernel that builds the block builds bitwise the same D. p is
-// walked in chunks of kGramChunk
+// row, lane = column). Shared by dist_block_kernel (B4) and by
+// bracket_tile_kernel (B8, B9), so that those build bitwise the same D;
+// B8/B9's counting relies on its one entry per thread. The median kernel's
+// Gram stage (B1's, B5's, B12's) runs the tensor cores instead
+// (stein_kernels.cu): the same D where it is exact, the f32 class
+// elsewhere. p is walked in chunks of kGramChunk
 // columns through shared memory, so any p fits; the chunk is a multiple of
 // 32 and of 4, which keeps every sum in the order of one pass over p (each
 // lane's squared norms over k = lane, lane + 32, ...; the dot in groups of

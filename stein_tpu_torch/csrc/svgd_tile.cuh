@@ -56,6 +56,7 @@ struct OnDArgs {
   int splits;           // on_d_splits(m, n, p)
   float* part_ku;       // [splits, m, p] scratch
   float* part_ksum;     // [splits, m] scratch
+  float* u_buf;         // [n, p] scratch where u is formed (u null)
 };
 
 int on_d_splits(int m, int n, int p);

@@ -12,10 +12,19 @@
 // twice). Every block reduces the same per-block partials with the same
 // code, so every block holds the same interval without a second barrier.
 //
-// Bound on the H100: 1 + rounds sweeps of the block (1 MB at m=256, n=1000,
-// resident in the 50 MB L2), each a few loads per thread across the whole
-// grid, then one grid barrier; the barriers and the dependent scalar chain
-// between them, not bandwidth, set the time.
+// Bound on the H100: the sweeps over the block (1 MB at m=256, n=1000, 4
+// MB for B12's whole n=1000 D, resident in the 50 MB L2), one for the
+// range and the bracket counts and one per quad-ary round. Each sweep is a few loads per thread across the whole grid,
+// then one grid barrier and the grid-wide totals; the barriers and the
+// dependent chain between them, not bandwidth, set the time (~6 us a
+// sweep). So the design cuts sweeps and shortens the chain: each sweep
+// after the first counts two quad-ary rounds at once (round r's 3
+// thresholds and the 3 of round r+1 in each of r's 4 possible
+// sub-intervals: 15 counts), so warm_passes=8 takes 3 sweeps (was 5) and
+// 30 cold passes 9 (was 16); after the barrier one warp per count sums the
+// blocks' slots, in parallel, where one warp walked the counts in turn.
+// The candidates' thresholds are the sequential search's own expression
+// tree on the same inputs, so the selected interval is the same bits.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -47,10 +56,11 @@ struct SweepShared {
   float thresholds[kMaxCounts];
 };
 
-// Per-sweep partials in device memory, one slot per block.
+// Per-sweep partials in device memory, one slot per block, count-major so
+// that one warp reads a count's slots in one coalesced pass.
 struct SweepScratch {
-  int* counts;    // [sweeps][gridDim.x][kMaxCounts]
-  float* range;   // [gridDim.x][2]
+  int* counts;    // [sweeps][kMaxCounts][gridDim.x]
+  float* range;   // [2][gridDim.x]
 };
 
 template <int NC>
@@ -106,7 +116,7 @@ __device__ void sweep_block(const float* D, int total, int nc,
   }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int i = 0; i < NC; ++i) c[i] = warp_sum_int(c[i]);
+  for (int i = 0; i < NC; ++i) c[i] = __reduce_add_sync(0xffffffffu, c[i]);
   if (RANGE) {
     mn = warp_min(mn);
     mx = warp_max(mx);
@@ -120,11 +130,10 @@ __device__ void sweep_block(const float* D, int total, int nc,
   __syncthreads();
   if (warp == 0) {
     const int n_warps = blockDim.x >> 5;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      int v = lane < n_warps ? sh.warp_counts[lane][i] : 0;
-      v = warp_sum_int(v);
-      if (lane == 0 && i < nc) slot[blockIdx.x * kMaxCounts + i] = v;
+    if (lane < nc) {
+      int v = 0;
+      for (int w = 0; w < n_warps; ++w) v += sh.warp_counts[w][lane];
+      slot[lane * gridDim.x + blockIdx.x] = v;
     }
     if (RANGE) {
       float a = lane < n_warps ? sh.warp_min[lane] : CUDART_INF_F;
@@ -132,8 +141,8 @@ __device__ void sweep_block(const float* D, int total, int nc,
       a = warp_min(a);
       b = warp_max(b);
       if (lane == 0) {
-        range[2 * blockIdx.x] = a;
-        range[2 * blockIdx.x + 1] = b;
+        range[blockIdx.x] = a;
+        range[gridDim.x + blockIdx.x] = b;
       }
     }
   }
@@ -141,24 +150,26 @@ __device__ void sweep_block(const float* D, int total, int nc,
 
 // After the grid barrier: the grid-wide totals of a sweep's slot (and
 // range), identical in every block, into sh.counts / sh.lo_full /
-// sh.hi_full. Ends with a block barrier.
+// sh.hi_full. Warp w takes items w, w + warps, ... of the nc counts and
+// (item nc) the range, each in one coalesced pass over the blocks' slots.
+// Ends with a block barrier.
 template <bool RANGE>
 __device__ void sweep_totals(int nc, SweepShared& sh, const int* slot,
                              const float* range) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (warp == 0) {
-    for (int i = 0; i < nc; ++i) {
+  const int n_warps = blockDim.x >> 5, blocks = gridDim.x;
+  for (int i = warp; i < nc + (RANGE ? 1 : 0); i += n_warps) {
+    if (i < nc) {
       int v = 0;
-      for (int b = lane; b < gridDim.x; b += 32)
-        v += __ldcg(slot + b * kMaxCounts + i);
-      v = warp_sum_int(v);
+      for (int b = lane; b < blocks; b += 32)
+        v += __ldcg(slot + i * blocks + b);
+      v = __reduce_add_sync(0xffffffffu, v);
       if (lane == 0) sh.counts[i] = v;
-    }
-    if (RANGE) {
+    } else {
       float a = CUDART_INF_F, b = -CUDART_INF_F;
-      for (int q = lane; q < gridDim.x; q += 32) {
-        a = fminf(a, __ldcg(range + 2 * q));
-        b = fmaxf(b, __ldcg(range + 2 * q + 1));
+      for (int q = lane; q < blocks; q += 32) {
+        a = fminf(a, __ldcg(range + q));
+        b = fmaxf(b, __ldcg(range + blocks + q));
       }
       a = warp_min(a);
       b = warp_max(b);
@@ -169,6 +180,22 @@ __device__ void sweep_totals(int nc, SweepShared& sh, const int* slot,
     }
   }
   __syncthreads();
+}
+
+// The thresholds of a quad-ary round on [lo, lo + 4 w): lo + w, lo + 2 w,
+// lo + 3 w, each rounded as XLA rounds the JAX expression.
+__device__ __forceinline__ void quad_thresholds(float lo, float w, float* t) {
+  t[0] = __fadd_rn(lo, w);
+  t[1] = __fadd_rn(lo, __fmul_rn(2.0f, w));
+  t[2] = __fadd_rn(lo, __fmul_rn(3.0f, w));
+}
+
+// b, the number of a round's three counts below rank k, as the JAX search
+// sums it (f32, left to right).
+__device__ __forceinline__ float below(const int* counts, int k) {
+  return __fadd_rn(__fadd_rn(counts[0] < k ? 1.0f : 0.0f,
+                             counts[1] < k ? 1.0f : 0.0f),
+                   counts[2] < k ? 1.0f : 0.0f);
 }
 
 // The whole search; every thread of every block of the cooperative grid
@@ -205,25 +232,42 @@ __device__ void grid_warm_search(const float* D, int total, float med_prev,
       }
     }
   }
-  for (int r = 0; r < rounds; ++r) {
+  // Two rounds a sweep (an odd last round alone): round r's thresholds,
+  // then for each b in 0..3 the thresholds round r + 1 would take after r
+  // moved lo by b w.
+  const int blocks = gridDim.x;
+  for (int r = 0, sweep = 1; r < rounds; r += 2, ++sweep) {
+    const bool two = r + 1 < rounds;
     if (threadIdx.x == 0) {
       w = __fmul_rn(0.25f, __fsub_rn(hi, lo));
-      sh.thresholds[0] = __fadd_rn(lo, w);
-      sh.thresholds[1] = __fadd_rn(lo, __fmul_rn(2.0f, w));
-      sh.thresholds[2] = __fadd_rn(lo, __fmul_rn(3.0f, w));
+      quad_thresholds(lo, w, sh.thresholds);
+      if (two) {
+        for (int b = 0; b < 4; ++b) {
+          const float lo_b = __fadd_rn(lo, __fmul_rn(static_cast<float>(b), w));
+          const float hi_b = __fadd_rn(lo_b, w);
+          quad_thresholds(lo_b, __fmul_rn(0.25f, __fsub_rn(hi_b, lo_b)),
+                          sh.thresholds + 3 + 3 * b);
+        }
+      }
     }
     __syncthreads();
-    int* slot = scratch.counts + (r + 1) * gridDim.x * kMaxCounts;
-    sweep_block<3, false>(D, total, 3, sh, slot, nullptr);
+    int* slot = scratch.counts + sweep * kMaxCounts * blocks;
+    if (two)
+      sweep_block<15, false>(D, total, 15, sh, slot, nullptr);
+    else
+      sweep_block<3, false>(D, total, 3, sh, slot, nullptr);
     grid.sync();
-    sweep_totals<false>(3, sh, slot, nullptr);
+    sweep_totals<false>(two ? 15 : 3, sh, slot, nullptr);
     if (threadIdx.x == 0) {
-      const float b = __fadd_rn(
-          __fadd_rn(sh.counts[0] < k ? 1.0f : 0.0f,
-                    sh.counts[1] < k ? 1.0f : 0.0f),
-          sh.counts[2] < k ? 1.0f : 0.0f);
+      const float b = below(sh.counts, k);
       lo = __fadd_rn(lo, __fmul_rn(b, w));
       hi = __fadd_rn(lo, w);
+      if (two) {
+        w = __fmul_rn(0.25f, __fsub_rn(hi, lo));
+        const float b2 = below(sh.counts + 3 + 3 * static_cast<int>(b), k);
+        lo = __fadd_rn(lo, __fmul_rn(b2, w));
+        hi = __fadd_rn(lo, w);
+      }
     }
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {

@@ -49,6 +49,7 @@ from .median import (
     QUAD_MIN_TOTAL,
     _warm_search,
     count_le,
+    select_bracket,
 )
 from .rbf import log_n
 
@@ -75,6 +76,53 @@ def warm_search_on_value(D, med_prev, warm_passes=8,
     """The plain version of the kernel's search (the JAX package's in-kernel
     helper of this name): ops.median._warm_search on the [m, n] block."""
     return _warm_search(D, med_prev, warm_passes, brackets)
+
+
+def warm_search_folded(D, med_prev, warm_passes=8,
+                       brackets=DEFAULT_BRACKETS):
+    """The CUDA search's own schedule in plain PyTorch, for the tests (no
+    path calls it): the first pass as ``_warm_search``'s, then the
+    quad-ary rounds two to a sweep. A sweep counts round r's three
+    thresholds and, for each b in 0..3, the three that round r + 1 would
+    take after round r moved lo by b w: 15 counts in one pass (an odd last
+    round alone). Then it selects b, and b' among the candidates of b. Each
+    candidate's thresholds are the sequential expression tree on the same
+    f32 inputs, so the result is bitwise ``_warm_search``'s on the same
+    block, in 1 + ceil(rounds / 2) passes over it instead of 1 + rounds."""
+    total = D.numel()
+    k = (total + 1) // 2
+    f32 = torch.float32
+    med_prev = torch.as_tensor(med_prev, dtype=f32, device=D.device)
+    ends = [(lo * med_prev, hi * med_prev) for lo, hi in brackets]
+    flat = count_le(D, torch.stack([t for pair in ends for t in pair]))
+    lo, hi = select_bracket(
+        med_prev, ends,
+        [(flat[2 * i], flat[2 * i + 1]) for i in range(len(brackets))], k,
+        torch.clamp(D.min(), max=0.0), D.max())
+
+    def quad(lo, w):
+        return [lo + w, lo + 2.0 * w, lo + 3.0 * w]
+
+    rounds = (warm_passes + 1) // 2
+    for r in range(0, rounds, 2):
+        two = r + 1 < rounds
+        w = 0.25 * (hi - lo)
+        ts = quad(lo, w)
+        if two:
+            for b in range(4):
+                lo_b = lo + float(b) * w
+                hi_b = lo_b + w
+                ts += quad(lo_b, 0.25 * (hi_b - lo_b))
+        c = count_le(D, torch.stack(ts))
+        b = (c[:3] < k).to(f32).sum()
+        lo = lo + b * w
+        hi = lo + w
+        if two:
+            w = 0.25 * (hi - lo)
+            b2 = (c[3:].reshape(4, 3)[b.long()] < k).to(f32).sum()
+            lo = lo + b2 * w
+            hi = lo + w
+    return 0.5 * (lo + hi)
 
 
 def _bracket_arrays(brackets):
@@ -232,12 +280,15 @@ def fused_warm_median_from_theta(rows, cols, med_prev, center,
     part_counts = torch.empty((1 + rounds) * blocks * 16, dtype=torch.int32,
                               device=dev)
     part_range = torch.empty(2 * blocks, dtype=torch.float32, device=dev)
+    lib = _cuda.library().lib
+    prep = torch.empty(lib.stein_gram_prep_floats(n, m, p),
+                       dtype=torch.float32, device=dev)
     lo, hi = _bracket_arrays(brackets)
-    err = _cuda.library().lib.stein_warm_from_theta(
+    err = lib.stein_warm_from_theta(
         rows.data_ptr(), cols.data_ptr(), center.data_ptr(), m, n, p,
         med.data_ptr(), (total + 1) // 2, rounds, _addr(lo), _addr(hi),
         len(brackets), log_n(n), out.data_ptr(), dsub.data_ptr(),
-        part_counts.data_ptr(), part_range.data_ptr(),
+        part_counts.data_ptr(), part_range.data_ptr(), prep.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda.check(err, "median_kernel (from theta) launch")

@@ -230,13 +230,15 @@ def _launch_tail(theta, grads, block, med, opt_state, gd, max_phi_norm,
     # One f32 scratch buffer, each piece 64-float aligned: dsub (the Gram
     # mode's block), center, per-block column sums, per-block ranges, the
     # column shares' K @ u and row sums, phi, ||phi||^2 partials, [med, h2];
-    # the tile's prep (Gram mode without d_once); the per-block counts are
-    # int32.
+    # one buffer for the median kernel's Gram prep (Gram mode), then the
+    # tile's prep (Gram mode without d_once) or B10's u; the per-block
+    # counts are int32.
     sizes = (m * n if gram else 0, p, blocks * p, 2 * blocks,
              splits * n * p, splits * n, n * p,
              lib.stein_reduce_blocks(n, p), 2,
-             lib.stein_tile_prep_floats(n, n, p) if gram and not d_once
-             else 0)
+             max(lib.stein_gram_prep_floats(n, m, p) if gram else 0,
+                 lib.stein_tile_prep_floats(n, n, p) if gram and not d_once
+                 else n * p))
     padded = [-(-s // 64) * 64 for s in sizes]
     scratch = torch.empty(sum(padded), dtype=torch.float32, device=dev)
     ptrs, off = [], scratch.data_ptr()

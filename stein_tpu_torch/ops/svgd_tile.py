@@ -194,34 +194,79 @@ def svgd_both_ksum_on_D(D_rows, u_cols, h2):
     ``pallas_svgd.py:_svgd_on_d_tile_kernel``; B1's D-given tail
     (step_impl='fused') runs the same tile, counted here too."""
     m, n = D_rows.shape
-    p = u_cols.shape[1]
-    for name, t, shape in (("D_rows", D_rows, (m, n)),
-                           ("u_cols", u_cols, (n, p))):
+    _check_on_d(D_rows, (("u_cols", u_cols, (n, u_cols.shape[1])),))
+    h2 = _scalar_on(h2, D_rows)
+    if D_rows.device.type == "cpu":
+        return svgd_both_ksum_on_D_plain(D_rows, u_cols, h2)
+    return _launch_on_d(D_rows, h2, u_cols.shape[1], u=u_cols)
+
+
+def svgd_both_ksum_on_D_about_plain(D_rows, grads, cols, center, h2):
+    """The plain version of B10's tile as B12's chain runs it: u = grads -
+    (cols - center) / h^2, K = exp2(D (-log2(e)/2 / h^2)) (the step tails'
+    exponent order)."""
+    K = torch.exp2(D_rows * (_LOG2E_HALF / h2))
+    u = grads - (cols - center) / h2
+    return torch.matmul(K, u), torch.sum(K, dim=1, keepdim=True)
+
+
+def svgd_both_ksum_on_D_about(D_rows, grads, cols, center, h2):
+    """B10's tile with u = grads - (cols - center) / h^2 formed on the card
+    (by its prep launch) about ``center`` ([p] or [1, p]), in the step
+    tails' exponent order: the form B12's chain launches on its own D,
+    exposed so that the card tests can hold it to its plain version.
+    Counted with B10."""
+    m, n = D_rows.shape
+    p = grads.shape[1]
+    center = center.reshape(1, p)
+    _check_on_d(D_rows, (("grads", grads, (n, p)), ("cols", cols, (n, p)),
+                         ("center", center, (1, p))))
+    h2 = _scalar_on(h2, D_rows)
+    if D_rows.device.type == "cpu":
+        return svgd_both_ksum_on_D_about_plain(D_rows, grads, cols, center,
+                                               h2)
+    return _launch_on_d(D_rows, h2, p, grads=grads, cols=cols,
+                        center=center)
+
+
+def _check_on_d(D_rows, operands):
+    for name, t, shape in (("D_rows", D_rows, tuple(D_rows.shape)),
+                           *operands):
         if t.dtype != torch.float32:
             raise TypeError(f"svgd tile on D is f32-only (got "
                             f"{name}={t.dtype})")
         if tuple(t.shape) != shape or t.device != D_rows.device:
             raise ValueError(f"svgd tile on D: {name} must be {shape} on "
                              f"{D_rows.device}, got {tuple(t.shape)}")
-    h2 = _scalar_on(h2, D_rows)
-    if D_rows.device.type == "cpu":
-        return svgd_both_ksum_on_D_plain(D_rows, u_cols, h2)
-    if D_rows.device.type != "cuda":
+    if D_rows.device.type not in ("cpu", "cuda"):
         raise ValueError(f"svgd tile on D: no kernel for {D_rows.device}")
+
+
+def _launch_on_d(D_rows, h2, p, u=None, grads=None, cols=None, center=None):
     from .. import _cuda
 
     lib = _cuda.library().lib
-    D_rows, u_cols = D_rows.contiguous(), u_cols.contiguous()
+    m, n = D_rows.shape
+    D_rows = D_rows.contiguous()
     dev = D_rows.device
+    u, grads, cols, center = (None if t is None else t.contiguous()
+                              for t in (u, grads, cols, center))
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
     splits = lib.stein_on_d_splits(m, n, p)
     part_ku = torch.empty(splits * m * p, dtype=torch.float32, device=dev)
     part_ksum = torch.empty(splits * m, dtype=torch.float32, device=dev)
+    u_buf = None if u is not None else torch.empty(n * p, dtype=torch.float32,
+                                                   device=dev)
     ku = torch.empty(m, p, dtype=torch.float32, device=dev)
     ksum = torch.empty(m, 1, dtype=torch.float32, device=dev)
     err = lib.stein_svgd_on_d(
-        D_rows.data_ptr(), u_cols.data_ptr(), h2.data_ptr(), m, n, p, splits,
-        part_ku.data_ptr(), part_ksum.data_ptr(), ku.data_ptr(),
-        ksum.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        D_rows.data_ptr(), ptr(u), ptr(grads), ptr(cols), ptr(center),
+        h2.data_ptr(), m, n, p, splits, part_ku.data_ptr(),
+        part_ksum.data_ptr(), ptr(u_buf), ku.data_ptr(), ksum.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     _cuda.check(err, "svgd_on_d_kernel launch")
     svgd_both_ksum_on_D.launches += 1
     return ku, ksum

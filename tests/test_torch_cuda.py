@@ -255,7 +255,27 @@ def test_b5_against_plain(dev, lattice):
             assert abs(got.item() - want.item()) <= width * 1.0001
 
 
-@pytest.mark.parametrize("n,B,f,H", [(1000, 20, 1, 100), (600, 12, 3, 50)])
+@pytest.mark.parametrize("p,fits", [(46000, True), (47000, False)])
+def test_b5_width_limit(dev, p, fits):
+    """The Gram stage's ring stage holds at least one k-step of 8 indices
+    beside the centre: at p = 46000 it runs (bitwise on lattice
+    particles); past that room the launch is refused, never searched on
+    an unwritten block."""
+    theta = _lattice(64, p, dev)
+    rows = theta[:32]
+    c = svgd_tile.column_center(theta)
+    zero = torch.zeros((), device=dev)
+    if not fits:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            fused_median.fused_warm_median_from_theta(rows, theta, zero, c, 30)
+        return
+    got = fused_median.fused_warm_median_from_theta(rows, theta, zero, c, 30)
+    want = fused_median.warm_search_on_value(
+        fused_median.dist_block_plain(rows, theta, c), zero, 30)
+    assert got.item() == want.item()
+
+
+@pytest.mark.parametrize("n,B,f,H",[(1000, 20, 1, 100), (600, 12, 3, 50)])
 def test_b7_against_plain(dev, n, B, f, H):
     """logp rtol 2e-5 / atol 1e-5, grads atol 2e-5 max|g| (the JAX suite's
     test_pallas_grads_match_autodiff)."""
@@ -359,7 +379,7 @@ def test_logistic_stage_against_plain(dev, n, d, N):
 
 
 @pytest.mark.parametrize("m,n,p", [(1000, 1000, 128), (333, 777, 50),
-                                   (200, 500, 300)])
+                                   (200, 500, 300), (1000, 1000, 303)])
 def test_b10_against_plain(dev, m, n, p):
     """ku and ksum <= 1e-5 normalised against the plain version (f32 sums
     in another order, exp2f), two calls bitwise equal."""
@@ -376,6 +396,54 @@ def test_b10_against_plain(dev, m, n, p):
     ku0, ks0 = svgd_tile.svgd_both_ksum_on_D_plain(D, u, h2)
     assert torch.equal(ku, ku2) and torch.equal(ks, ks2)
     assert _norm_err(ku, ku0) <= 1e-5 and _norm_err(ks, ks0) <= 1e-5
+
+
+@pytest.mark.parametrize("n,p", [(1000, 303), (1000, 128), (259, 40)])
+def test_b10_with_u_formed_about_a_centre(dev, n, p):
+    """B10's tile as B12's chain runs it (u = g - (theta - c) / h^2 formed
+    in the kernel, the step tails' exponent order) on the centred D: <=
+    1e-5 normalised, two calls bitwise; at n=1000 the grid covers the 132
+    SMs."""
+    from stein_tpu_torch import _cuda
+
+    rng = np.random.default_rng(n + p)
+    theta = torch.tensor(rng.normal(size=(n, p)), dtype=torch.float32,
+                         device=dev)
+    grads = torch.tensor(rng.normal(size=(n, p)), dtype=torch.float32,
+                         device=dev)
+    c = svgd_tile.column_center(theta)
+    D = fused_median.dist_block_plain(theta, theta, c)
+    h2 = fused_median.warm_search_on_value(D, torch.zeros((), device=dev),
+                                           30) / np.log(n)
+    args = (D, grads, theta, c, h2)
+    ku, ks = svgd_tile.svgd_both_ksum_on_D_about(*args)
+    ku2, ks2 = svgd_tile.svgd_both_ksum_on_D_about(*args)
+    ku0, ks0 = svgd_tile.svgd_both_ksum_on_D_about_plain(*args)
+    assert torch.equal(ku, ku2) and torch.equal(ks, ks2)
+    assert _norm_err(ku, ku0) <= 1e-5 and _norm_err(ks, ks0) <= 1e-5
+    if n == 1000:
+        assert _cuda.library().lib.stein_on_d_blocks(n, n, p) >= 132
+
+
+@pytest.mark.parametrize("hint,passes", [(0.0, 30), (1.01, 8), (0.5, 7),
+                                         (1.3, 30)])
+def test_b2_bitwise_with_eight_brackets(dev, hint, passes):
+    """The kernel's limit of 8 brackets (16 pass-1 counts), cold at 30
+    passes (15 rounds: 7 swept in pairs, one alone) and warm."""
+    brackets = tuple((1.0 - 0.1 * (i + 1), 1.0 + 0.15 * (i + 1))
+                     for i in range(8))
+    rng = np.random.default_rng(4)
+    theta = torch.tensor(rng.normal(size=(1000, 64)), dtype=torch.float32,
+                         device=dev)
+    D = row_subsample_block(theta, 256)
+    med0 = fused_median.warm_search_on_value(
+        D, torch.zeros((), device=dev), 30)
+    med_prev = med0 * hint
+    got = fused_median.fused_warm_median_rows(D, med_prev, passes, brackets)
+    want = fused_median.warm_search_on_value(D, med_prev, passes, brackets)
+    assert got.item() == want.item()
+    assert fused_median.warm_search_folded(D, med_prev, passes,
+                                           brackets).item() == want.item()
 
 
 @pytest.mark.parametrize("rule", ["adam", "adagrad"])
