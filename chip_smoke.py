@@ -16,8 +16,10 @@ results, and times the steps and the kernels. Phases:
   3. kernels  B2 bitwise against its plain version (cold and warm) on each
               path's block; B1's
               launch chain against the plain tail; B3 (both precisions),
-              B4, B5 and B7 against theirs; the glm and logistic stages, B10, B6, and
-              B1's model and D-given chains against theirs; B8/B9; B11 at
+              B4, B5 and B7 (B7 also at every shape of the card tests)
+              against theirs; the glm and logistic stages, B10, B6, and
+              B1's model and D-given chains against theirs; B8/B9 (with
+              the thresholds they form against grid_edges); B11 at
               four shapes, and in one-tile bands bitwise equal to one
               band; B12 on lattice and path inputs; at the stated
               tolerances
@@ -73,8 +75,10 @@ results, and times the steps and the kernels. Phases:
 
 With --split it stops after the build and prints only [split]: the device
 time of the median kernel's Gram stage apart from its search at each
-path's shape, of B2 cold, B10 and B1's and B12's chains (to compare two
-trees in one call, run each tree's copy of this script).
+path's shape, of B2 cold, B10 and B1's and B12's chains, and of B7, B8
+and B9 (kernel and plain) at the paths' shapes (to compare two trees in
+one call, run this script's copy from each tree: the split reaches the
+kernels only through their wrappers).
 
 Every phase prints its lines; a failed check raises and the script exits
 non-zero. The line before the last is the kernel table as JSON (each
@@ -321,37 +325,57 @@ def check_new_kernels(dev, torch, fused_median, svgd_tile, bayesian_nn,
     errs = {}
 
     # B7 on the main path's particles and batch, at a random (n, B, f, H)
-    # of the same width, and at a second (f, H, B); the JAX suite's bounds:
-    # logp rtol 2e-5 / atol 1e-5, grads atol 2e-5 max|g|.
+    # of the same width and at a second (f, H, B), then at every shape of
+    # the card tests (n 1, 7, 1000, 3000; H 33, 100, 128; f 1, 3; B 1, 20,
+    # 64: one particle, ragged blocks, H past a warp, B past the
+    # 20-observation chunk; and n 7, 1000 at H 200, 300, f 1, 3, B 20, 64:
+    # teams of 7 and 8 warps, several units a thread; their inputs from a
+    # generator of their own); the JAX suite's bounds: logp rtol 2e-5 /
+    # atol 1e-5, grads atol 2e-5 max|g|; two calls bitwise.
     rng = np.random.default_rng(0)
     cases = [("main path", nn_model, nn_theta, nn_batch)]
-    for n, B, f, H in ((NN_N, 20, 1, 100), (600, 12, 3, 50)):
+    shapes = [((NN_N, 20, 1, 100), rng), ((600, 12, 3, 50), rng)]
+    grid_rng = np.random.default_rng(7)
+    shapes += [((n, B, f, H), grid_rng) for n in (1, 7, NN_N, NN_LARGE)
+               for H in (33, 100, 128) for f in (1, 3) for B in (1, 20, 64)]
+    shapes += [((n, B, f, H), grid_rng) for n in (7, NN_N) for H in (200, 300)
+               for f in (1, 3) for B in (20, 64)]
+    for (n, B, f, H), gen in shapes:
         model = type(nn_model)(f, H, n_train=5 * B, n_batch=B,
                                prior_beta=10.0)
         p = f * H + 2 * H + 3
-        theta = torch.tensor(rng.normal(size=(n, p)) * 0.3, dtype=f32,
+        theta = torch.tensor(gen.normal(size=(n, p)) * 0.3, dtype=f32,
                              device=dev)
-        X = rng.uniform(size=(B, f))
+        X = gen.uniform(size=(B, f))
         y = (np.cos(10 * X[:, :1]) * (5 * X[:, :1])
-             + rng.normal(size=(B, 1)) * 0.1)
+             + gen.normal(size=(B, 1)) * 0.1)
         batch = {"X": torch.tensor(X, dtype=f32, device=dev),
                  "y": torch.tensor(y, dtype=f32, device=dev)}
         cases.append((f"n={n} B={B} f={f} H={H}", model, theta, batch))
+    worst = (-np.inf, None)
     for label, model, theta, batch in cases:
         lp, g = model.pallas_grads()(theta, batch)
+        again = model.pallas_grads()(theta, batch)
         lp0, g0 = bayesian_nn.nn_grads_plain(
             theta, batch["X"], batch["y"].reshape(-1), model.n_feats,
             model.n_hidden, model._consts())
         lp_ex = ((lp - lp0).abs() - (1e-5 + 2e-5 * lp0.abs())).max().item()
         g_err = (g - g0).abs().max().item()
         g_bound = 2e-5 * g0.abs().max().item()
-        log(f"[kernels] B7 {label}: logp excess over rtol 2e-5/atol 1e-5 "
-            f"{lp_ex:.3e}, grads max abs {g_err:.3e} (bound {g_bound:.3e})")
-        if lp_ex > 0 or g_err > g_bound:
-            fail(f"B7 ({label}) disagrees with its plain version")
+        repeat = torch.equal(lp, again[0]) and torch.equal(g, again[1])
+        if label == "main path" or not repeat or lp_ex > 0 or g_err > g_bound:
+            log(f"[kernels] B7 {label}: logp excess over rtol 2e-5/atol 1e-5 "
+                f"{lp_ex:.3e}, grads max abs {g_err:.3e} (bound "
+                f"{g_bound:.3e}), repeat bitwise {repeat}")
+        if lp_ex > 0 or g_err > g_bound or not repeat:
+            fail(f"B7 ({label}) disagrees with its plain version or itself")
+        worst = max(worst, (g_err / g_bound if g_bound else 0.0, label))
         if label == "main path":
             errs["B7"] = max((lp - lp0).abs().max().item(), g_err)
             g_path = g
+    log(f"[kernels] B7 at {len(cases) - 1} more shapes: all within the "
+        f"bounds, repeat bitwise; largest grads error {worst[0]:.3e} of its "
+        f"bound ({worst[1]})")
 
     # B3: phi of the tile; <= 1e-4 normalised (lattice: 1e-5), two calls
     # bitwise equal. The main path's shape runs on its own particles and
@@ -904,6 +928,79 @@ def redesign_split(dev, torch, gpu, reps=50):
     return out
 
 
+def bracket_inputs(theta, m, dev, torch):
+    """A shard's bracket-pass inputs on the particles theta: m median rows
+    (every (n // m)-th particle, as the [mesh] paths' checks take them, in
+    a contiguous copy as the path's gather makes them), the centre, the
+    cold median of their block as the hint, and hi_bound = 4 max |theta_i
+    - c|^2 with the callers' headroom."""
+    from stein_tpu_torch.ops import fused_median as fm
+    from stein_tpu_torch.ops import svgd_tile
+
+    rows = theta[::theta.shape[0] // m][:m].contiguous()
+    c = svgd_tile.column_center(theta)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    med = fm.warm_search_on_value(fm.dist_block_plain(rows, theta, c), zero,
+                                  30)
+    hib = 4.0 * torch.max(torch.sum((theta - c) ** 2, dim=1)) * 1.0001 \
+        + 1e-30
+    return rows, theta, med, c, hib
+
+
+def pass_split(dev, torch, gpu, reps=50):
+    """[split]: device µs (device_us) of B7, B8 and B9, kernel and plain,
+    at the paths' shapes: B7 at [main-nn]'s n=1000 and [main-nn-large]'s
+    n=3000 (B=20, f=1, H=100, the NN recipe's particles); B8 at [mesh]'s
+    [256, 1000] p=128, [mesh-nn]'s p=303 and a 4-rank shard's [64, 1000]
+    p=128; B9 at [256, 1000] p=128, g1=8, through its wrapper, beside
+    grid_edges alone (the torch ops that formed B9's thresholds before its
+    launch until the kernel formed them itself). Returns {label: (kernel
+    µs, plain µs)}."""
+    from stein_tpu_torch.models import BayesianNNModel, bayesian_nn
+    from stein_tpu_torch.ops import fused_median as fm
+    from stein_tpu_torch.ops.median import DEFAULT_BRACKETS
+
+    f32 = torch.float32
+    out = {}
+    model = BayesianNNModel(1, 100, 20, 20, prior_beta=10.0)
+    grad_all, consts = model.pallas_grads(), model._consts()
+    for n in (NN_N, NN_LARGE):
+        X, y, th = nn_data(n)
+        theta = torch.tensor(th, dtype=f32, device=dev)
+        batch = {"X": torch.tensor(X, dtype=f32, device=dev),
+                 "y": torch.tensor(y, dtype=f32, device=dev)}
+        out[f"B7 n={n}"] = (
+            device_us(lambda: grad_all(theta, batch), reps, torch),
+            device_us(lambda: bayesian_nn.nn_grads_plain(
+                theta, batch["X"], batch["y"].reshape(-1), 1, 100, consts),
+                reps, torch))
+    theta_lr = torch.tensor(make_data()[2], dtype=f32, device=dev)
+    theta_nn = torch.tensor(nn_data(NN_N)[2], dtype=f32, device=dev)
+    for label, th, m in ((f"B8 [{MEDIAN_ROWS}, {N}] p={P}", theta_lr,
+                          MEDIAN_ROWS),
+                         (f"B8 [{MEDIAN_ROWS}, {NN_N}] p={NN_P}", theta_nn,
+                          MEDIAN_ROWS),
+                         (f"B8 [64, {N}] p={P}", theta_lr, 64)):
+        rows, cols, med, c, _ = bracket_inputs(th, m, dev, torch)
+        out[label] = (
+            device_us(lambda: fm.fused_bracket_pass(rows, cols, med, c),
+                      reps, torch),
+            device_us(lambda: fm.fused_bracket_pass_plain(rows, cols, med, c),
+                      reps, torch))
+    args = bracket_inputs(theta_lr, MEDIAN_ROWS, dev, torch)
+    label = f"B9 [{MEDIAN_ROWS}, {N}] p={P} g1=8"
+    out[label] = (
+        device_us(lambda: fm.fused_bracket_grid_pass(*args, g1=8), reps,
+                  torch),
+        device_us(lambda: fm.fused_bracket_grid_pass_plain(*args, g1=8), reps,
+                  torch))
+    out["grid_edges g1=8"] = (device_us(lambda: fm.grid_edges(
+        args[2], args[4], DEFAULT_BRACKETS, 8), reps, torch), None)
+    for k, (kern, plain) in out.items():
+        log(f"[split] {gpu}: {k} device us {kern} (plain {plain})")
+    return out
+
+
 def logreg_data(seed=7):
     """bench.py's bench_logreg recipe (bench.py:189-196): 50 observations
     of 54 features from numpy seed 7, labels from a random hyperplane,
@@ -1314,9 +1411,13 @@ def run_tail_paths(dev, torch, counters, X, y, theta0, batch):
 def check_bracket_kernels(dev, torch, theta, nn_theta):
     """B8 and B9 against their plain versions on the card: on lattice
     particles D, mm and the counts bitwise; on the [mesh] paths' own inputs
-    ([256, 1000] x 128 and x 303) D <= 1e-5 normalised, and the counts and
-    mm those of the kernel's own D, bitwise; B9 also at the ring shape; two
-    calls bitwise. Returns (max abs errors, the timing inputs)."""
+    ([256, 1000] x 128 and x 303), a 4-rank shard's [64, 1000], the ring
+    shape and one row against one column (p 1 and 303) D <= 1e-5
+    normalised, and the counts and mm those of the kernel's own D, bitwise;
+    two calls bitwise; the thresholds the kernel forms bitwise those of
+    grid_edges (g1 1, 8, 16; hints and bounds down to subnormals and up to
+    the f32 range's end) and of the bracket endpoints. Returns (max abs
+    errors, the timing inputs)."""
     from stein_tpu_torch.ops import fused_median as fm
     from stein_tpu_torch.ops import svgd_tile
     from stein_tpu_torch.ops.median import DEFAULT_BRACKETS, count_le
@@ -1332,7 +1433,13 @@ def check_bracket_kernels(dev, torch, theta, nn_theta):
               None, False),
              (f"ring shape [{RING_M}, {RING_N}] p={P}", ring_cols,
               torch.tensor(rng.normal(size=(RING_M, P)) * 0.01,
-                           dtype=torch.float32, device=dev), False)]
+                           dtype=torch.float32, device=dev), False),
+             (f"4-rank shard [64, {N}] p={P}", theta, theta[::N // 64][:64],
+              False)]
+    for p in (1, NN_P):
+        one = torch.tensor(rng.normal(size=(2, p)), dtype=torch.float32,
+                           device=dev)
+        cases.append((f"[1, 1] p={p}", one[:1], one[1:], False))
     for label, cols, rows, exact in cases:
         if rows is None:
             rows = cols[::cols.shape[0] // MEDIAN_ROWS][:MEDIAN_ROWS]
@@ -1376,6 +1483,36 @@ def check_bracket_kernels(dev, torch, theta, nn_theta):
         if label.startswith("[mesh] path"):
             inputs = {"B8": (rows, cols, med, c),
                       "B9": (rows, cols, med, c, hib)}
+
+    # The thresholds the kernel formed, bitwise (as int32: the NaN of an
+    # inf - inf at the f32 range's end included).
+    rows, cols, med0, c, hib0 = bracket_inputs(theta, 64, dev, torch)
+    big = float(np.finfo(np.float32).max)
+    tiny = float(np.finfo(np.float32).smallest_subnormal)
+    scalars = [(None, None), (0.0, 0.0), (tiny, 7 * tiny), (2.5e-39, 1e-38),
+               (1e30, 3e38), (0.731, 0.99 * big), (0.5 * big, big)]
+    bad = []
+    for med, hib in scalars:
+        med = med0 if med is None else torch.tensor(med, device=dev)
+        hib = hib0 if hib is None else torch.tensor(hib, device=dev)
+        for g1 in (1, 8, 16):
+            D, _, cnts, thr = fm._launch_bracket(rows, cols, c, med,
+                                                 DEFAULT_BRACKETS, hib, g1)
+            edges = fm.grid_edges(med, hib, DEFAULT_BRACKETS, g1)
+            if not (torch.equal(thr.view(torch.int32),
+                                edges.view(torch.int32))
+                    and torch.equal(cnts, count_le(D, edges))):
+                bad.append((med.item(), hib.item(), g1))
+        _, _, _, thr8 = fm._launch_bracket(rows, cols, c, med,
+                                           DEFAULT_BRACKETS)
+        if not torch.equal(thr8.view(torch.int32), fm._bracket_ends(
+                med, DEFAULT_BRACKETS).view(torch.int32)):
+            bad.append((med.item(), "B8"))
+    log(f"[kernels] B8/B9 thresholds formed in the kernel at "
+        f"{len(scalars)} (med_prev, hi_bound) pairs x g1 1, 8, 16: bitwise "
+        f"grid_edges' and the bracket endpoints: {not bad}")
+    if bad:
+        fail(f"B8/B9's thresholds differ from grid_edges at {bad}")
     return errs, inputs
 
 
@@ -1991,6 +2128,7 @@ def main():
             log(f"[build] {line.strip()}")
     if "--split" in sys.argv[1:]:
         redesign_split(dev, torch, gpu)
+        pass_split(dev, torch, gpu)
         return 0
 
     # --------------------------------------------------------- 3. kernels
@@ -2472,18 +2610,22 @@ def main():
         ("B12", lambda: fused_step.fused_warm_step_pblock(*b12_args),
          lambda: fused_step._plain_tail(
              b12_args[0], b12_args[1], None, b12_args[2], b12_args[3],
-             b12_args[4], 10.0, 8, fused_step.DEFAULT_BRACKETS)))}
+             b12_args[4], 10.0, 8, fused_step.DEFAULT_BRACKETS)),
+        # The rows timed by events above, the same calls.
+        ("B3", lambda: svgd_tile.svgd_phi(nn_theta, g_nn, h2),
+         lambda: tile_plain(nn_theta, g_nn, h2)),
+        ("B3-bf16", lambda: svgd_tile.svgd_phi(nn_theta, g_nn, h2,
+                                               precision="bf16"),
+         lambda: tile_plain(nn_theta, g_nn, h2, "bf16")),
+        ("B4", lambda: fused_median.dist_block(rows_l, theta_l, c_l),
+         lambda: fused_median.dist_block_plain(rows_l, theta_l, c_l)),
+        ("B6", lambda: fused_step.fused_epilogue(*e_args),
+         lambda: fused_step.fused_epilogue_plain(*e_args)),
+        ("logistic", lambda: lfn(*l_args), lambda: lfn.plain(*l_args)),
+        ("B11", lambda: svgd_tile.svgd_phi_sym(th_s, g_s, h2_s),
+         lambda: svgd_tile.svgd_phi_sym_plain(th_s, g_s, h2_st)))}
     log(f"[timing] {gpu}: device us, kernel vs plain: " + "; ".join(
         f"{k} {v[0]} vs {v[1]}" for k, v in dev_t.items()))
-    # Each row's ms and plain_ms, and what measured them (ms_by): device
-    # time where device_us could read both, else events.
-    row_ms = {"B1": (b1_ms, b1_plain), "B2": (b2_ms, b2_plain),
-              "B5": (b5_ms, b5_plain), "B10": (b10_ms, b10_plain),
-              "B12": (b12_ms, b12_plain)}
-    row_ms = {k: (*v, "events") for k, v in row_ms.items()}
-    for key, (k_us, p_us) in dev_t.items():
-        if k_us is not None and p_us is not None:
-            row_ms[key] = (k_us / 1e3, p_us / 1e3, "device")
     gram_lib = split["B5"][2]
 
     # The mesh paths (plain, kernel, kernel, plain), B8 and B9.
@@ -2527,6 +2669,27 @@ def main():
     log(f"[timing] {gpu}: B8 ([{MEDIAN_ROWS}, {N}], p={P}) {b8_ms * 1e3:.2f} "
         f"us vs plain {b8_plain * 1e3:.2f} us; B9 (g1=8) {b9_ms * 1e3:.2f} us "
         f"vs plain {b9_plain * 1e3:.2f} us")
+    # B7, B8 and B9 by device time at the paths' shapes ([split]).
+    pass_us = pass_split(dev, torch, gpu)
+    for key, label in (("B7", f"B7 n={NN_N}"),
+                       ("B8", f"B8 [{MEDIAN_ROWS}, {N}] p={P}"),
+                       ("B9", f"B9 [{MEDIAN_ROWS}, {N}] p={P} g1=8")):
+        dev_t[key] = pass_us[label]
+
+    # Each row's ms and plain_ms, and what measured them (ms_by): device
+    # time where device_us could read both, else events.
+    row_ms = {"B1": (b1_ms, b1_plain), "B2": (b2_ms, b2_plain),
+              "B3": (b3_ms, b3_plain), "B3-bf16": b3_t["nn", "bf16"][:2],
+              "B4": (b4_ms, b4_plain), "B5": (b5_ms, b5_plain),
+              "B6": (b6_ms, b6_plain), "B7": (b7_ms, b7_plain),
+              "B8": (b8_ms, b8_plain), "B9": (b9_ms, b9_plain),
+              "B10": (b10_ms, b10_plain), "B11": (b11_ms, b11_plain),
+              "B12": (b12_ms, b12_plain),
+              "logistic": (logi_ms, logi_plain)}
+    row_ms = {k: (*v, "events") for k, v in row_ms.items()}
+    for key, (k_us, p_us) in dev_t.items():
+        if k_us is not None and p_us is not None:
+            row_ms[key] = (k_us / 1e3, p_us / 1e3, "device")
 
     profile_split("main (fused_gram)", sampler, batch, 20, torch, gpu)
     profile_split("main-nn", nn_sampler, nn_batch, 20, torch, gpu)
@@ -2578,18 +2741,18 @@ def main():
         # svgd_phi(theta, g) reads theta (rows and columns alike) and g once
         # and writes phi.
         row("svgd_tile", "B3", "svgd_tile.cu",
-            "stein_tpu/ops/pallas_svgd.py:35", errs["B3"], b3_ms, b3_plain,
+            "stein_tpu/ops/pallas_svgd.py:35", errs["B3"], *row_ms["B3"][:2],
             4 * (3 * nn_n * nn_p + nn_p), nn_n ** 2,
-            tf32_ops=3 * 4 * nn_n * nn_n * nn_p),
+            tf32_ops=3 * 4 * nn_n * nn_n * nn_p, ms_by=row_ms["B3"][2]),
         row("svgd_tile, pallas_precision='bf16'", "B3-bf16", "svgd_tile.cu",
             "stein_tpu/ops/pallas_svgd.py:35", errs["B3-bf16"],
-            b3_t["nn", "bf16"][0], b3_t["nn", "bf16"][1],
-            4 * (3 * nn_n * nn_p + nn_p), nn_n ** 2,
-            bf16_ops=4 * nn_n * nn_n * nn_p),
+            *row_ms["B3-bf16"][:2], 4 * (3 * nn_n * nn_p + nn_p), nn_n ** 2,
+            bf16_ops=4 * nn_n * nn_n * nn_p, ms_by=row_ms["B3-bf16"][2]),
         row("dist_block", "B4", "dist_block.cu",
-            "stein_tpu/ops/pallas_median.py:271", errs["B4"], b4_ms,
-            b4_plain, 4 * (r5 * nn_p + NN_LARGE * nn_p + r5 * NN_LARGE),
-            2 * r5 * NN_LARGE * nn_p),
+            "stein_tpu/ops/pallas_median.py:271", errs["B4"],
+            *row_ms["B4"][:2],
+            4 * (r5 * nn_p + NN_LARGE * nn_p + r5 * NN_LARGE),
+            2 * r5 * NN_LARGE * nn_p, ms_by=row_ms["B4"][2]),
         # B5's yardstick: the Gram stage's one torch.addmm (the centred
         # operands into the norm sum); no library call does the search.
         row("warm_median_from_theta", "B5", "stein_kernels.cu",
@@ -2599,13 +2762,13 @@ def main():
             None if gram_lib is None else gram_lib / 1e3,
             tf32_ops=3 * 2 * r5 * nn_n * nn_p, ms_by=row_ms["B5"][2]),
         row("epilogue", "B6", "stein_kernels.cu",
-            "stein_tpu/ops/pallas_step.py:241", tail_errs["B6"], b6_ms,
-            b6_plain, 4 * (7 * LARGE_N * P + LARGE_N + P),
-            25 * LARGE_N * P),
+            "stein_tpu/ops/pallas_step.py:241", tail_errs["B6"],
+            *row_ms["B6"][:2], 4 * (7 * LARGE_N * P + LARGE_N + P),
+            25 * LARGE_N * P, ms_by=row_ms["B6"][2]),
         row("nn_grad", "B7", "nn_grad.cu",
-            "stein_tpu/models/bayesian_nn.py:171", errs["B7"], b7_ms,
-            b7_plain, 4 * (2 * nn_n * nn_p + nn_n + 40),
-            20 * 100 * nn_n * 14),
+            "stein_tpu/models/bayesian_nn.py:171", errs["B7"],
+            *row_ms["B7"][:2], 4 * (2 * nn_n * nn_p + nn_n + 40),
+            20 * 100 * nn_n * 14, ms_by=row_ms["B7"][2]),
         row("svgd_on_d", "B10", "svgd_on_d.cu",
             "stein_tpu/ops/pallas_svgd.py:217", tail_errs["B10"],
             *row_ms["B10"][:2], 4 * (n * n + 2 * n * p + n), 3 * n * n,
@@ -2616,32 +2779,37 @@ def main():
             2 * n * p * p + 4 * n * p, glm_lib, ms_by=glm_by),
         row("logistic_grad, B1's model stage", "logistic", "model_grad.cu",
             "stein_tpu/models/logistic_regression.py:120",
-            tail_errs["logistic"], logi_ms, logi_plain,
+            tail_errs["logistic"], *row_ms["logistic"][:2],
             4 * (2 * LOGREG_N * (LOGREG_D + 1) + LOGREG_OBS * (LOGREG_D + 3)
                  + 2 * (LOGREG_D + 1) + LOGREG_N),
             4 * LOGREG_N * LOGREG_OBS * (LOGREG_D + 1)
-            + 10 * LOGREG_N * LOGREG_OBS),
-        # B8/B9: the [m, n] Gram (2 m n p), the centred rows and columns
-        # and their norms (3 (m + n) p), one compare per entry and
+            + 10 * LOGREG_N * LOGREG_OBS, ms_by=row_ms["logistic"][2]),
+        # B8/B9: the [m, n] Gram (2 m n p) on the tensor cores, three TF32
+        # products each (3xTF32); on the CUDA cores the centred rows and
+        # columns and their norms (3 (m + n) p), one compare per entry and
         # threshold (6 endpoints, or the 36 grid edges at g1=8) plus the
-        # range's 2; bytes: rows, columns, centre in, D and the counts out.
+        # range's 2; bytes: rows, columns, centre and the scalars in, D
+        # and the counts out.
         row("bracket_pass", "B8", "bracket_pass.cu",
-            "stein_tpu/ops/pallas_median.py:91", bracket_errs["B8"], b8_ms,
-            b8_plain, 4 * (m * p + n * p + p + 1 + m * n + 2 + 6),
-            2 * m * n * p + 3 * (m + n) * p + 8 * m * n),
+            "stein_tpu/ops/pallas_median.py:91", bracket_errs["B8"],
+            *row_ms["B8"][:2], 4 * (m * p + n * p + p + 1 + m * n + 2 + 6),
+            3 * (m + n) * p + 8 * m * n, tf32_ops=3 * 2 * m * n * p,
+            ms_by=row_ms["B8"][2]),
         row("bracket_grid_pass", "B9", "bracket_pass.cu",
-            "stein_tpu/ops/pallas_median.py:198", bracket_errs["B9"], b9_ms,
-            b9_plain, 4 * (m * p + n * p + p + 36 + m * n + 36),
-            2 * m * n * p + 3 * (m + n) * p + 36 * m * n),
+            "stein_tpu/ops/pallas_median.py:198", bracket_errs["B9"],
+            *row_ms["B9"][:2], 4 * (m * p + n * p + p + 2 + m * n + 36),
+            3 * (m + n) * p + 36 * m * n, tf32_ops=3 * 2 * m * n * p,
+            ms_by=row_ms["B9"][2]),
         # B11: the fewest operations of this phi, which equals (K @ (g -
         # theta / h^2) + ksum theta / h^2) / n, a contraction p wide (B3's
         # rule): the upper tiles' n^2 / 2 pairs take p multiply-adds for D
         # and p for each side of K @ u, plus one exponential each; bytes:
         # theta and grads in, phi out.
         row("svgd_phi_sym", "B11", "svgd_sym.cu",
-            "stein_tpu/ops/pallas_svgd.py:289", entry_errs["B11"], b11_ms,
-            b11_plain, 4 * 3 * SYM_N * SYM_P,
-            3 * SYM_N * SYM_N * SYM_P + SYM_N * SYM_N // 2),
+            "stein_tpu/ops/pallas_svgd.py:289", entry_errs["B11"],
+            *row_ms["B11"][:2], 4 * 3 * SYM_N * SYM_P,
+            3 * SYM_N * SYM_N * SYM_P + SYM_N * SYM_N // 2,
+            ms_by=row_ms["B11"][2]),
         # B12: the full [n, n] Gram (2 n^2 p) and K @ u (2 n^2 p) on the
         # tensor cores, the exponentials and the warm search's compares
         # over all n^2 entries; bytes: theta, grads and Adam's two moments

@@ -43,11 +43,12 @@ _SIGNATURES = {
          _P, _P, _P, _P, _P, _P),           # out, scratch, prep, stream
         _I),
     "stein_dist_block": ((_P, _P, _P, _I, _I, _I, _P, _P), _I),
-    "stein_bracket_blocks": ((_I, _I), _I),
     "stein_bracket_pass": (
         (_P, _P, _P, _I, _I, _I,            # rows, cols, center, m, n, p
-         _P, _P, _P, _I, _P, _I,            # med_prev, br_lo/hi, nb, edges, nc
-         _P, _P, _P, _P, _P, _P),           # D, cnts, mm, scratch, stream
+         _P, _P, _P, _I, _P, _I,            # med_prev, br_lo/hi, nb,
+                                            # hi_bound, g1
+         _P, _P, _P, _P, _P, _P),           # D, cnts, mm, thr, prep,
+                                            # stream
         _I),
     "stein_tile_splits": ((_I, _I, _I), _I),
     "stein_tile_prep_floats": ((_I, _I, _I), ctypes.c_longlong),

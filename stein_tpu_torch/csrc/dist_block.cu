@@ -1,11 +1,11 @@
 // Kernel B4, the centred distance block; replaces
 // stein_tpu/ops/pallas_median.py:_dist_block_kernel. One 512-thread block
-// per 16 x 32 tile of the [m, n] block: gram_tile (gram_tile.cuh, the
-// tile of B8 and B9 too) computes |r - c|^2 + |t - c|^2 - 2 (r - c).(t - c)
-// by an f32 dot over p in chunks on the CUDA cores, and writes it to device
-// memory (the median kernel's Gram stage builds the same block on the
-// tensor cores: bitwise the same D where it is exact, the f32 class
-// elsewhere); columns past n are
+// per 16 x 32 tile of the [m, n] block: gram_tile (gram_tile.cuh)
+// computes |r - c|^2 + |t - c|^2 - 2 (r - c).(t - c) by an f32 dot over p
+// in chunks on the CUDA cores, and writes it to device memory (the median
+// kernel's and the bracket pass's Gram stage, gram_stage.cuh, builds the
+// same block on the tensor cores: bitwise the same D where it is exact,
+// the f32 class elsewhere); columns past n are
 // never written (the TPU kernel padded and trimmed them). Kernel B2 then
 // searches the block.
 //

@@ -1,12 +1,14 @@
 // One tile of the centred squared-distance block
 //   D[r, j] = |rows_r - c|^2 + |cols_j - c|^2 - 2 (rows_r - c).(cols_j - c)
 // by an f32 dot on the CUDA cores, for a 16 x 32 tile (16 warps: warp =
-// row, lane = column). Shared by dist_block_kernel (B4) and by
-// bracket_tile_kernel (B8, B9), so that those build bitwise the same D;
-// B8/B9's counting relies on its one entry per thread. The median kernel's
-// Gram stage (B1's, B5's, B12's) runs the tensor cores instead
-// (stein_kernels.cu): the same D where it is exact, the f32 class
-// elsewhere. p is walked in chunks of kGramChunk
+// row, lane = column), one entry a thread. Its only user is
+// dist_block_kernel (B4). The median kernel (B1's, B5's, B12's median) and
+// the bracket pass (B8, B9) build the block on the tensor cores instead
+// (gram_stage.cuh): the same D where it is exact (lattice particles), the
+// f32 class elsewhere. Each tile re-centres its own 16 rows and 32 columns
+// and feeds every FMA from two shared-memory loads, so at B4's shape
+// (m = 128, n = 3000, p = 303) it runs far above its 3.5 us bound; moving
+// B4 onto gram_stage.cuh is queued. p is walked in chunks of kGramChunk
 // columns through shared memory, so any p fits; the chunk is a multiple of
 // 32 and of 4, which keeps every sum in the order of one pass over p (each
 // lane's squared norms over k = lane, lane + 32, ...; the dot in groups of

@@ -30,13 +30,15 @@ and within one final bracket interval otherwise.
 
 B8 and B9 (``csrc/bracket_pass.cu``, replacing ``pallas_median.py:
 _bracket_gram_kernel`` and ``_bracket_grid_kernel``) build the same centred
-block with B4's tile, write it out, and count it at the warm search's
+block with the median kernel's tensor-core Gram stage in one cooperative
+launch, write it out, and count it from registers at the warm search's
 bracket endpoints (B8, with the block's range) or at every ``grid_edges``
-threshold (B9): the local half of the sharded search, whose collectives
-follow outside the kernel (``ops.median.sharded_warm_from_bracket`` and
-``sharded_warm_from_grid``). Against their plain versions D agrees to the
-dot order, and the counts and range equal the plain counts over the
-kernel's own D.
+threshold (B9, the edges formed in the kernel in that function's
+expression order): the local half of the sharded search, whose
+collectives follow outside the kernel (``ops.median.
+sharded_warm_from_bracket`` and ``sharded_warm_from_grid``). Against their
+plain versions D agrees to the dot order, and the counts and range equal
+the plain counts over the kernel's own D.
 """
 
 import ctypes
@@ -335,7 +337,10 @@ def grid_edges(med_prev, hi_bound, brackets, g1):
                       device=hi_bound.device) * (1.0 + hi_bound)
     lo = torch.cat([lo_m * med_prev, lo_f])
     hi = torch.cat([hi_m * med_prev, hi_bound.reshape(1)])
-    w = (hi - lo) / g1
+    # g1 as a tensor: on the card torch multiplies by the reciprocal of a
+    # Python divisor, which differs from the division by a rounding where g1
+    # is not a power of two (B9's kernel divides).
+    w = (hi - lo) / steps[g1]
     return (lo[:, None] + steps[None, :] * w[:, None]).reshape(-1)
 
 
@@ -361,34 +366,36 @@ def fused_bracket_grid_pass_plain(rows, cols, med_prev, center, hi_bound,
     return D, count_le(D, grid_edges(med_prev, hi_bound, brackets, g1))
 
 
-def _launch_bracket(rows, cols, center, med, brackets, edges):
-    """Both launches of bracket_pass.cu; edges None is B8, else B9."""
+def _launch_bracket(rows, cols, center, med, brackets, hib=None, g1=0):
+    """The bracket pass's one launch: B8 where ``hib`` is None, else B9 at
+    ``grid_edges(med, hib, brackets, g1)``. Returns (D, mm, cnts, thr),
+    thr the thresholds the kernel formed and counted at (mm unset for
+    B9)."""
     from .. import _cuda
 
-    lib = _cuda.library().lib
     rows, cols, center = rows.contiguous(), cols.contiguous(), \
         center.contiguous()
     m, p = rows.shape
     n = cols.shape[0]
     dev = rows.device
-    nc = 2 * len(brackets) if edges is None else edges.numel()
-    blocks = lib.stein_bracket_blocks(m, n)
+    nb = len(brackets)
+    nc = 2 * nb if hib is None else (nb + 1) * (g1 + 1)
+    lib = _cuda.library().lib
     D = torch.empty(m, n, dtype=torch.float32, device=dev)
-    cnts = torch.empty(nc, dtype=torch.int32, device=dev)
-    mm = torch.empty(2, dtype=torch.float32, device=dev)
-    part_counts = torch.empty(blocks * nc, dtype=torch.int32, device=dev)
-    part_range = torch.empty(2 * blocks, dtype=torch.float32, device=dev)
+    out = torch.empty(2 + 2 * nc, dtype=torch.float32, device=dev)
+    mm, cnts, thr = out[:2], out[2:2 + nc].view(torch.int32), out[2 + nc:]
+    prep = torch.empty(lib.stein_gram_prep_floats(n, m, p),
+                       dtype=torch.float32, device=dev)
     lo, hi = _bracket_arrays(brackets)
     err = lib.stein_bracket_pass(
         rows.data_ptr(), cols.data_ptr(), center.data_ptr(), m, n, p,
-        med.data_ptr(), _addr(lo), _addr(hi), len(brackets),
-        None if edges is None else edges.data_ptr(), nc, D.data_ptr(),
-        cnts.data_ptr(), None if edges is not None else mm.data_ptr(),
-        part_counts.data_ptr(), part_range.data_ptr(),
+        med.data_ptr(), _addr(lo), _addr(hi), nb,
+        None if hib is None else hib.data_ptr(), g1, D.data_ptr(),
+        cnts.data_ptr(), mm.data_ptr(), thr.data_ptr(), prep.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _cuda.check(err, "bracket_tile_kernel launch")
-    return D, mm, cnts
+    _cuda.check(err, "bracket_kernel launch")
+    return D, mm, cnts, thr
 
 
 def fused_bracket_pass(rows, cols, med_prev, center,
@@ -408,9 +415,9 @@ def fused_bracket_pass(rows, cols, med_prev, center,
         raise ValueError(f"fused bracket pass: no kernel for {rows.device}")
     if len(brackets) > 8:
         raise ValueError("fused bracket pass: the kernel takes <= 8 brackets")
-    out = _launch_bracket(rows, cols, center, med, brackets, None)
+    D, mm, cnts, _ = _launch_bracket(rows, cols, center, med, brackets)
     fused_bracket_pass.launches += 1
-    return out
+    return D, mm, cnts
 
 
 fused_bracket_pass.launches = 0
@@ -419,7 +426,8 @@ fused_bracket_pass.launches = 0
 def fused_bracket_grid_pass(rows, cols, med_prev, center, hi_bound,
                             brackets=DEFAULT_BRACKETS, g1=16):
     """B8 with the grid search's first round (B9): the same block, counted
-    at every ``grid_edges(med_prev, hi_bound, brackets, g1)`` threshold.
+    at every ``grid_edges(med_prev, hi_bound, brackets, g1)`` threshold,
+    which the kernel forms itself (bitwise those of ``grid_edges``).
     Returns (D [m, n] f32, cnts [(n_brackets + 1) * (g1 + 1)] int32), for
     the caller to psum before ``ops.median.sharded_warm_from_grid``."""
     center = _bracket_checks(rows, cols, center,
@@ -432,11 +440,14 @@ def fused_bracket_grid_pass(rows, cols, med_prev, center, hi_bound,
     if rows.device.type != "cuda":
         raise ValueError(f"fused grid bracket pass: no kernel for "
                          f"{rows.device}")
-    edges = grid_edges(med, hib, brackets, g1)
-    if edges.numel() > 2048:
+    if (len(brackets) + 1) * (g1 + 1) > 2048 or len(brackets) > 8:
         raise ValueError("fused grid bracket pass: the kernel takes <= 2048 "
-                         "thresholds")
-    D, _, cnts = _launch_bracket(rows, cols, center, med, brackets, edges)
+                         "thresholds and <= 8 brackets")
+    if g1 < 1:
+        raise ValueError(f"fused grid bracket pass: g1 must be >= 1 (got "
+                         f"{g1})")
+    D, _, cnts, _ = _launch_bracket(rows, cols, center, med, brackets, hib,
+                                    g1)
     fused_bracket_grid_pass.launches += 1
     return D, cnts
 

@@ -275,11 +275,24 @@ def test_b5_width_limit(dev, p, fits):
     assert got.item() == want.item()
 
 
-@pytest.mark.parametrize("n,B,f,H",[(1000, 20, 1, 100), (600, 12, 3, 50)])
+# B7's shapes: the NN path's and a second (f, H, B); every class of its
+# grid (one particle or a ragged last block, H not a multiple of 32,
+# several features, B past the 20-observation chunk); teams of 5-8 warps
+# a particle with one unit a thread (H=200) and several (H=300).
+_B7_SHAPES = [(1000, 20, 1, 100), (600, 12, 3, 50)] + [
+    (n, B, f, H) for n in (1, 7, 1000, 3000) for H in (33, 100, 128)
+    for f in (1, 3) for B in (1, 20, 64) if (n, B, f, H) != (1000, 20, 1, 100)
+] + [(n, B, f, H) for n in (7, 1000) for H in (200, 300) for f in (1, 3)
+     for B in (20, 64)]
+
+
+@pytest.mark.parametrize("n,B,f,H", _B7_SHAPES)
 def test_b7_against_plain(dev, n, B, f, H):
     """logp rtol 2e-5 / atol 1e-5, grads atol 2e-5 max|g| (the JAX suite's
-    test_pallas_grads_match_autodiff)."""
-    rng = np.random.default_rng(0)
+    test_pallas_grads_match_autodiff); one launch a call, two calls
+    bitwise."""
+    rng = np.random.default_rng(0 if (n, B, f, H) in _B7_SHAPES[:2]
+                                else n + H + f + B)
     model = BayesianNNModel(f, H, n_train=5 * B, n_batch=B, prior_beta=10.0)
     p = f * H + 2 * H + 3
     theta = torch.tensor(rng.normal(size=(n, p)) * 0.3, dtype=torch.float32,
@@ -291,11 +304,13 @@ def test_b7_against_plain(dev, n, B, f, H):
     launches = bayesian_nn.nn_grads.launches
     lp, g = model.pallas_grads()(theta, batch)
     assert bayesian_nn.nn_grads.launches == launches + 1
+    again = model.pallas_grads()(theta, batch)
     lp_ref, g_ref = bayesian_nn.nn_grads_plain(
         theta, batch["X"], batch["y"].reshape(-1), f, H, model._consts())
     torch.testing.assert_close(lp, lp_ref, rtol=2e-5, atol=1e-5)
     scale = g_ref.abs().max().item()
     torch.testing.assert_close(g, g_ref, rtol=0, atol=2e-5 * scale)
+    assert torch.equal(lp, again[0]) and torch.equal(g, again[1])
 
 
 def test_nn_sampler_runs_through_its_kernels(dev):
@@ -584,7 +599,8 @@ def _bracket_inputs(dev, kind, m, n, p, seed=4):
 @pytest.mark.parametrize("kind,m,n,p", [
     ("lattice", 256, 1000, 128), ("normal", 256, 1000, 128),
     ("normal", 256, 1000, 303), ("normal", 64, 250, 128),
-    ("lattice", 48, 200, 40)])
+    ("lattice", 48, 200, 40), ("normal", 1, 1, 1), ("normal", 1, 1, 303),
+    ("lattice", 64, 1000, 128), ("normal", 64, 1000, 128)])
 def test_b8_b9_against_plain(dev, kind, m, n, p):
     """B8 and B9 against their plain versions: on lattice particles D, mm
     and the counts bitwise; otherwise D <= 1e-5 normalised, and the counts
@@ -613,6 +629,85 @@ def test_b8_b9_against_plain(dev, kind, m, n, p):
     else:
         err = ((D - Dp).abs().max() / Dp.abs().max()).item()
         assert err <= 1e-5, err
+
+
+F32_MAX = float(np.finfo(np.float32).max)
+F32_TINY = float(np.finfo(np.float32).smallest_subnormal)
+
+
+@pytest.mark.parametrize("g1", [1, 3, 8, 16])
+@pytest.mark.parametrize("med,hib", [
+    (None, None), (0.0, 0.0), (0.0, 5.0), (F32_TINY, 7 * F32_TINY),
+    (2.5e-39, 1e-38), (1e30, 3e38), (0.731, 0.99 * F32_MAX),
+    (0.5 * F32_MAX, F32_MAX)])
+def test_bracket_pass_edges_bitwise(dev, g1, med, hib):
+    """The thresholds the kernel forms and counts at: B9's equal
+    ``grid_edges`` bitwise (down to the NaN of an inf - inf at the f32
+    range's end), B8's the bracket endpoints; the counts are those of the
+    kernel's D at them."""
+    rows, cols, c, med0, hib0 = _bracket_inputs(dev, "normal", 64, 250, 16)
+    med = med0 if med is None else torch.tensor(med, device=dev)
+    hib = hib0 if hib is None else torch.tensor(hib, device=dev)
+    br = fused_median.DEFAULT_BRACKETS
+    D, _, cnts, thr = fused_median._launch_bracket(rows, cols, c, med, br,
+                                                   hib, g1)
+    D8, _, cnts8, thr8 = fused_median._launch_bracket(rows, cols, c, med, br)
+    torch.cuda.synchronize()
+    edges = fused_median.grid_edges(med, hib, br, g1)
+    assert torch.equal(thr.view(torch.int32), edges.view(torch.int32))
+    ends = fused_median._bracket_ends(med, br)
+    assert torch.equal(thr8.view(torch.int32), ends.view(torch.int32))
+    assert torch.equal(cnts, fused_median.count_le(D, edges))
+    assert torch.equal(cnts8, fused_median.count_le(D8, ends))
+
+
+@pytest.mark.parametrize("grid", [False, True])
+def test_bracket_pass_is_one_launch(dev, monkeypatch, grid):
+    """Each call of B8 or B9 launches bracket_kernel once and nothing else
+    on the card (B9 forms no thresholds by torch ops): the profiler sees
+    only that kernel, at most once a call, and each wrapper's count rises
+    by one a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rows, cols, c, med, hib = _bracket_inputs(dev, "normal", 256, 1000, 128)
+
+    def no_torch_edges(*args, **kw):
+        raise AssertionError("grid_edges ran on the card's path")
+
+    monkeypatch.setattr(fused_median, "grid_edges", no_torch_edges)
+    fn = fused_median.fused_bracket_grid_pass if grid else \
+        fused_median.fused_bracket_pass
+    args = (rows, cols, med, c, hib) if grid else (rows, cols, med, c)
+    fn(*args)
+    torch.cuda.synchronize()
+    calls, before = 20, fn.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    assert fn.launches == before + calls
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and all("bracket_kernel" in k for k in names), set(names)
+    assert len(names) <= calls
+
+
+def test_bracket_pass_guards_on_the_card(dev):
+    """The kernel's limits still raise: 8 brackets, 2048 thresholds."""
+    rows, cols, c, med, hib = _bracket_inputs(dev, "normal", 16, 64, 8)
+    nine = tuple((0.5, 1.5) for _ in range(9))
+    with pytest.raises(ValueError, match="8 brackets"):
+        fused_median.fused_bracket_pass(rows, cols, med, c, nine)
+    with pytest.raises(ValueError, match="2048"):
+        fused_median.fused_bracket_grid_pass(rows, cols, med, c, hib,
+                                             g1=1024)
+    eight = tuple((0.5 + 0.01 * i, 1.5) for i in range(8))
+    D, cnts = fused_median.fused_bracket_grid_pass(rows, cols, med, c, hib,
+                                                   eight, g1=226)
+    torch.cuda.synchronize()
+    assert cnts.numel() == 9 * 227
+    assert torch.equal(cnts, fused_median.count_le(
+        D, fused_median.grid_edges(med, hib, eight, 226)))
 
 
 def test_default_device_is_cuda0(dev):

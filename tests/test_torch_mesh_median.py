@@ -63,15 +63,54 @@ def _j(*arrays):
     return [jnp.asarray(np.asarray(a)) for a in arrays]
 
 
-@pytest.mark.parametrize("g1", [1, 8, 16])
-@pytest.mark.parametrize("med,hib", [(0.0, 5.0), (0.731, 3.3),
-                                     (2.5e-3, 1.7e-2), (13.0, 40.0)])
+F32 = np.finfo(np.float32)
+
+
+def _edges_ieee(med, hib, brackets, g1):
+    """The JAX package's grid_edges expression tree in numpy f32: one IEEE
+    rounding an operation, subnormals kept (as on the card)."""
+    f = np.float32
+    with np.errstate(all="ignore"):
+        cands = [(f(lo) * med, f(hi) * med) for lo, hi in brackets]
+        cands.append((f(-1e-6) * (f(1.0) + hib), hib))
+        out = []
+        for lo, hi in cands:
+            w = (hi - lo) / f(g1)
+            out += [lo + f(t) * w for t in range(g1 + 1)]
+    return np.array(out, dtype=np.float32)
+
+
+def _flush(x):
+    """x with subnormals replaced by a zero of their sign."""
+    x = np.asarray(x, dtype=np.float32)
+    return np.where(np.abs(x) < F32.tiny, np.copysign(np.float32(0), x), x)
+
+
+@pytest.mark.parametrize("g1", [1, 3, 8, 16])
+@pytest.mark.parametrize("med,hib", [
+    (0.0, 5.0), (0.731, 3.3), (2.5e-3, 1.7e-2), (13.0, 40.0), (0.0, 0.0),
+    (F32.smallest_subnormal, 7 * F32.smallest_subnormal), (2.5e-39, 1e-38),
+    (F32.smallest_subnormal, F32.max), (1e30, 3e38),
+    (0.731, 0.99 * F32.max), (0.5 * F32.max, F32.max)])
 def test_grid_edges_bitwise(g1, med, hib):
-    got = tfm.grid_edges(*_t(np.float32(med), np.float32(hib)), BR, g1)
-    want = jnp.stack(jpm.grid_edges(*_j(np.float32(med), np.float32(hib)),
-                                     BR, g1))
+    """The port's grid_edges (and so B9's in-kernel edges, held to it on the
+    card) against the JAX package's, bitwise as int32, down to the NaN of
+    an inf - inf at the f32 range's end. XLA's CPU backend runs with
+    subnormals flushed to zero, the card and torch do not: at subnormal
+    inputs the port is held to the JAX expression tree in IEEE f32, and
+    JAX's values to the port's on flushed inputs, flushed."""
+    med, hib = np.float32(med), np.float32(hib)
+    got = tfm.grid_edges(*_t(med, hib), BR, g1).numpy()
+    want = np.asarray(jnp.stack(jpm.grid_edges(*_j(med, hib), BR, g1)))
     assert got.shape == ((len(BR) + 1) * (g1 + 1),)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  _edges_ieee(med, hib, BR, g1).view(np.int32))
+    if _flush(med) == med and _flush(hib) == hib:
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    else:
+        flushed = tfm.grid_edges(*_t(_flush(med), _flush(hib)), BR, g1)
+        np.testing.assert_array_equal(_flush(flushed.numpy()).view(np.int32),
+                                      want.view(np.int32))
 
 
 def _med_of(D, hint):
