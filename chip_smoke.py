@@ -75,10 +75,11 @@ results, and times the steps and the kernels. Phases:
 
 With --split it stops after the build and prints only [split]: the device
 time of the median kernel's Gram stage apart from its search at each
-path's shape, of B2 cold, B10 and B1's and B12's chains, and of B7, B8
-and B9 (kernel and plain) at the paths' shapes (to compare two trees in
-one call, run this script's copy from each tree: the split reaches the
-kernels only through their wrappers).
+path's shape, of B2 cold, B10 and B1's and B12's chains, and of B4 (with
+the Gram's torch.addmm), the logistic stage, B7, B8 and B9 (kernel and
+plain) at the paths' shapes (to compare two trees in one call, run this
+script's copy from each tree: the split reaches the kernels only through
+their wrappers).
 
 Every phase prints its lines; a failed check raises and the script exits
 non-zero. The line before the last is the kernel table as JSON (each
@@ -537,7 +538,8 @@ def read(counters):
 
 def run_nn_paths(dev, torch, nn_model, counters):
     """[main-nn], [main-nn-large] and [large-n]; returns each path's
-    launch counts, the NN path's sampler and batch, the large-n path's."""
+    launch counts, the NN path's sampler and batch, the large-n path's,
+    the bf16 NN sampler and the n=3000 one (the NN batch)."""
     from stein_tpu_torch import Adam, SVGDSampler, throughput_config
     from stein_tpu_torch.api import _make_grad_all
     from stein_tpu_torch.models import LinearRegressionModel
@@ -703,7 +705,7 @@ def run_nn_paths(dev, torch, nn_model, counters):
             lr_model.log_p, big.unravel_fn), gram=False), 4, 0.1)
     return ({"main-nn": nn_counts, "main-nn-bf16": bf16_counts,
              "main-nn-large": large_counts, "large-n": n_counts}, sampler,
-            batch, big, lr_batch, nn16)
+            batch, big, lr_batch, nn16, large)
 
 
 def plain_pallas_runner(sampler, batch, grad_fn, gram):
@@ -948,20 +950,53 @@ def bracket_inputs(theta, m, dev, torch):
 
 
 def pass_split(dev, torch, gpu, reps=50):
-    """[split]: device µs (device_us) of B7, B8 and B9, kernel and plain,
-    at the paths' shapes: B7 at [main-nn]'s n=1000 and [main-nn-large]'s
-    n=3000 (B=20, f=1, H=100, the NN recipe's particles); B8 at [mesh]'s
-    [256, 1000] p=128, [mesh-nn]'s p=303 and a 4-rank shard's [64, 1000]
-    p=128; B9 at [256, 1000] p=128, g1=8, through its wrapper, beside
-    grid_edges alone (the torch ops that formed B9's thresholds before its
-    launch until the kernel formed them itself). Returns {label: (kernel
-    µs, plain µs)}."""
-    from stein_tpu_torch.models import BayesianNNModel, bayesian_nn
+    """[split]: device µs (device_us) of B4, the logistic stage, B7, B8 and
+    B9, kernel and plain, at the paths' shapes: B4 at [main-nn-large]'s
+    [128, 3000] p=303 on the NN recipe's particles and on lattice
+    particles, beside the Gram's torch.addmm alone (the centred operands
+    into the norm sum); the logistic stage at [main-logreg]'s n=1000,
+    p=55, N=50; B7 at [main-nn]'s n=1000 and [main-nn-large]'s n=3000
+    (B=20, f=1, H=100, the NN recipe's particles); B8 at [mesh]'s [256,
+    1000] p=128, [mesh-nn]'s p=303 and a 4-rank shard's [64, 1000] p=128;
+    B9 at [256, 1000] p=128, g1=8, through its wrapper, beside grid_edges
+    alone (the torch ops that formed B9's thresholds before its launch
+    until the kernel formed them itself). Returns {label: (kernel µs,
+    plain µs)}, and B4's addmm under "B4 addmm"."""
+    from stein_tpu_torch.models import (
+        BayesianNNModel,
+        LogisticRegressionModel,
+        bayesian_nn,
+    )
     from stein_tpu_torch.ops import fused_median as fm
-    from stein_tpu_torch.ops.median import DEFAULT_BRACKETS
+    from stein_tpu_torch.ops import svgd_tile
+    from stein_tpu_torch.ops.median import DEFAULT_BRACKETS, subsample_rows
 
     f32 = torch.float32
     out = {}
+    for kind, th in (
+            ("lattice", lattice(NN_LARGE, NN_P, dev, torch)),
+            ("NN particles", torch.tensor(nn_data(NN_LARGE)[2], dtype=f32,
+                                          device=dev))):
+        rows = subsample_rows(th, 128)
+        c = svgd_tile.column_center(th)
+        out[f"B4 [128, {NN_LARGE}] p={NN_P} {kind}"] = (
+            device_us(lambda: fm.dist_block(rows, th, c), reps, torch),
+            device_us(lambda: fm.dist_block_plain(rows, th, c), reps, torch))
+    # The yardstick on the NN particles' operands (the loop's last).
+    rc, cc = rows - c, th - c
+    rsq = (rc * rc).sum(1, keepdim=True) + (cc * cc).sum(1)[None, :]
+    out["B4 addmm"] = (device_us(lambda: torch.addmm(rsq, rc, cc.T,
+                                                     alpha=-2.0),
+                                 reps, torch), None)
+    Xl, yl, theta_l0 = logreg_data()
+    ikm = LogisticRegressionModel(LOGREG_D, LOGREG_TRAIN, LOGREG_OBS
+                                  ).inkernel_model(
+        {"X": torch.tensor(Xl, dtype=f32, device=dev),
+         "y": torch.tensor(yl, dtype=f32, device=dev)})
+    l_args = (torch.tensor(theta_l0, dtype=f32, device=dev), *ikm.operands)
+    out[f"logistic n={LOGREG_N} p={LOGREG_D + 1} N={LOGREG_OBS}"] = (
+        device_us(lambda: ikm.grad_fn(*l_args), reps, torch),
+        device_us(lambda: ikm.grad_fn.plain(*l_args), reps, torch))
     model = BayesianNNModel(1, 100, 20, 20, prior_beta=10.0)
     grad_all, consts = model.pallas_grads(), model._consts()
     for n in (NN_N, NN_LARGE):
@@ -2324,7 +2359,8 @@ def main():
     if not post_err <= POSTERIOR_BOUND:
         fail("the particle mean is not near the conjugate posterior mean")
 
-    path_counts, nn_sampler, nn_batch, big, lr_batch, nn16 = run_nn_paths(
+    (path_counts, nn_sampler, nn_batch, big, lr_batch, nn16,
+     nn_large) = run_nn_paths(
         dev, torch, nn_model, counters)
     path_counts["main"] = launches
     tail_counts, tail_timed = run_tail_paths(dev, torch, counters, X, y,
@@ -2617,11 +2653,8 @@ def main():
         ("B3-bf16", lambda: svgd_tile.svgd_phi(nn_theta, g_nn, h2,
                                                precision="bf16"),
          lambda: tile_plain(nn_theta, g_nn, h2, "bf16")),
-        ("B4", lambda: fused_median.dist_block(rows_l, theta_l, c_l),
-         lambda: fused_median.dist_block_plain(rows_l, theta_l, c_l)),
         ("B6", lambda: fused_step.fused_epilogue(*e_args),
          lambda: fused_step.fused_epilogue_plain(*e_args)),
-        ("logistic", lambda: lfn(*l_args), lambda: lfn.plain(*l_args)),
         ("B11", lambda: svgd_tile.svgd_phi_sym(th_s, g_s, h2_s),
          lambda: svgd_tile.svgd_phi_sym_plain(th_s, g_s, h2_st)))}
     log(f"[timing] {gpu}: device us, kernel vs plain: " + "; ".join(
@@ -2669,9 +2702,14 @@ def main():
     log(f"[timing] {gpu}: B8 ([{MEDIAN_ROWS}, {N}], p={P}) {b8_ms * 1e3:.2f} "
         f"us vs plain {b8_plain * 1e3:.2f} us; B9 (g1=8) {b9_ms * 1e3:.2f} us "
         f"vs plain {b9_plain * 1e3:.2f} us")
-    # B7, B8 and B9 by device time at the paths' shapes ([split]).
+    # B4, the logistic stage, B7, B8 and B9 by device time at the paths'
+    # shapes ([split]).
     pass_us = pass_split(dev, torch, gpu)
-    for key, label in (("B7", f"B7 n={NN_N}"),
+    b4_lib = pass_us["B4 addmm"][0]
+    for key, label in (("B4", f"B4 [128, {NN_LARGE}] p={NN_P} NN particles"),
+                       ("logistic", f"logistic n={LOGREG_N} p={LOGREG_D + 1} "
+                                    f"N={LOGREG_OBS}"),
+                       ("B7", f"B7 n={NN_N}"),
                        ("B8", f"B8 [{MEDIAN_ROWS}, {N}] p={P}"),
                        ("B9", f"B9 [{MEDIAN_ROWS}, {N}] p={P} g1=8")):
         dev_t[key] = pass_us[label]
@@ -2694,6 +2732,7 @@ def main():
     profile_split("main (fused_gram)", sampler, batch, 20, torch, gpu)
     profile_split("main-nn", nn_sampler, nn_batch, 20, torch, gpu)
     profile_split("main-nn-bf16", nn16, nn_batch, 20, torch, gpu)
+    profile_split("main-nn-large", nn_large, nn_batch, 10, torch, gpu)
     profile_split("large-n", big, lr_batch, 10, torch, gpu)
     for label, (s_, b_) in mesh_timed.items():
         profile_split(label, s_, b_, 20, torch, gpu)
@@ -2748,11 +2787,17 @@ def main():
             "stein_tpu/ops/pallas_svgd.py:35", errs["B3-bf16"],
             *row_ms["B3-bf16"][:2], 4 * (3 * nn_n * nn_p + nn_p), nn_n ** 2,
             bf16_ops=4 * nn_n * nn_n * nn_p, ms_by=row_ms["B3-bf16"][2]),
+        # B4: the [m, n] Gram on the tensor cores (3xTF32), the centred
+        # rows and columns and their norms on the CUDA cores; bytes: rows,
+        # columns and centre in, D out. Its yardstick: the Gram's one
+        # torch.addmm, as B5's.
         row("dist_block", "B4", "dist_block.cu",
             "stein_tpu/ops/pallas_median.py:271", errs["B4"],
             *row_ms["B4"][:2],
-            4 * (r5 * nn_p + NN_LARGE * nn_p + r5 * NN_LARGE),
-            2 * r5 * NN_LARGE * nn_p, ms_by=row_ms["B4"][2]),
+            4 * (r5 * nn_p + NN_LARGE * nn_p + nn_p + r5 * NN_LARGE),
+            3 * (r5 + NN_LARGE) * nn_p,
+            None if b4_lib is None else b4_lib / 1e3,
+            tf32_ops=3 * 2 * r5 * NN_LARGE * nn_p, ms_by=row_ms["B4"][2]),
         # B5's yardstick: the Gram stage's one torch.addmm (the centred
         # operands into the norm sum); no library call does the search.
         row("warm_median_from_theta", "B5", "stein_kernels.cu",

@@ -42,7 +42,10 @@ _SIGNATURES = {
          _P, _I, _I, _P, _P, _I, _F,        # med_prev .. log_n
          _P, _P, _P, _P, _P, _P),           # out, scratch, prep, stream
         _I),
-    "stein_dist_block": ((_P, _P, _P, _I, _I, _I, _P, _P), _I),
+    "stein_dist_block": (
+        (_P, _P, _P, _I, _I, _I,            # rows, cols, center, m, n, p
+         _P, _P, _P),                       # D, prep, stream
+        _I),
     "stein_bracket_pass": (
         (_P, _P, _P, _I, _I, _I,            # rows, cols, center, m, n, p
          _P, _P, _P, _I, _P, _I,            # med_prev, br_lo/hi, nb,

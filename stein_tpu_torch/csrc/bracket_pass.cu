@@ -195,25 +195,6 @@ __global__ void __launch_bounds__(kStageThreads, 1)
   }
 }
 
-// The cooperative grid: one block per SM, the kernel's occupancy checked.
-cudaError_t pass_grid(size_t smem, int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return err;
-  if ((err = set_smem(reinterpret_cast<const void*>(bracket_kernel),
-                      smem)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, bracket_kernel, kStageThreads, smem)) != cudaSuccess)
-    return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  *blocks = sms;
-  return cudaSuccess;
-}
-
 }  // namespace
 }  // namespace stein
 
@@ -237,7 +218,7 @@ int stein_bracket_pass(const float* rows, const float* cols,
     return cudaErrorInvalidValue;
   const size_t smem = gram_smem(p, kPassSmem);
   int blocks = 0;
-  cudaError_t err = pass_grid(smem, &blocks);
+  cudaError_t err = stage_grid(bracket_kernel, smem, &blocks);
   if (err != cudaSuccess) return err;
   PassArgs a{GramArgs{cols, rows, n, p, m, nullptr, nullptr, center, prep},
              D, med_prev, PassBrackets{}, hi_bound, g1, nc, thr, cnts,

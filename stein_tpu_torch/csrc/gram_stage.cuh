@@ -1,6 +1,7 @@
 // The centred Gram stage on the tensor cores, shared by the cooperative
-// median kernel (stein_kernels.cu: B1's, B5's and B12's median block) and
-// the bracket pass (bracket_pass.cu: B8, B9). It builds
+// median kernel (stein_kernels.cu: B1's, B5's and B12's median block), the
+// bracket pass (bracket_pass.cu: B8, B9) and the distance block
+// (dist_block.cu: B4). It builds
 //
 //   D[r, j] = |rows_r - c|^2 + |cols_j - c|^2 - 2 (rows_r - c).(cols_j - c)
 //
@@ -271,6 +272,29 @@ inline int gram_slot(int p, int budget) {
 inline size_t gram_smem(int p, int budget) {
   return sizeof(float) *
          (((p + 7) & ~7) + 2 * gram_slot(p, budget) + kGramRed);
+}
+
+// The cooperative grid of a kernel of kStageThreads-thread blocks with
+// `smem` bytes of dynamic shared memory: one block per SM, so that every
+// block is resident for the grid barriers, after the kernel's opt-in to
+// that memory and a check that a block fits on an SM.
+template <class Kernel>
+cudaError_t stage_grid(Kernel kernel, size_t smem, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if ((err = set_smem(reinterpret_cast<const void*>(kernel), smem)) !=
+      cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kStageThreads, smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  *blocks = sms;
+  return cudaSuccess;
 }
 
 // Floats of the Gram stage's g.prep at this shape.

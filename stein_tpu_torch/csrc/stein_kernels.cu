@@ -62,14 +62,10 @@
 //                  16 warps split the contraction; the search counts two
 //                  quad-ary rounds a sweep (warm_search.cuh). The Gram
 //                  stage lives in gram_stage.cuh, which the bracket pass
-//                  (B8, B9) shares;
+//                  (B8, B9) and the distance block (B4) share;
 //   the tile       256 MFLOP (the [n, n] dot and K @ u); see svgd_tile.cu;
 //   the reduce,    one pass each over [n, p] state (~2-3 MB), bandwidth-
 //   clip_update    and launch-bound.
-//
-// B4 builds the same centred block from gram_tile.cuh's f32 dot on the
-// CUDA cores: the two routes agree bitwise where D is exact (integer
-// particles) and to the f32 class elsewhere.
 
 #include <cuda_runtime.h>
 
@@ -238,27 +234,6 @@ Brackets make_brackets(const float* lo, const float* hi, int count) {
   return br;
 }
 
-
-// The cooperative grid: one block per SM (the kernel's occupancy is
-// checked), so every block is resident for the grid barriers.
-cudaError_t median_grid(size_t smem, int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return err;
-  if ((err = set_smem(reinterpret_cast<const void*>(median_kernel), smem)) !=
-      cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, median_kernel, kStageThreads, smem)) != cudaSuccess)
-    return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  *blocks = sms;
-  return cudaSuccess;
-}
-
 cudaError_t launch_median(const GramArgs& g, const MedianArgs& a, int blocks,
                           size_t smem, cudaStream_t stream) {
   GramArgs gg = g;
@@ -278,7 +253,8 @@ extern "C" {
 // The cooperative grid size (the wrapper sizes the per-block scratch from
 // it) and the tile's column shares and reduce blocks.
 int stein_median_blocks(int p, int* blocks) {
-  return median_grid(p > 0 ? gram_smem(p, kMedianSmem) : 0, blocks);
+  return stage_grid(median_kernel, p > 0 ? gram_smem(p, kMedianSmem) : 0,
+                    blocks);
 }
 
 int stein_reduce_blocks(int n, int p) { return tile_reduce_blocks(n, p); }
@@ -297,7 +273,7 @@ int stein_warm_median(const float* D, int total, const float* med_prev,
                       void* stream) {
   if (n_brackets > kMaxBrackets) return cudaErrorInvalidValue;
   int blocks = 0;
-  cudaError_t err = median_grid(0, &blocks);
+  cudaError_t err = stage_grid(median_kernel, 0, &blocks);
   if (err != cudaSuccess) return err;
   GramArgs g{};
   MedianArgs a{D, total, med_prev, k, rounds,
@@ -346,7 +322,7 @@ int stein_fused_step_tail(const float* theta, const float* grads,
   if (d_once && (!gram || m != n)) return cudaErrorInvalidValue;
   const size_t smem = gram ? gram_smem(p, kMedianSmem) : 0;
   int blocks = 0;
-  cudaError_t err = median_grid(smem, &blocks);
+  cudaError_t err = stage_grid(median_kernel, smem, &blocks);
   if (err != cudaSuccess) return err;
   GramArgs g{};
   if (gram) {
@@ -428,7 +404,7 @@ int stein_warm_from_theta(const float* rows, const float* cols,
   if (n_brackets > kMaxBrackets) return cudaErrorInvalidValue;
   const size_t smem = gram_smem(p, kMedianSmem);
   int blocks = 0;
-  cudaError_t err = median_grid(smem, &blocks);
+  cudaError_t err = stage_grid(median_kernel, smem, &blocks);
   if (err != cudaSuccess) return err;
   GramArgs g{cols, rows, n, p, m, nullptr, nullptr, center, prep};
   if ((err = gram_shape(g, blocks, kMedianSmem)) != cudaSuccess) return err;

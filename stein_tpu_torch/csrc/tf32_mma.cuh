@@ -1,6 +1,7 @@
 // Tensor-core building blocks shared by the streaming SVGD tile
 // (svgd_tile.cu), B10's tile on a given D (svgd_on_d.cu) and the Gram
-// stage of the median kernel and the bracket pass (gram_stage.cuh):
+// stage of the median kernel, the bracket pass and the distance block
+// (gram_stage.cuh):
 // cp.async copies into shared
 // memory, the 3xTF32 split and mma.sync m16n8k8 (tf32) / m16n8k16 (bf16),
 // the row-block dot S = R T^T and the contraction K @ U.

@@ -20,10 +20,12 @@ For a CPU tensor the wrapper runs that plain search; for a CUDA tensor it
 launches the kernel or raises.
 
 B4 (``csrc/dist_block.cu``, replacing ``pallas_median.py:_dist_block_kernel``)
-writes the centred [m, n] distance block from an f32 dot, tiled over rows,
-columns and p, for B2 to search. B5 (``median_kernel`` with a given centre,
-replacing ``pallas_median.py:_warm_from_theta_kernel``) computes that block
-and the whole warm search in one cooperative launch. Their plain versions
+writes the centred [m, n] distance block, for B2 to search, by the median
+kernel's tensor-core Gram stage (``csrc/gram_stage.cuh``) in one cooperative
+launch. B5 (``median_kernel`` with a given centre, replacing
+``pallas_median.py:_warm_from_theta_kernel``) computes that block and the
+whole warm search in one cooperative launch. Both take p up to the stage's
+room (~46000) and refuse a wider p by a CUDA error. Their plain versions
 compute the block with a torch matmul; the median then sees D from another
 dot order, so B5 against its plain version is bitwise on exact (lattice) D
 and within one final bracket interval otherwise.
@@ -224,7 +226,9 @@ def dist_block_plain(rows, cols, center):
 def dist_block(rows, cols, center):
     """[m, n] centred squared-distance block of rows [m, p] against cols
     [n, p] about ``center`` ([1, p]), f32 only (the JAX function's
-    ``block_j`` has no counterpart: the CUDA kernel's tiles are its own)."""
+    ``block_j`` has no counterpart: the CUDA kernel's tiles are its own).
+    On the card the Gram stage's scratch holds the centred rows and
+    columns (``stein_gram_prep_floats``)."""
     center = _check_gram(rows, cols, center, "dist_block")
     if rows.device.type == "cpu":
         return dist_block_plain(rows, cols, center)
@@ -236,10 +240,14 @@ def dist_block(rows, cols, center):
         center.contiguous()
     m, p = rows.shape
     n = cols.shape[0]
+    lib = _cuda.library().lib
     out = torch.empty(m, n, dtype=torch.float32, device=rows.device)
-    err = _cuda.library().lib.stein_dist_block(
+    prep = torch.empty(lib.stein_gram_prep_floats(n, m, p),
+                       dtype=torch.float32, device=rows.device)
+    err = lib.stein_dist_block(
         rows.data_ptr(), cols.data_ptr(), center.data_ptr(), m, n, p,
-        out.data_ptr(), torch.cuda.current_stream(rows.device).cuda_stream,
+        out.data_ptr(), prep.data_ptr(),
+        torch.cuda.current_stream(rows.device).cuda_stream,
     )
     _cuda.check(err, "dist_block_kernel launch")
     dist_block.launches += 1

@@ -210,22 +210,75 @@ def test_b3_bf16_against_plain(dev, m, n, p):
                                        atol=5e-3 * want.abs().max().item())
 
 
+def _lattice_rows(n, p, dev):
+    """_lattice for any n: an odd n adds a zero row, so the columns still
+    sum to 0 and the centre is exactly 0."""
+    return torch.cat([_lattice(n - n % 2, p, dev),
+                      torch.zeros(n % 2, p, device=dev)])
+
+
+@pytest.mark.parametrize("m,n,p", [(128, 3000, 303), (1, 17, 7), (17, 33, 1),
+                                   (33, 1000, 303), (17, 3000, 33),
+                                   (1, 1, 1)])
 @pytest.mark.parametrize("lattice", [True, False])
-def test_b4_against_plain(dev, lattice):
-    """The [128, 3000] block at p=303: bitwise on lattice particles,
-    <= 1e-5 normalised otherwise."""
-    n, p = 3000, 303
-    theta = (_lattice(n, p, dev) if lattice else torch.tensor(
+def test_b4_against_plain(dev, m, n, p, lattice):
+    """The [128, 3000] block at p=303 (the n=3000 NN path's) and ragged m,
+    n and p: bitwise on lattice particles, <= 1e-5 normalised otherwise;
+    two calls bitwise equal."""
+    theta = (_lattice_rows(n, p, dev) if lattice else torch.tensor(
         np.random.default_rng(2).normal(size=(n, p)) + 2.0,
         dtype=torch.float32, device=dev))
-    rows = subsample_rows(theta, 128)
+    rows = subsample_rows(theta, m)
+    rows = theta[:m] if rows is None else rows
     c = svgd_tile.column_center(theta)
     got = fused_median.dist_block(rows, theta, c)
+    again = fused_median.dist_block(rows, theta, c)
     want = fused_median.dist_block_plain(rows, theta, c)
+    assert got.shape == (m, n) and torch.equal(got, again)
     if lattice:
         assert torch.equal(got, want)
     else:
         assert _norm_err(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("p,fits", [(46000, True), (47000, False)])
+def test_b4_width_limit(dev, p, fits):
+    """B4 runs the Gram stage at B5's budget: at p = 46000 it runs (bitwise
+    on lattice particles); past the ring's room for one k-step the launch
+    is refused, never an unwritten block returned."""
+    theta = _lattice(64, p, dev)
+    rows = theta[:32]
+    c = svgd_tile.column_center(theta)
+    if not fits:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            fused_median.dist_block(rows, theta, c)
+        return
+    got = fused_median.dist_block(rows, theta, c)
+    assert torch.equal(got, fused_median.dist_block_plain(rows, theta, c))
+
+
+def test_dist_block_is_one_launch(dev):
+    """Each call of B4 launches dist_block_kernel once and nothing else on
+    the card (its scratch is allocated, not filled): the profiler sees only
+    that kernel, at most once a call, and the count rises by one a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    theta = torch.tensor(np.random.default_rng(4).normal(size=(3000, 303)),
+                         dtype=torch.float32, device=dev)
+    rows = subsample_rows(theta, 128)
+    c = svgd_tile.column_center(theta)
+    fused_median.dist_block(rows, theta, c)
+    torch.cuda.synchronize()
+    calls, before = 20, fused_median.dist_block.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fused_median.dist_block(rows, theta, c)
+        torch.cuda.synchronize()
+    assert fused_median.dist_block.launches == before + calls
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and all("dist_block_kernel" in k for k in names), set(names)
+    assert len(names) <= calls
 
 
 @pytest.mark.parametrize("lattice", [True, False])
@@ -378,15 +431,22 @@ def test_glm_stage_against_plain(dev, n, p):
 
 
 @pytest.mark.parametrize("n,d,N", [(1000, 54, 50), (300, 6, 40),
-                                   (97, 200, 33)])
+                                   (97, 200, 33)] + [
+    (n, d, N) for n in (1, 7, 1000) for N in (1, 64, 100)
+    for d in (1, 100, 200)])
 def test_logistic_stage_against_plain(dev, n, d, N):
-    """The Covertype shape (n=1000, p=55, N=50) and two others, at the same
-    bounds (the gradients carry n_train/n_batch, so they are held relative
-    to max|g|)."""
+    """The Covertype shape (n=1000, p=55, N=50) and others: a ragged last
+    block of particles (n 1, 7, 97, 300); each split of a product's
+    contraction, four lanes (N 1, 40, 50, 64; p 2, 7, 55), two (N 100; p
+    101) and one (p 201); at the same bounds (the gradients carry
+    n_train/n_batch, so they are held relative to max|g|); one launch a
+    call, two calls bitwise equal."""
     ikm, theta = _logistic_operands(n, d, N, dev)
     launches = model_grad.logistic_grads.launches
     g, lp = ikm.grad_fn(theta, *ikm.operands)
-    assert model_grad.logistic_grads.launches == launches + 1
+    g2, lp2 = ikm.grad_fn(theta, *ikm.operands)
+    assert model_grad.logistic_grads.launches == launches + 2
+    assert torch.equal(g, g2) and torch.equal(lp, lp2)
     g0, lp0 = ikm.grad_fn.plain(theta, *ikm.operands)
     torch.testing.assert_close(lp, lp0, rtol=2e-5,
                                atol=1e-5 * lp0.abs().max().item())

@@ -84,13 +84,16 @@ def test_ravel_layout_and_operands_match_jax():
 
 
 @pytest.mark.parametrize("n,d,n_obs,n_train", [(48, 6, 20, 200),
-                                               (300, 54, 50, 581012)])
+                                               (300, 54, 50, 581012),
+                                               (97, 200, 33, 3300),
+                                               (7, 130, 70, 700)])
 def test_inkernel_grad_fn_matches_jax(n, d, n_obs, n_train):
     """The logistic stage's plain version against the JAX grad_fn on the
     same theta, at tests/test_pallas_step.py's
     test_logreg_inkernel_grad_matches_autodiff tolerances (grads atol
     2e-6 max|g|, log_p mean rtol 1e-6), and against the port's own
-    autodiff of log_p."""
+    autodiff of log_p; also at the kernel's edges: n not a multiple of
+    its 4-particle block, N past 32 and not a multiple of 4, p past 128."""
     jm, tm = JL(d, n_train, n_obs), TL(d, n_train, n_obs)
     X, y, rng = _data(n_obs, d, n)
     theta = (rng.normal(size=(n, d + 1)) * 0.1).astype(np.float32)

@@ -177,13 +177,16 @@ def test_warm_median_from_theta_matches_jax(hint):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
 
 
-def test_dist_block_then_b2_matches_jax():
+@pytest.mark.parametrize("n,p,m", [(3000, 640, 128), (1000, 303, 33),
+                                   (200, 7, 17)])
+def test_dist_block_then_b2_matches_jax(n, p, m):
     """Kernel B4's plain version then B2's against JAX's pallas_dist_block
     (block_j=512, so n=3000 has padded columns) then
-    fused_warm_median_rows, at the JAX suite's large-block shape, rtol
-    1e-5 (tests/test_pallas_median.py)."""
+    fused_warm_median_rows, at the JAX suite's large-block shape and at
+    the Gram stage's ragged edges (m not a multiple of its 16-row warp
+    tile, p not a multiple of its 8-index k-step), rtol 1e-5
+    (tests/test_pallas_median.py)."""
     rng = np.random.default_rng(5)
-    n, p, m = 3000, 640, 128
     theta = (rng.normal(size=(n, p)) + 2.0).astype(np.float32)
     rows = theta[jmed._subsample_idx(n, m)]
     center = theta.mean(0, keepdims=True)
