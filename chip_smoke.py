@@ -20,9 +20,9 @@ results, and times the steps and the kernels. Phases:
               against theirs; the glm and logistic stages, B10, B6, and
               B1's model and D-given chains against theirs; B8/B9 (with
               the thresholds they form against grid_edges); B11 at
-              four shapes, and in one-tile bands bitwise equal to one
-              band; B12 on lattice and path inputs; at the stated
-              tolerances
+              four shapes, ten calls bitwise equal and so on grids of one
+              and seven blocks; B12 on lattice and path inputs; at the
+              stated tolerances
   4. main     the bench's p=128 Bayesian linear regression at n=1000
               (B1, B2): launch counts of run(batch, 500), finiteness, the
               first 10 steps against the CPU run, the posterior mean
@@ -75,11 +75,12 @@ results, and times the steps and the kernels. Phases:
 
 With --split it stops after the build and prints only [split]: the device
 time of the median kernel's Gram stage apart from its search at each
-path's shape, of B2 cold, B10 and B1's and B12's chains, and of B4 (with
+path's shape, of B2 cold, B10 and B1's and B12's chains, of B4 (with
 the Gram's torch.addmm), the logistic stage, B7, B8 and B9 (kernel and
-plain) at the paths' shapes (to compare two trees in one call, run this
-script's copy from each tree: the split reaches the kernels only through
-their wrappers).
+plain) at the paths' shapes, and of B11 (and its plain version, and B3's
+svgd_phi) at [large-n-sym]'s input (to compare two trees in one call, run
+this script's copy from each tree: the split reaches the kernels only
+through their wrappers).
 
 Every phase prints its lines; a failed check raises and the script exits
 non-zero. The line before the last is the kernel table as JSON (each
@@ -1036,6 +1037,28 @@ def pass_split(dev, torch, gpu, reps=50):
     return out
 
 
+def sym_split(dev, torch, gpu, reps=20):
+    """[split]: device µs (device_us) of B11 at [large-n-sym]'s input (n=10240,
+    p=128, h^2 = 1), reached only through svgd_phi_sym(theta, grads, h2),
+    beside its plain version and B3's svgd_phi on the same input (the same
+    phi, the full grid of tiles). Returns {label: µs}."""
+    from stein_tpu_torch.ops import svgd_tile
+
+    theta, grads = sym_data(dev, torch)
+    h2 = torch.ones((), device=dev)
+    out = {"B11": device_us(lambda: svgd_tile.svgd_phi_sym(theta, grads, h2),
+                            reps, torch),
+           "B11 plain": device_us(
+               lambda: svgd_tile.svgd_phi_sym_plain(theta, grads, h2), reps,
+               torch),
+           "B3": device_us(lambda: svgd_tile.svgd_phi(theta, grads, h2),
+                           reps, torch)}
+    log(f"[split] {gpu}: B11 (n={SYM_N}, p={SYM_P}, [large-n-sym]'s input) "
+        f"device us {out['B11']} (plain {out['B11 plain']}); B3's svgd_phi "
+        f"on the same input {out['B3']}")
+    return out
+
+
 def logreg_data(seed=7):
     """bench.py's bench_logreg recipe (bench.py:189-196): 50 observations
     of 54 features from numpy seed 7, labels from a random hyperplane,
@@ -1944,18 +1967,27 @@ def check_sym_pblock_kernels(dev, torch, nn_model, nn_batch, nn_theta):
     h2_nn = h2_of(nn_theta)
     sym_case(f"ragged n={NN_N} p={NN_P} (the NN path's inputs)", nn_theta,
              g_nn, h2_nn, 1e-5)
-    # The upper tiles in bands of one (a 1 MiB scratch budget): the same
-    # bits as one band, the accumulator's order being the same.
-    whole = svgd_tile.svgd_phi_sym(nn_theta, g_nn, h2_nn)
-    budget, svgd_tile.SYM_SCRATCH_MIB = svgd_tile.SYM_SCRATCH_MIB, 1
-    try:
-        banded = svgd_tile.svgd_phi_sym(nn_theta, g_nn, h2_nn)
-    finally:
-        svgd_tile.SYM_SCRATCH_MIB = budget
-    log(f"[kernels] B11 ragged n={NN_N} p={NN_P} in one-tile bands: bitwise "
-        f"equal to one band {torch.equal(whole, banded)}")
-    if not torch.equal(whole, banded):
-        fail("B11's output depends on its band size")
+    # Ten calls, and grids of one and of seven blocks (SYM_BLOCKS), give
+    # the same bits: each slice adds its contributions in slot order
+    # whatever block takes whatever unit.
+    for label, th, g, h2 in (
+            (f"large-n-sym path n={SYM_N} p={SYM_P}", theta_s, grads_s, 1.0),
+            (f"ragged n={NN_N} p={NN_P}", nn_theta, g_nn, h2_nn)):
+        first = svgd_tile.svgd_phi_sym(th, g, h2)
+        ten = all(torch.equal(first, svgd_tile.svgd_phi_sym(th, g, h2))
+                  for _ in range(9))
+        grid, by_grid = svgd_tile.SYM_BLOCKS, {}
+        try:
+            for blocks in (1, 7):
+                svgd_tile.SYM_BLOCKS = blocks
+                by_grid[blocks] = torch.equal(
+                    first, svgd_tile.svgd_phi_sym(th, g, h2))
+        finally:
+            svgd_tile.SYM_BLOCKS = grid
+        log(f"[kernels] B11 {label}: ten calls bitwise equal {ten}; grids of "
+            f"1 and 7 blocks bitwise equal to the full grid {by_grid}")
+        if not ten or not all(by_grid.values()):
+            fail(f"B11 {label}: phi depends on the call or on the grid")
     t3 = torch.tensor(rng.normal(size=(3000, 64)) * 0.3, dtype=f32,
                       device=dev)
     sym_case("n=3000 p=64", t3, torch.randn_like(t3), h2_of(t3), 1e-5)
@@ -2164,6 +2196,7 @@ def main():
     if "--split" in sys.argv[1:]:
         redesign_split(dev, torch, gpu)
         pass_split(dev, torch, gpu)
+        sym_split(dev, torch, gpu)
         return 0
 
     # --------------------------------------------------------- 3. kernels
@@ -2597,19 +2630,19 @@ def main():
     b11_ms, b11_plain = in_turns(
         lambda: svgd_tile.svgd_phi_sym_plain(th_s, g_s, h2_st),
         lambda: svgd_tile.svgd_phi_sym(th_s, g_s, h2_s), 10, torch)
-    # B11 by its scratch budget: each band costs the tile kernel a drain
-    # and the accumulator a pass; the default is SYM_SCRATCH_MIB.
-    budget, sweep = svgd_tile.SYM_SCRATCH_MIB, {}
+    # B11 on a grid of one block: one SM takes every unit in ticket order
+    # and never waits on a slot; over the SM count, the full grid's time
+    # without its slot waits and its tail.
+    grid, svgd_tile.SYM_BLOCKS = svgd_tile.SYM_BLOCKS, 1
     try:
-        for mib in (64, 256, 512, 1024, 4096) * 2:
-            svgd_tile.SYM_SCRATCH_MIB = mib
-            sweep.setdefault(mib, []).append(cuda_ms(
-                lambda: svgd_tile.svgd_phi_sym(th_s, g_s, h2_s), 10, torch))
+        one_us = device_us(lambda: svgd_tile.svgd_phi_sym(th_s, g_s, h2_s), 2,
+                           torch)
     finally:
-        svgd_tile.SYM_SCRATCH_MIB = budget
-    log(f"[timing] {gpu}: B11 (n={SYM_N}, p={SYM_P}) us by scratch budget "
-        f"(MiB; default {budget}): " + ", ".join(
-            f"{mib} {sum(v) / len(v) * 1e3:.2f}" for mib, v in sweep.items()))
+        svgd_tile.SYM_BLOCKS = grid
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"[timing] {gpu}: B11 (n={SYM_N}, p={SYM_P}) on one block: "
+        f"{one_us} us device, / {sms} SMs = "
+        f"{None if one_us is None else one_us / sms} us")
     b12_args = entry_in["B12"]
     b12_ms, b12_plain = in_turns(
         lambda: fused_step._plain_tail(
@@ -2848,13 +2881,13 @@ def main():
         # B11: the fewest operations of this phi, which equals (K @ (g -
         # theta / h^2) + ksum theta / h^2) / n, a contraction p wide (B3's
         # rule): the upper tiles' n^2 / 2 pairs take p multiply-adds for D
-        # and p for each side of K @ u, plus one exponential each; bytes:
-        # theta and grads in, phi out.
+        # and p for each side of K @ u, on the tensor cores as three TF32
+        # products each (3xTF32), plus one exponential each; bytes: theta
+        # and grads in, phi out.
         row("svgd_phi_sym", "B11", "svgd_sym.cu",
             "stein_tpu/ops/pallas_svgd.py:289", entry_errs["B11"],
-            *row_ms["B11"][:2], 4 * 3 * SYM_N * SYM_P,
-            3 * SYM_N * SYM_N * SYM_P + SYM_N * SYM_N // 2,
-            ms_by=row_ms["B11"][2]),
+            *row_ms["B11"][:2], 4 * 3 * SYM_N * SYM_P, SYM_N * SYM_N // 2,
+            tf32_ops=3 * 3 * SYM_N * SYM_N * SYM_P, ms_by=row_ms["B11"][2]),
         # B12: the full [n, n] Gram (2 n^2 p) and K @ u (2 n^2 p) on the
         # tensor cores, the exponentials and the warm search's compares
         # over all n^2 entries; bytes: theta, grads and Adam's two moments

@@ -91,11 +91,10 @@ _SIGNATURES = {
          _I, _I, _I, _I,                    # m, n, p, splits
          _P, _P, _P, _P, _P, _P),           # scratch, u_buf, ku, ksum, stream
         _I),
-    "stein_sym_tiles": ((_I,), _I),
-    "stein_sym_band": ((_I, _I, _I), _I),
+    "stein_sym_scratch_floats": ((_I, _I), ctypes.c_longlong),
     "stein_svgd_sym": (
-        (_P, _P, _P, _I, _I, _I,            # theta, grads, h2, n, p, band
-         _P, _P, _P, _P, _P, _P),           # scratch, acc, phi, stream
+        (_P, _P, _P, _I, _I, _I,            # theta, grads, h2, n, p, blocks
+         _P, _P, _P),                       # scratch, phi, stream
         _I),
     "stein_logistic_grad_smem": ((_I, _I), _I),
     "stein_glm_grads": (

@@ -212,20 +212,10 @@ __global__ void __launch_bounds__(kThreads)
   const int t_end = (blockIdx.y + 1) * tiles / gridDim.y;
   const int stages = (t_end - t_begin) * nk;
 
-  // 16-byte copies of a [rows, width] tile, thread t taking chunks t,
-  // t + kThreads, ... in row-major order (two divisions a call).
-  auto copy = [&](float* dst, int ds, const float* src, int ss, int rows,
-                  int width) {
-    const int per_row = width / 4;
-    const int dr = kThreads / per_row, dc = kThreads - dr * per_row;
-    int r = threadIdx.x / per_row, c4 = threadIdx.x - r * per_row;
-    for (; r < rows; r += dr, c4 += dc) {
-      if (c4 >= per_row) {
-        c4 -= per_row;
-        if (++r >= rows) break;
-      }
-      cp_async16(dst + r * ds + 4 * c4, src + static_cast<size_t>(r) * ss + 4 * c4);
-    }
+  // 16-byte copies of a [rows, width] tile (tf32_mma.cuh).
+  const auto copy = [](float* dst, int ds, const float* src, int ss,
+                       int rows, int width) {
+    cp_async_tile<kThreads>(dst, ds, src, ss, rows, width);
   };
   // Stage s = (tile t_begin + s / nk, dot chunk s % nk); u and |t|^2 come
   // with the tile's last chunk, where they are used.

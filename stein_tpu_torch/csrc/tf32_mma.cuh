@@ -1,10 +1,10 @@
 // Tensor-core building blocks shared by the streaming SVGD tile
-// (svgd_tile.cu), B10's tile on a given D (svgd_on_d.cu) and the Gram
-// stage of the median kernel, the bracket pass and the distance block
-// (gram_stage.cuh):
-// cp.async copies into shared
-// memory, the 3xTF32 split and mma.sync m16n8k8 (tf32) / m16n8k16 (bf16),
-// the row-block dot S = R T^T and the contraction K @ U.
+// (svgd_tile.cu), the symmetric-traversal tile (svgd_sym.cu), B10's tile on
+// a given D (svgd_on_d.cu) and the Gram stage of the median kernel, the
+// bracket pass and the distance block (gram_stage.cuh): cp.async copies
+// into shared memory (a chunk, or a whole tile), the 3xTF32 split and
+// mma.sync m16n8k8 (tf32) / m16n8k16 (bf16), the row-block dot S = R T^T
+// and the contraction K @ U.
 //
 // What bounds their users on the H100 is latency, not the tensor cores'
 // rate: mma.sync issues from a warp one dependent product after another
@@ -44,6 +44,27 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// 16-byte copies of a [rows, width] tile (width a multiple of 4) from src
+// (row stride ss) to dst (row stride ds) by the block's THREADS threads,
+// thread t taking chunks t, t + THREADS, ... in row-major order (two
+// divisions a call).
+template <int THREADS>
+__device__ __forceinline__ void cp_async_tile(float* dst, int ds,
+                                              const float* src, int ss,
+                                              int rows, int width) {
+  const int per_row = width / 4;
+  const int dr = THREADS / per_row, dc = THREADS - dr * per_row;
+  int r = threadIdx.x / per_row, c4 = threadIdx.x - r * per_row;
+  for (; r < rows; r += dr, c4 += dc) {
+    if (c4 >= per_row) {
+      c4 -= per_row;
+      if (++r >= rows) break;
+    }
+    cp_async16(dst + r * ds + 4 * c4,
+               src + static_cast<size_t>(r) * ss + 4 * c4);
+  }
 }
 
 // Waits until at most N of this thread's cp.async groups are in flight.

@@ -274,11 +274,10 @@ def _launch_on_d(D_rows, h2, p, u=None, grads=None, cols=None, center=None):
 
 svgd_both_ksum_on_D.launches = 0
 
-# B11's scratch budget for one band of tile partials, MiB. At n=10240,
-# p=128 (842 MB of partials in all) it runs five bands of three waves on an
-# H100, 208 MB of scratch against the plain version's 419 MB K, at ~9% more
-# time than one band (chip_smoke.py's [timing] sweep).
-SYM_SCRATCH_MIB = 256
+# Blocks of B11's persistent launch; 0 takes as many as are resident on the
+# card. phi does not depend on it (the card tests and chip_smoke.py check
+# another value bitwise).
+SYM_BLOCKS = 0
 
 
 def svgd_phi_sym_plain(theta, grads, h2):
@@ -302,23 +301,25 @@ def svgd_phi_sym_plain(theta, grads, h2):
 def svgd_phi_sym(theta, grads, h2, block=512):
     """The SVGD direction of [n, p] particles by the symmetric traversal
     (``stein_tpu/ops/pallas_svgd.py:pallas_svgd_phi_sym``): only the tiles
-    j >= i are computed, each strictly upper tile feeding its row block
-    with K @ [g | theta] and its column block with K^T @ [g | theta].
-    Uncentred (|theta| large against the spread costs f32 digits, as in the
-    JAX kernel). Computed in f32, returned in theta's dtype. No sampler
-    option reaches it; it is an entry point of its own.
+    j >= i are formed, each strictly upper tile feeding its row block and,
+    by K's symmetry, its column block. Uncentred (|theta| large against the
+    spread costs f32 digits, as in the JAX kernel). Computed in f32,
+    returned in theta's dtype. No sampler option reaches it; it is an entry
+    point of its own.
 
     The CUDA kernel (``csrc/svgd_sym.cu``) replaces
-    ``pallas_svgd.py:_svgd_sym_tile_kernel``: one block per upper 128 x 128
-    tile writing its row and column partial sums, then a fixed-order
-    reduce (two calls give bitwise-equal output). The upper tiles run in
-    bands whose partials fit ``SYM_SCRATCH_MIB`` (or one tile's, 2 x 128 x
-    (2p + 1) floats, where that is larger), each band added into an
-    [n, 2p + 1] f32 accumulator in a fixed order before the next; the
-    output does not depend on the band size. The JAX function's ``block``
-    has no counterpart in
-    the kernel's tiling and is accepted for parity (a positive int, as the
-    JAX function needs)."""
+    ``pallas_svgd.py:_svgd_sym_tile_kernel``. It computes the same phi
+    regrouped as B3's tile does, (K @ (g - theta / h^2) + ksum theta / h^2)
+    / n, a contraction p wide: a prep launch forms the padded operands, then
+    one persistent launch whose blocks take runs of upper 128 x 128 tiles in
+    a fixed order from a ticket counter. Each tile runs its products by
+    mma.sync 3xTF32; a run's row sides stay in registers, each column side
+    is added into an [n, p + 1] f32 accumulator at once, and a counter per
+    16-row slice orders the adds, so two calls give bitwise-equal output
+    whatever block takes whatever run (``SYM_BLOCKS`` sets the grid). The
+    scratch is O(n p). The JAX function's ``block`` has no counterpart in the kernel's
+    tiling and is accepted for parity (a positive int, as the JAX function
+    needs)."""
     if int(block) < 1:
         raise ValueError(f"svgd_phi_sym: block must be positive (got {block}; "
                          "it is accepted for parity with the JAX function and "
@@ -345,16 +346,12 @@ def svgd_phi_sym(theta, grads, h2, block=512):
     t = theta.to(f32).contiguous()
     g = grads.to(f32).contiguous()
     with torch.cuda.device(dev):
-        band = lib.stein_sym_band(n, p, SYM_SCRATCH_MIB)
-        part = torch.empty(band * 2 * 128 * 2 * p, dtype=f32, device=dev)
-        part_ksum = torch.empty(band * 2 * 128, dtype=f32, device=dev)
-        acc = torch.empty(n * 2 * p, dtype=f32, device=dev)
-        acc_ksum = torch.empty(n, dtype=f32, device=dev)
+        scratch = torch.empty(lib.stein_sym_scratch_floats(n, p), dtype=f32,
+                              device=dev)
         phi = torch.empty(n, p, dtype=f32, device=dev)
         err = lib.stein_svgd_sym(
-            t.data_ptr(), g.data_ptr(), h2.data_ptr(), n, p, band,
-            part.data_ptr(), part_ksum.data_ptr(), acc.data_ptr(),
-            acc_ksum.data_ptr(), phi.data_ptr(),
+            t.data_ptr(), g.data_ptr(), h2.data_ptr(), n, p, SYM_BLOCKS,
+            scratch.data_ptr(), phi.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _cuda.check(err, "sym_tile_kernel launch")
     svgd_phi_sym.launches += 1

@@ -827,20 +827,45 @@ def test_one_rank_nccl_fused_shard_at_the_class(dev):
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("n,p,shift,bound", [(1000, 303, 0.0, 1e-5),
-                                             (2048, 64, 0.0, 1e-5),
-                                             (300, 130, 0.25, 1e-4)])
+def _sym_h2(theta, dev):
+    """The median heuristic on a 128-row block, as the smoke's B11 cases
+    take h^2 (0.7, the JAX suite's B11 value, for a single particle)."""
+    n = theta.shape[0]
+    if n < 2:
+        return torch.full((), 0.7, device=dev)
+    return fused_median.warm_search_on_value(
+        row_subsample_block(theta, 128), torch.zeros((), device=dev),
+        30) / np.log(n)
+
+
+# The [large-n-sym] path's shape (n=10240, p=128), the NN shape, n=2048; off
+# the origin, |theta| 3.8-5.3; n and p that fill no tile, no unit and no
+# output group (n 1, 129, 257 x p 1, 7, 130); and lattice particles.
+@pytest.mark.parametrize("n,p,shift,bound", [
+    (10240, 128, 0.0, 1e-5), (1000, 303, 0.0, 1e-5), (2048, 64, 0.0, 1e-5),
+    (300, 130, 0.25, 1e-4),
+    *[(n, p, 0.0, 1e-5) for n in (1, 129, 257) for p in (1, 7, 130)],
+    (1000, 64, "lattice", 1e-6), (512, 130, "lattice", 1e-6)])
 def test_b11_against_plain(dev, n, p, shift, bound):
     """B11 (svgd_phi_sym) against its plain version: 1e-5 normalised near
     the origin, 1e-4 off it (B11 does not centre); two calls bitwise; the
-    launch counted once per call."""
-    rng = np.random.default_rng(n + p)
-    theta = torch.tensor(rng.normal(size=(n, p)) * 0.3 + shift,
-                         dtype=torch.float32, device=dev)
+    launch counted once per call. On lattice particles D is exact in f32 in
+    any summation order (and in 3xTF32: integers of at most 11 bits are
+    exact in tf32), so both form the same K and phi differs by the
+    contraction's order only: 1e-6."""
+    if shift == "lattice":
+        theta = _lattice(n, p, dev)
+        t64 = theta.double()
+        rsq = (theta * theta).sum(1, keepdim=True)
+        d32 = rsq + rsq.T - 2.0 * theta @ theta.T
+        assert torch.equal(d32.double(),
+                           ((t64[:, None] - t64[None]) ** 2).sum(-1))
+    else:
+        rng = np.random.default_rng(n + p)
+        theta = torch.tensor(rng.normal(size=(n, p)) * 0.3 + shift,
+                             dtype=torch.float32, device=dev)
     grads = torch.randn_like(theta)
-    h2 = fused_median.warm_search_on_value(
-        row_subsample_block(theta, 128), torch.zeros((), device=dev),
-        30) / np.log(n)
+    h2 = _sym_h2(theta, dev)
     svgd_tile.svgd_phi_sym.launches = 0
     got = svgd_tile.svgd_phi_sym(theta, grads, h2)
     again = svgd_tile.svgd_phi_sym(theta, grads, h2)
@@ -848,25 +873,26 @@ def test_b11_against_plain(dev, n, p, shift, bound):
     torch.cuda.synchronize()
     assert svgd_tile.svgd_phi_sym.launches == 2
     assert torch.equal(got, again)
+    assert bool(got.isfinite().all())
     assert _norm_err(got, want) <= bound
 
 
 @pytest.mark.parametrize("n,p", [(1000, 303), (2048, 64)])
-def test_b11_bands_bitwise(dev, monkeypatch, n, p):
-    """B11 with a 1 MiB scratch budget (one tile a band at p=303, seven at
-    p=64) gives the same bits as with the default budget (one band): the
-    accumulator adds each row's partials in the same order."""
+def test_b11_deterministic(dev, monkeypatch, n, p):
+    """Ten calls give the same bits, and so do grids of one and of seven
+    blocks (svgd_tile.SYM_BLOCKS): the slices add their contributions in
+    slot order whatever block takes whatever unit."""
     rng = np.random.default_rng(n)
     theta = torch.tensor(rng.normal(size=(n, p)) * 0.3, dtype=torch.float32,
                          device=dev)
     grads = torch.randn_like(theta)
-    whole = svgd_tile.svgd_phi_sym(theta, grads, 0.7)
-    monkeypatch.setattr(svgd_tile, "SYM_SCRATCH_MIB", 1)
-    svgd_tile.svgd_phi_sym.launches = 0
-    banded = svgd_tile.svgd_phi_sym(theta, grads, 0.7)
+    first = svgd_tile.svgd_phi_sym(theta, grads, 0.7)
+    calls = [svgd_tile.svgd_phi_sym(theta, grads, 0.7) for _ in range(9)]
+    for blocks in (1, 7):
+        monkeypatch.setattr(svgd_tile, "SYM_BLOCKS", blocks)
+        calls.append(svgd_tile.svgd_phi_sym(theta, grads, 0.7))
     torch.cuda.synchronize()
-    assert svgd_tile.svgd_phi_sym.launches == 1
-    assert torch.equal(whole, banded)
+    assert all(torch.equal(first, c) for c in calls)
 
 
 @pytest.mark.parametrize("rule", ["adam", "adagrad"])

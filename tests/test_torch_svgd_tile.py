@@ -120,40 +120,68 @@ def _sym_inputs(n, p, seed, shift=0.0, dtype=np.float32):
     return theta, grads, 0.7
 
 
-def _sym_err(theta, grads, h2, block):
+def _regrouped(theta, grads, h2):
+    """B11's phi in the CUDA kernel's grouping (csrc/svgd_sym.cu), in f32:
+    (K @ (g - theta / h^2) + ksum theta / h^2) / n, a contraction p wide,
+    K uncentred as the JAX kernel's."""
+    t, g = torch.from_numpy(theta), torch.from_numpy(grads)
+    n = t.shape[0]
+    rsq = torch.sum(t * t, dim=1, keepdim=True)
+    D = rsq + rsq.reshape(1, n) - 2.0 * torch.matmul(t, t.T)
+    K = torch.exp2(D / h2 * svgd_tile._LOG2E_HALF)
+    ksum = torch.sum(K, dim=1, keepdim=True)
+    return (torch.matmul(K, g - t / h2) + ksum * t / h2) / n
+
+
+def _sym_err(theta, grads, h2, block, form="wrapper"):
+    """max |got - want| / max |want| against the JAX kernel in interpret
+    mode; got is the port's wrapper (its plain version on the CPU), or, for
+    form='regrouped', the CUDA kernel's grouping (_regrouped)."""
     from stein_tpu.ops.pallas_svgd import pallas_svgd_phi_sym
 
     want = np.asarray(pallas_svgd_phi_sym(
         jnp.asarray(theta), jnp.asarray(grads), jnp.float32(h2), block=block,
         interpret=True))
-    got = svgd_tile.svgd_phi_sym(torch.from_numpy(theta),
-                                 torch.from_numpy(grads), h2, block=block)
-    assert got.dtype == torch.from_numpy(theta).dtype
+    if form == "regrouped":
+        got = _regrouped(theta, grads, h2)
+    else:
+        got = svgd_tile.svgd_phi_sym(torch.from_numpy(theta),
+                                     torch.from_numpy(grads), h2, block=block)
+        assert got.dtype == torch.from_numpy(theta).dtype
     assert str(want.dtype) == str(theta.dtype)
     return float(np.abs(got.numpy() - want).max() / np.abs(want).max())
 
 
+def _forms(cases):
+    """Each case through the wrapper (the case's own id) and through the
+    kernel's grouping (id + '-regrouped')."""
+    return [pytest.param(*c, form, id="-".join(map(str, c)) + suffix)
+            for c in cases
+            for form, suffix in (("wrapper", ""), ("regrouped", "-regrouped"))]
+
+
 # tests/test_pallas.py:109's shapes and blocks (ragged n, n a multiple of
 # the block, p < 8), within its 1e-5 normalised: the two sides sum K @ [G|T]
-# in other orders (measured 1.9-2.4e-7).
-@pytest.mark.parametrize("n,p,block", [(40, 8, 16), (64, 8, 16),
-                                       (100, 5, 32)])
-def test_plain_sym_matches_jax(n, p, block):
+# in other orders (measured 1.9-2.4e-7; the kernel's grouping 1.7-3.1e-7).
+@pytest.mark.parametrize("n,p,block,form", _forms([(40, 8, 16), (64, 8, 16),
+                                                   (100, 5, 32)]))
+def test_plain_sym_matches_jax(n, p, block, form):
     theta, grads, h2 = _sym_inputs(n, p, n + p)
-    assert _sym_err(theta, grads, h2, block) < 1e-5
+    assert _sym_err(theta, grads, h2, block, form) < 1e-5
 
 
 # Off the origin: B11 does not centre, so the f32 cancellation in ksum theta
 # - K theta grows with |theta|^2 (measured 1.3e-6 at n=100, p=8, |theta|
-# 2.3-3.9, and 1.3e-5 at n=96, p=130, |theta| 3.9-5.0); held to 1e-4
-# normalised.
-@pytest.mark.parametrize("n,p,block,shift", [(100, 8, 32, 1.0),
-                                             (96, 130, 32, 0.25)])
-def test_plain_sym_off_origin_matches_jax(n, p, block, shift):
+# 2.3-3.9, and 1.3e-5 at n=96, p=130, |theta| 3.9-5.0, in either grouping);
+# held to 1e-4 normalised. n=300, p=130 is chip_smoke.py's off-origin case
+# (|theta| 3.8-5.3, about 4.5; measured 1.9e-5).
+@pytest.mark.parametrize("n,p,block,shift,form", _forms([
+    (100, 8, 32, 1.0), (96, 130, 32, 0.25), (300, 130, 32, 0.25)]))
+def test_plain_sym_off_origin_matches_jax(n, p, block, shift, form):
     theta, grads, h2 = _sym_inputs(n, p, 3 * n + p, shift)
     dist = np.linalg.norm(theta, axis=1)
     assert dist.min() > 0.5 and dist.max() > 2.0
-    assert _sym_err(theta, grads, h2, block) < 1e-4
+    assert _sym_err(theta, grads, h2, block, form) < 1e-4
 
 
 def test_plain_sym_f64_round_trip():
