@@ -37,6 +37,23 @@ results, and times the steps and the kernels. Phases:
               steps, 5 against the CPU run
      large-n  linear regression at n=10240 (B3, B2), 50 steps, 4 against
               the plain functions on the card
+     covertype-e2e  BASELINE #2 as bench.py:213-281 runs it: the
+              464809-row Covertype-shaped training split on the card, 100
+              particles, train_minibatched(data, 6000, 50, key=7) through
+              step_impl='fused_model' (the logistic stage and B1 every
+              step): counts, a second call bitwise, train_on_batches on
+              minibatch_indices' batches bitwise, 10 steps against the
+              CPU, held-out accuracy of the particle-mean logits > 0.9
+              (beside the CPU's plain run), wall seconds and us/step
+     ksd      sampler.ksd (V and U) on [main]'s (dense) and [large-n]'s
+              (streaming) samplers against ksd_rbf in f64 on the card;
+              [main]'s below a tenth of theta0's
+     checkpoint  [main]'s configuration: save at step 250, restore into a
+              fresh sampler, 250 more steps bitwise; the file's signature
+              the JAX package's; train_with_recovery resumed halfway
+              bitwise on the uninterrupted run
+     kernel-imq  kernel=InverseMultiquadricKernel() at n=1000, p=128, 10
+              steps against the CPU at the reference-semantics class
      main-glm the n=1000 linear regression through throughput_config(
               model=) (step_impl='fused_glm': the glm stage, B1, B2), and
               BASELINE #1's route (n=50, Adagrad): counts, steps against
@@ -243,19 +260,28 @@ def bf16_excess(a, b):
                         - (5e-3 * np.abs(b).max() + 0.05 * np.abs(b))))
 
 
+# The fused_gram class (medians, phi_norm, then the samples' rtol / atol)
+# and the reference-semantics class (tests/test_torch_sampler.py's REF_TOL).
+FUSED_GRAM_CLASS = (5e-3, 1e-4, 2e-4, 1e-6)
+REFERENCE_CLASS = (1e-5, 1e-5, 1e-5, 1e-6)
+
+
 def check_class(label, what, got, want, steps, lr, eps_regime=None,
-                samples_excess=None):
+                samples_excess=None, tol=FUSED_GRAM_CLASS):
     """`got` against `want`, the run on `what` (dicts of numpy arrays:
     phi1, Adam's mu after step 1, i.e. the first clipped phi; samples,
     median and phi_norm after `steps` steps) at the fused_gram class:
     medians rtol 5e-3, phi_norm rtol 1e-4, phi1 and the samples rtol 2e-4
-    / atol 1e-6. The samples in Adam's eps regime are held through phi1
+    / atol 1e-6 (or the class `tol` names). The samples in Adam's eps
+    regime are held through phi1
     only, and that regime may hold at most 1 coordinate in 1000 (measured
     on the H100: 7.3e-5 at the NN shape, 7.5e-5 at n=3000, 1.6e-4 at
     n=10240, p=128). Adagrad runs pass adagrad_eps_regime, and |phi1|;
     bf16 runs pass bf16_excess, the class of their samples."""
+    med_tol, norm_tol, rtol, atol = tol
+
     def excess(a, b):
-        return float(np.max(np.abs(a - b) - (1e-6 + 2e-4 * np.abs(b))))
+        return float(np.max(np.abs(a - b) - (atol + rtol * np.abs(b))))
 
     med_rel = np.max(np.abs(got["median"] / want["median"] - 1))
     norm_rel = np.max(np.abs(got["phi_norm"] / want["phi_norm"] - 1))
@@ -272,18 +298,20 @@ def check_class(label, what, got, want, steps, lr, eps_regime=None,
         f"abs error {ill_err:.3e}); samples max abs "
         f"{np.abs(got['samples'] - want['samples']).max():.3e}, excess over "
         f"the class outside the eps regime {s_ex:.3e}")
-    if (med_rel > 5e-3 or norm_rel > 1e-4 or phi_ex > 0 or s_ex > 0
+    if (med_rel > med_tol or norm_rel > norm_tol or phi_ex > 0 or s_ex > 0
             or ill.mean() > 1e-3):
         fail(f"{label}: the first {steps} steps left the reference's class")
 
 
-def sampler_trial(make, batch, steps):
+def sampler_trial(make, batch, steps, drive=None):
     """check_class's dict for make(): one sampler's first step, another's
-    `steps` steps."""
+    `steps` steps; drive(sampler, batch, k) runs k steps (run() by
+    default)."""
+    drive = drive or (lambda s_, b, k: s_.run(b, k))
     first = make()
-    first.run(batch, 1)
+    drive(first, batch, 1)
     s = make()
-    aux = s.run(batch, steps)
+    aux = drive(s, batch, steps)
     opt = first.state.opt_state
     phi1 = opt.mu if hasattr(opt, "mu") else opt.hist.sqrt()
     return {"phi1": phi1.cpu().numpy(),
@@ -1464,6 +1492,295 @@ def run_tail_paths(dev, torch, counters, X, y, theta0, batch):
     return counts, timed
 
 
+# ---------------------------------------- the rest of the sampler (A2-A4)
+
+# BASELINE #2 as bench.py:213-281 runs it: Covertype's 581012 rows, the
+# 4/5 training split resident on the card, 100 particles, minibatch 50,
+# 6000 Adam iterations through train_minibatched (step_impl='fused_model').
+COV_ROWS, COV_D, COV_N, COV_BATCH, COV_STEPS = 581012, 54, 100, 50, 6000
+COV_TRAIN = COV_ROWS * 4 // 5
+COV_KEY = 7
+# The rule of tests/test_sampler.py:658 for the particle-mean logits.
+COV_ACCURACY = 0.9
+# The KSD on the card (f32) against ksd_rbf in f64 on the same particles
+# and scores. The f32 D = r + r^T - 2 T T^T loses about three digits to
+# cancellation near the posterior ([main]: |theta|^2 ~ 128 against
+# D ~ 0.25), so each K entry carries ~4e-4 relative error of either sign;
+# the bound is 5x that.
+KSD_RTOL = 2e-3
+CKPT_STEPS = 250
+IMQ_STEPS = 10
+
+
+def covertype_data(torch, dev):
+    """bench.py:237-243's draw (numpy seed 13): X [464809, 54] f32, w
+    [54, 1], y = (X w > 0), resident on the card; then, from the same
+    generator, a held-out set of the other 116203 rows labelled by the same
+    w (numpy, for the accuracy check)."""
+    rng = np.random.default_rng(13)
+    X = rng.normal(size=(COV_TRAIN, COV_D)).astype(np.float32)
+    w = rng.normal(size=(COV_D, 1))
+    y = (X @ w > 0).astype(np.float32)
+    Xh = rng.normal(size=(COV_ROWS - COV_TRAIN, COV_D)).astype(np.float32)
+    yh = (Xh @ w > 0).ravel()
+    return ({"X": torch.from_numpy(X).to(dev),
+             "y": torch.from_numpy(y).to(dev)}, Xh, yh)
+
+
+class MinibatchLoop:
+    """sampler.train_minibatched(data, k, COV_BATCH, COV_KEY) behind
+    run()'s interface, for profile_split and run_timed."""
+
+    def __init__(self, sampler, data):
+        self.sampler, self.data = sampler, data
+
+    def run(self, batch, k):
+        del batch
+        return self.sampler.train_minibatched(self.data, k, COV_BATCH,
+                                              COV_KEY)
+
+
+def timed_call(fn, torch):
+    """(fn()'s result, wall seconds, seconds by CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, start.elapsed_time(end) / 1e3
+
+
+def held_out_accuracy(sampler, model, Xh, yh, dev, torch):
+    """The share of held-out labels that the particle-mean logits
+    (function_posterior(..., axis=0)) get right."""
+    mean_logits = sampler.function_posterior(
+        model.logits, {"X": torch.from_numpy(Xh).to(dev)}, axis=0)
+    return float(np.mean((mean_logits > 0) == yh))
+
+
+def run_covertype(dev, torch, counters, gpu):
+    """[covertype-e2e]. Returns its launch counts and the loop to
+    profile."""
+    from stein_tpu_torch import Adam, SVGDSampler
+    from stein_tpu_torch.api import minibatch_indices
+    from stein_tpu_torch.models import LogisticRegressionModel
+
+    t_phase = time.perf_counter()
+    data, Xh, yh = covertype_data(torch, dev)
+    model = LogisticRegressionModel(COV_D, n_train=COV_TRAIN,
+                                    n_batch=COV_BATCH)
+    theta0 = np.random.default_rng(5).normal(size=(COV_N, COV_D + 1)) * 0.01
+    cfg = dict(median="bisect", median_passes=16, warm_median=True,
+               warm_passes=6, median_impl="fused", step_impl="fused_model",
+               inkernel_model=model.inkernel_model)
+
+    def make(device):
+        return SVGDSampler(COV_N, model.log_p, model.template(), Adam(1e-1),
+                           theta=theta0, device=device, **cfg)
+
+    log(f"[covertype-e2e] data X [{COV_TRAIN}, {COV_D}] f32 and y on the "
+        f"card ({(data['X'].numel() + data['y'].numel()) * 4 / 1e6:.1f} MB), "
+        f"held-out {Xh.shape[0]} rows; n={COV_N}, Adam(0.1), {cfg}")
+    a = make("cuda")
+    reset(counters)
+    aux, wall, ev = timed_call(lambda: a.train_minibatched(
+        data, COV_STEPS, COV_BATCH, COV_KEY), torch)
+    # The logistic stage and B1 every step. The carry's cold seed searches
+    # the [100, 100] block, 10^4 entries, below the quad-ary regime (more
+    # than 10^5) where B2 takes the search in both packages
+    # (fused_median.fused_block_ok): the plain search seeds it, so B2
+    # launches no time on this path.
+    counts = check_counts("covertype-e2e", counters,
+                          {"logistic": COV_STEPS, "B1": COV_STEPS})
+    check_finite("covertype-e2e", a, aux, COV_STEPS)
+    log(f"[covertype-e2e] {gpu}: train_minibatched(data, {COV_STEPS}, "
+        f"{COV_BATCH}, key={COV_KEY}) first call {wall:.3f} s wall, "
+        f"{ev * 1e6 / COV_STEPS:.2f} us/step by CUDA events; last step: "
+        + ", ".join(f"{k}={v[-1].item():.6g}" for k, v in aux.items()))
+
+    # A second call from the same state and key: bitwise the same.
+    b = make("cuda")
+    aux_b, wall_b, ev_b = timed_call(lambda: b.train_minibatched(
+        data, COV_STEPS, COV_BATCH, COV_KEY), torch)
+    log(f"[covertype-e2e] {gpu}: second call {wall_b:.3f} s wall for "
+        f"{COV_STEPS} iterations, {ev_b * 1e6 / COV_STEPS:.2f} us/step by "
+        "CUDA events")
+    if not (np.array_equal(a.samples, b.samples) and all(
+            torch.equal(aux[k], aux_b[k]) for k in aux)):
+        fail("[covertype-e2e] two calls from the same state and key differ")
+
+    # train_on_batches on the batches minibatch_indices draws for the key:
+    # bitwise the same run.
+    idx = minibatch_indices(COV_KEY, COV_STEPS, COV_BATCH, COV_TRAIN, dev)
+    batches = {k: v[idx] for k, v in data.items()}
+    c = make("cuda")
+    aux_c, wall_c, ev_c = timed_call(lambda: c.train_on_batches(batches),
+                                     torch)
+    same = np.array_equal(a.samples, c.samples) and all(
+        torch.equal(aux[k], aux_c[k]) for k in aux)
+    log(f"[covertype-e2e] train_on_batches on the same {COV_STEPS} gathered "
+        f"batches: bitwise equal {same}; {wall_c:.3f} s wall, "
+        f"{ev_c * 1e6 / COV_STEPS:.2f} us/step by CUDA events (no gather)")
+    if not same:
+        fail("[covertype-e2e] train_minibatched differs from "
+             "train_on_batches on its own indices")
+
+    # The first 10 steps against the CPU run of the same batches, at the
+    # fused_gram class (the model stage and B1's chain against their plain
+    # versions).
+    def drive(s_, b_, k):
+        return s_.train_on_batches({kk: v[:k] for kk, v in b_.items()})
+    cpu_batches = {k: v.cpu() for k, v in batches.items()}
+    check_class("covertype-e2e", "the CPU",
+                sampler_trial(lambda: make("cuda"), batches, 10, drive),
+                sampler_trial(lambda: make("cpu"), cpu_batches, 10, drive),
+                10, 0.1)
+
+    # Held-out accuracy of the particle-mean logits, on the card and for
+    # the CPU's plain run of the same 6000 batches.
+    acc = held_out_accuracy(a, model, Xh, yh, dev, torch)
+    cpu = make("cpu")
+    t0 = time.perf_counter()
+    cpu.train_on_batches(cpu_batches)
+    cpu_wall = time.perf_counter() - t0
+    acc_cpu = held_out_accuracy(cpu, model, Xh, yh, "cpu", torch)
+    log(f"[covertype-e2e] held-out accuracy {acc!r} on the card, "
+        f"{acc_cpu!r} for the CPU's plain run of the same batches "
+        f"({cpu_wall:.1f} s on the host); bound > {COV_ACCURACY}")
+    if not acc > COV_ACCURACY:
+        fail(f"[covertype-e2e] held-out accuracy {acc} <= {COV_ACCURACY}")
+    del batches, cpu_batches
+    log(f"[covertype-e2e] phase {time.perf_counter() - t_phase:.1f} s")
+    return counts, MinibatchLoop(a, data)
+
+
+def check_ksd(label, sampler, batch, torch):
+    """sampler.ksd (V and U) against ksd_rbf in f64 on the card on the same
+    particles and scores. Returns the V-statistic."""
+    from stein_tpu_torch.ops.diagnostics import KSD_DENSE_MAX_N, ksd_rbf
+
+    theta = sampler.state.particles
+    v = sampler.ksd(batch)
+    u = sampler.ksd(batch, u_statistic=True)
+    grads = sampler._score_fn(theta, batch)   # the scores ksd used
+    t64, g64 = theta.double(), grads.double()
+    v64 = ksd_rbf(t64, g64).item()
+    u64 = ksd_rbf(t64, g64, u_statistic=True).item()
+    rel = max(abs(v / v64 - 1), abs(u / u64 - 1))
+    form = "dense" if theta.shape[0] <= KSD_DENSE_MAX_N else "streaming"
+    log(f"[ksd] {label} (n={theta.shape[0]}, {form}): V {v!r} vs f64 "
+        f"{v64!r}, U {u!r} vs f64 {u64!r}; max relative gap {rel:.3e} "
+        f"(bound {KSD_RTOL:g})")
+    if not (np.isfinite(v) and np.isfinite(u)) or rel > KSD_RTOL:
+        fail(f"[ksd] {label}: the card's KSD is off the f64 one")
+    return v
+
+
+def run_slice_phases(dev, torch, counters, gpu, main_make, main_sampler,
+                     batch, big, lr_batch):
+    """[ksd] on [main]'s and [large-n]'s samplers after their runs,
+    [checkpoint] and [kernel-imq] on [main]'s configuration. Returns each
+    path's launch counts."""
+    from stein_tpu_torch import InverseMultiquadricKernel
+    from stein_tpu_torch.utils.recovery import train_with_recovery
+
+    counts = {}
+    t_phase = time.perf_counter()
+    reset(counters)
+    v_main = check_ksd("main", main_sampler, batch, torch)
+    check_ksd("large-n", big, lr_batch, torch)
+    v0 = main_make("cuda").ksd(batch)
+    log(f"[ksd] main: KSD at theta0 {v0!r}, after {STEPS} steps {v_main!r} "
+        "(must be below a tenth)")
+    if not 0 <= v_main < v0 / 10:
+        fail("[ksd] the KSD did not fall below a tenth of theta0's")
+    # ksd is plain PyTorch (the JAX package computes it outside any
+    # kernel): no kernel of the port launches.
+    counts["ksd"] = check_counts("ksd", counters, {})
+    log(f"[ksd] phase {time.perf_counter() - t_phase:.1f} s")
+
+    # [checkpoint]: 250 steps, save, 250 more; a fresh sampler restores and
+    # runs the same 250: bitwise equal. train_with_recovery stopped at the
+    # halfway checkpoint and resumed in a fresh sampler ends bitwise on the
+    # uninterrupted run.
+    t_phase = time.perf_counter()
+    work = os.path.join(HERE, "build", "chip_smoke_ckpt")
+    os.makedirs(work, exist_ok=True)
+    for name in os.listdir(work):
+        os.remove(os.path.join(work, name))
+    path = os.path.join(work, "main.npz")
+    reset(counters)
+    s1 = main_make("cuda")
+    s1.run(batch, CKPT_STEPS)
+    s1.save(path)
+    s1.run(batch, CKPT_STEPS)
+    s2 = main_make("cuda")
+    s2.restore(path)
+    restored_step = int(s2.state.step)
+    s2.run(batch, CKPT_STEPS)
+    with np.load(path) as f:
+        meta = [str(x) for x in f["__meta__"]]
+    want_sig = (".particles|.opt_state.mu|.opt_state.nu|.opt_state.count|"
+                ".opt_state.learning_rate|.step")
+
+    def make_batches(start, k):
+        return {key: v.expand(k, *v.shape) for key, v in batch.items()}
+    ref = main_make("cuda")
+    train_with_recovery(ref, 2 * CKPT_STEPS, make_batches,
+                        os.path.join(work, "ref.npz"), ckpt_every=CKPT_STEPS)
+    rec_path = os.path.join(work, "recovery.npz")
+    half = main_make("cuda")
+    train_with_recovery(half, CKPT_STEPS, make_batches, rec_path,
+                        ckpt_every=CKPT_STEPS)
+    resumed = main_make("cuda")
+    executed = train_with_recovery(resumed, 2 * CKPT_STEPS, make_batches,
+                                   rec_path, ckpt_every=CKPT_STEPS)
+    torch.cuda.synchronize()
+    # run: s1 2 calls, s2 1; train_with_recovery: ref 2 chunks, half 1,
+    # resumed 1. B2 seeds each call's carry.
+    counts["checkpoint"] = check_counts("checkpoint", counters, {
+        "B1": 7 * CKPT_STEPS, "B2": 7})
+    same = np.array_equal(s1.samples, s2.samples) and all(
+        torch.equal(x, y) for x, y in zip(s1.state.opt_state,
+                                          s2.state.opt_state))
+    same_rec = np.array_equal(resumed.samples, ref.samples)
+    log(f"[checkpoint] save at step {CKPT_STEPS}, restored step "
+        f"{restored_step}, {CKPT_STEPS} more steps bitwise equal {same}; "
+        f"__meta__ {meta}; train_with_recovery resumed at step "
+        f"{CKPT_STEPS} ran {executed} steps, bitwise equal to the "
+        f"uninterrupted run {same_rec}")
+    if not (same and same_rec and executed == CKPT_STEPS
+            and restored_step == CKPT_STEPS):
+        fail("[checkpoint] a restored run differs from the saved one")
+    if meta != ["2", want_sig]:
+        fail(f"[checkpoint] __meta__ {meta} is not the JAX package's")
+    log(f"[checkpoint] phase {time.perf_counter() - t_phase:.1f} s")
+
+    # [kernel-imq]: kernel=InverseMultiquadricKernel() at [main]'s shape
+    # (plain PyTorch on the card, as the JAX package computes the generic
+    # path outside any kernel), 10 steps against the CPU run at the
+    # reference-semantics class.
+    t_phase = time.perf_counter()
+
+    def imq(device):
+        return main_make(device, kernel=InverseMultiquadricKernel())
+    reset(counters)
+    got = sampler_trial(lambda: imq("cuda"), batch, IMQ_STEPS)
+    counts["kernel-imq"] = check_counts("kernel-imq", counters, {})
+    check_class("kernel-imq", "the CPU", got,
+                sampler_trial(lambda: imq("cpu"),
+                              {k: v.cpu() for k, v in batch.items()},
+                              IMQ_STEPS),
+                IMQ_STEPS, 0.1, tol=REFERENCE_CLASS)
+    if not np.all(np.isfinite(got["samples"])):
+        fail("[kernel-imq] non-finite samples")
+    log(f"[kernel-imq] phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 # ------------------------------------------------------------ the mesh
 
 def check_bracket_kernels(dev, torch, theta, nn_theta):
@@ -2396,6 +2713,18 @@ def main():
      nn_large) = run_nn_paths(
         dev, torch, nn_model, counters)
     path_counts["main"] = launches
+
+    def main_make(device, **over):
+        """[main]'s sampler from theta0; ``over`` replaces
+        throughput_config's options."""
+        return SVGDSampler(N, model.log_p, model.template(), Adam(1e-1),
+                           theta=theta0, device=device, **(over or kw))
+
+    cov_counts, cov_loop = run_covertype(dev, torch, counters, gpu)
+    path_counts["covertype-e2e"] = cov_counts
+    path_counts.update(run_slice_phases(dev, torch, counters, gpu,
+                                        main_make, sampler, batch, big,
+                                        lr_batch))
     tail_counts, tail_timed = run_tail_paths(dev, torch, counters, X, y,
                                              theta0, batch)
     path_counts.update(tail_counts)
@@ -2773,6 +3102,7 @@ def main():
         profile_split(label, s_, b_, 10 if label == "large-n-epilogue" else 20,
                       torch, gpu)
     profile_split("main-nn-pblock", pb_loop, pb_batch, 20, torch, gpu)
+    profile_split("covertype-e2e", cov_loop, None, 20, torch, gpu)
     profile_split("large-n-sym", sym_loops["B11"], None, 10, torch, gpu)
 
     total = {k: sum(c[k] for c in path_counts.values()) for k in counters}

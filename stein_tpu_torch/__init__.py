@@ -15,6 +15,7 @@ from .api import (
     SteinSampler,
     throughput_config,
 )
+from .kernels import InverseMultiquadricKernel, SquaredExponentialKernel
 from .models import BayesianNNModel, LogisticRegressionModel
 from .ops.fused_step import InKernelModel
 from .ops.optimizers import (
@@ -37,4 +38,6 @@ __all__ = [
     "Adagrad",
     "AdamGradientDescent",
     "AdagradGradientDescent",
+    "SquaredExponentialKernel",
+    "InverseMultiquadricKernel",
 ]

@@ -15,21 +15,28 @@ Ported: the reference path (``step_impl='xla'``, ``median`` in
 'fused_gram'}), the streaming tile (``kernel_impl='pallas'``, at either
 ``pallas_precision``), every
 single-device step tail (``step_impl`` 'fused', 'fused_gram', 'fused_glm',
-'fused_model' and 'epilogue'), ``custom_grads=``, and the 1-D particle mesh
-(``mesh=``, ``parallel/``: the mesh steps and ``step_impl='fused_shard'``).
-Every other option raises ``NotImplementedError`` naming the ROADMAP.md item
-that will port it.
+'fused_model' and 'epilogue'), ``custom_grads=``, ``remat=``, ``kernel=``
+(``kernels/``), the 1-D particle mesh (``mesh=``, ``parallel/``: the mesh
+steps and ``step_impl='fused_shard'``), and every method of the JAX
+sampler: ``run``, ``train_on_batch``, ``train_on_batches``,
+``train_minibatched``, ``function_posterior``, ``ksd``, ``save`` and
+``restore``. Every other option raises ``NotImplementedError`` naming the
+ROADMAP.md item that will port it.
 """
 
 import functools
 import warnings
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
-from torch.func import grad_and_value, vmap
+import torch.utils.checkpoint
+from torch.func import grad, grad_and_value, vmap
 
 from . import _device
+from .kernels import SquaredExponentialKernel, generic_svgd_phi
 from .ops import rbf, svgd_tile
+from .ops.diagnostics import ksd_rbf
 from .ops.fused_median import (
     bracket_pass_fits,
     dist_block,
@@ -39,6 +46,7 @@ from .ops.fused_median import (
 )
 from .ops.fused_step import (
     FUSED_STEP_VMEM_BUDGET,
+    InKernelModel,
     fused_epilogue,
     fused_step_fits,
     fused_step_vmem_bytes,
@@ -86,16 +94,43 @@ class SVGDState(NamedTuple):
     step: torch.Tensor       # 0-d int32
 
 
-def _make_grad_all(log_p, unravel_fn, custom_grads=None):
+def _make_grad_all(log_p, unravel_fn, custom_grads=None, remat=False):
     """vmap(grad_and_value) over flat particle rows; returns
     grad_all(theta, batch) -> (log_p values [n], grads [n, p]).
     ``custom_grads`` (a callable of that signature, e.g.
-    BayesianNNModel.pallas_grads()) replaces the autodiff stage."""
+    BayesianNNModel.pallas_grads()) replaces the autodiff stage.
+
+    ``remat=True`` recomputes log_p's forward in the backward instead of
+    keeping its activations (``stein_tpu/api.py:418``, jax.checkpoint).
+    torch.func's transforms refuse saved-tensor hooks, so
+    torch.utils.checkpoint cannot sit inside grad_and_value: the vmapped
+    forward runs inside the checkpoint on a leaf copy of theta, and
+    torch.autograd takes the gradient of the sum of the values. The rows
+    are independent, so that gradient is each row's own."""
     if custom_grads is not None:
+        if remat:
+            raise ValueError(
+                "custom_grads= supplies its own gradient computation; "
+                "remat=True (checkpointed autodiff) does not apply; drop "
+                "one of the two"
+            )
         return custom_grads
 
     def log_p_flat(theta_row, batch):
         return log_p(unravel_fn(theta_row), batch)
+
+    if remat:
+        forward = vmap(log_p_flat, in_dims=(0, None))
+
+        def grad_all(theta, batch):
+            with torch.enable_grad():
+                leaf = theta.detach().requires_grad_()
+                values = torch.utils.checkpoint.checkpoint(
+                    forward, leaf, batch, use_reentrant=False)
+                grads, = torch.autograd.grad(values.sum(), leaf)
+            return values.detach(), grads
+
+        return grad_all
 
     both = vmap(grad_and_value(log_p_flat), in_dims=(0, None))
 
@@ -146,13 +181,17 @@ def _pallas_only_bisect(median):
 
 def make_phi_fn(n_particles, median="exact", kernel_impl="xla",
                 median_max_rows=512, median_passes=30, median_impl="xla",
-                pallas_precision="f32"):
+                pallas_precision="f32", kernel=None):
     """Build phi_fn(theta, grads) -> (phi, aux), the cold step's phi.
     ``median_impl='fused'`` runs the cold bisect search as kernel B2 where
     the block is in its envelope (ops.fused_median.fused_block_ok);
     ``'fused_gram'`` computes the block's Gram in a kernel too (B5, or
     B4 then B2). ``kernel_impl='pallas'`` is the streaming tile (B3), its
-    products at ``pallas_precision`` ('f32' or 'bf16' operands)."""
+    products at ``pallas_precision`` ('f32' or 'bf16' operands). A
+    ``kernel`` (``kernels/``) other than exactly SquaredExponentialKernel
+    takes the generic two-matrix path (``kernels.generic_svgd_phi``): a
+    subclass may override ``weights()``, so only the exact class takes
+    the fused RBF paths (``stein_tpu/api.py:184-207``)."""
     if median_impl not in ("xla", "fused", "fused_gram"):
         raise ValueError(f"unknown median_impl: {median_impl!r}")
     if kernel_impl not in ("xla", "pallas"):
@@ -168,19 +207,34 @@ def make_phi_fn(n_particles, median="exact", kernel_impl="xla",
                                           warm_passes=median_passes)
         return None
 
+    def bisect_on_D(D):
+        med = fused_cold_or_none(_strided_rows(D, median_max_rows))
+        if med is not None:
+            return med
+        return bisect_median_on_D(D, max_rows=median_max_rows,
+                                  passes=median_passes)
+
+    if kernel is not None and type(kernel) is not SquaredExponentialKernel:
+        if kernel_impl != "xla":
+            raise ValueError(
+                "kernel_impl='pallas' supports only the RBF kernel; use "
+                "kernel_impl='xla' for custom kernels"
+            )
+        if median == "bisect":
+            return lambda theta, grads: generic_svgd_phi(
+                kernel, theta, grads, median_fn=bisect_on_D)
+
+        def generic_exact(theta, grads):
+            med = exact_median(rbf.pairwise_sq_dists(theta))
+            return generic_svgd_phi(kernel, theta, grads,
+                                    median_fn=lambda D: med)
+        return generic_exact
+
     if kernel_impl == "xla":
         if median == "exact":
             return lambda theta, grads: rbf.svgd_phi(
                 theta, grads, median_fn=exact_median
             )
-
-        def bisect_on_D(D):
-            med = fused_cold_or_none(_strided_rows(D, median_max_rows))
-            if med is not None:
-                return med
-            return bisect_median_on_D(D, max_rows=median_max_rows,
-                                      passes=median_passes)
-
         return lambda theta, grads: rbf.svgd_phi(theta, grads,
                                                  median_fn=bisect_on_D)
 
@@ -287,9 +341,10 @@ def make_warm_phi_fn(n_particles, kernel_impl="xla", median_max_rows=512,
 
 
 def make_step_fn(log_p, unravel_fn, gd, phi_fn, max_phi_norm=10.0,
-                 custom_grads=None):
+                 custom_grads=None, remat=False):
     """The SVGD step: (state, batch) -> (state, aux)."""
-    grad_all = _make_grad_all(log_p, unravel_fn, custom_grads=custom_grads)
+    grad_all = _make_grad_all(log_p, unravel_fn, custom_grads=custom_grads,
+                              remat=remat)
 
     def step_fn(state, batch):
         theta = state.particles
@@ -306,9 +361,10 @@ def make_step_fn(log_p, unravel_fn, gd, phi_fn, max_phi_norm=10.0,
 
 
 def make_warm_step_fn(log_p, unravel_fn, gd, warm_phi_fn,
-                      max_phi_norm=10.0, custom_grads=None):
+                      max_phi_norm=10.0, custom_grads=None, remat=False):
     """Warm-median step; the carry is (SVGDState, med_prev)."""
-    grad_all = _make_grad_all(log_p, unravel_fn, custom_grads=custom_grads)
+    grad_all = _make_grad_all(log_p, unravel_fn, custom_grads=custom_grads,
+                              remat=remat)
 
     def step_fn(carry, batch):
         state, med_prev = carry
@@ -329,7 +385,8 @@ def make_warm_step_fn(log_p, unravel_fn, gd, warm_phi_fn,
 def make_fused_warm_step_fn(log_p, unravel_fn, gd, max_phi_norm=10.0,
                             median_max_rows=512, median_passes=30,
                             warm_passes=8, gram_in_kernel=False,
-                            quadratic_form=None, inkernel_model=None):
+                            quadratic_form=None, inkernel_model=None,
+                            remat=False):
     """Warm step whose post-gradient tail is kernel B1
     (ops.fused_step.fused_warm_step_tail). ``gram_in_kernel=True``
     (step_impl='fused_gram') computes D in the chain; False
@@ -339,7 +396,7 @@ def make_fused_warm_step_fn(log_p, unravel_fn, gd, max_phi_norm=10.0,
     (step_impl='fused_model') computes the gradients and log_p values in
     the chain too; log_p_mean is then its mean plus the model's const.
     Returns (step_fn, init_med) with make_warm_step_fn's carry."""
-    grad_all = _make_grad_all(log_p, unravel_fn)
+    grad_all = _make_grad_all(log_p, unravel_fn, remat=remat)
 
     def step_fn(carry, batch):
         state, med_prev = carry
@@ -383,7 +440,7 @@ def make_fused_warm_step_fn(log_p, unravel_fn, gd, max_phi_norm=10.0,
 def make_epilogue_warm_step_fn(log_p, unravel_fn, gd, n_particles,
                                max_phi_norm=10.0, median_max_rows=512,
                                median_passes=30, warm_passes=8,
-                               median_impl="xla"):
+                               median_impl="xla", remat=False):
     """Warm step of the large-n streaming-tile path whose tail — the phi
     combine, the global-norm clip and the optimizer update — is kernel B6
     (ops.fused_step.fused_epilogue): step_impl='epilogue'. The tile (B3)
@@ -393,7 +450,7 @@ def make_epilogue_warm_step_fn(log_p, unravel_fn, gd, n_particles,
     (step_fn, init_med) with make_warm_step_fn's carry."""
     compute_med, init_med, _ = _make_warm_median_fns(
         median_max_rows, median_passes, warm_passes, median_impl)
-    grad_all = _make_grad_all(log_p, unravel_fn)
+    grad_all = _make_grad_all(log_p, unravel_fn, remat=remat)
 
     def step_fn(carry, batch):
         state, med_prev = carry
@@ -414,6 +471,118 @@ def make_epilogue_warm_step_fn(log_p, unravel_fn, gd, n_particles,
         return (new_state, med), aux
 
     return step_fn, init_med
+
+
+def _shape(x):
+    """Shape of a tensor or of any array-like (np.shape: None is ())."""
+    return tuple(x.shape) if isinstance(x, torch.Tensor) else np.shape(x)
+
+
+def _probe_device(probe_batch):
+    """Where the probe's particles go: the probe batch's device (its first
+    tensor), else the default device of the port (the current card)."""
+    leaves = _tensor_leaves(probe_batch)
+    if leaves:
+        return leaves[0].device
+    return _device.resolve_device(None, "throughput_config(probe_batch=)")
+
+
+def _probe_model_hooks(model, n_particles, n_params, probe_batch):
+    """throughput_config's check of a model's fused-step hook
+    (``stein_tpu/api.py:680``): call the selected hook (``quadratic_form``
+    wins, as in the selection) once on ``probe_batch`` and check its
+    contract shapes, so a wrong hook fails here with a readable
+    ValueError. The JAX package shape-traces the InKernelModel's grad_fn
+    with jax.eval_shape; here it is called once on zeros of [n, p] on the
+    operands' device, so on a card it launches its kernel (the port's
+    contract: (grads [n, p], log_p [n]))."""
+    p = n_params
+    if hasattr(model, "quadratic_form"):
+        try:
+            A_eff, b_eff, const = model.quadratic_form(probe_batch)
+        except Exception as e:
+            raise ValueError(
+                "throughput_config probe: model.quadratic_form(probe_batch) "
+                f"raised {type(e).__name__}: {e} — the fused_glm step would "
+                "fail at its first step; fix the hook or drop model="
+            ) from e
+        a_shape, b_shape = _shape(A_eff), _shape(b_eff)
+        if a_shape != (p, p) or int(np.prod(b_shape)) != p:
+            raise ValueError(
+                "throughput_config probe: quadratic_form must return "
+                f"(A_eff [p, p], b_eff [p], const) for p={p}; got "
+                f"A_eff {a_shape}, b_eff {b_shape}"
+            )
+        return
+    try:
+        m = model.inkernel_model(probe_batch)
+    except Exception as e:
+        raise ValueError(
+            "throughput_config probe: model.inkernel_model(probe_batch) "
+            f"raised {type(e).__name__}: {e} — the fused_model step would "
+            "fail at its first step; fix the hook or drop model="
+        ) from e
+    if not isinstance(m, InKernelModel):
+        raise ValueError(
+            "throughput_config probe: inkernel_model must return an "
+            f"ops.fused_step.InKernelModel, got {type(m).__name__}"
+        )
+    for i, op in enumerate(m.operands):
+        if op.dim() < 2:
+            raise ValueError(
+                f"throughput_config probe: in-kernel model operand {i} "
+                f"must be >=2-D (the JAX protocol's layout rule; got shape "
+                f"{tuple(op.shape)}); reshape rows/scalars to [1, k]"
+            )
+    dev = m.operands[0].device if m.operands else _probe_device(probe_batch)
+    theta = torch.zeros(n_particles, p, dtype=torch.float32, device=dev)
+    try:
+        g, lp = m.grad_fn(theta, *m.operands)
+    except Exception as e:
+        raise ValueError(
+            "throughput_config probe: the InKernelModel's grad_fn failed "
+            f"on [{n_particles}, {p}] particles ({type(e).__name__}: {e}) "
+            "— it would fail inside the fused step"
+        ) from e
+    if _shape(g) != (n_particles, p):
+        raise ValueError(
+            "throughput_config probe: grad_fn must return "
+            f"(grads [{n_particles}, {p}], log_p [{n_particles}]); got "
+            f"grads {_shape(g)}"
+        )
+    if _shape(lp) != (n_particles,):
+        raise ValueError(
+            "throughput_config probe: grad_fn's second return (log_p) "
+            f"must be [{n_particles}]; got shape {_shape(lp)}"
+        )
+
+
+def _probe_custom_grads(hook, n_particles, n_params, probe_batch):
+    """throughput_config's check of a custom_grads hook (e.g.
+    BayesianNNModel.pallas_grads(); ``stein_tpu/api.py:763``): the JAX
+    package shape-traces it with jax.eval_shape; here it is called once on
+    zeros of [n, p] on the probe batch's device (on a card the hook's
+    kernel launches once). Contract: (theta [n, p], batch) ->
+    (logp_vals [n], grads [n, p])."""
+    theta = torch.zeros(n_particles, n_params, dtype=torch.float32,
+                        device=_probe_device(probe_batch))
+    try:
+        lp, g = hook(theta, probe_batch)
+    except Exception as e:
+        raise ValueError(
+            "throughput_config probe: the model's pallas_grads hook "
+            f"failed on [{n_particles}, {n_params}] particles "
+            f"({type(e).__name__}: {e}) — the custom_grads stage would "
+            "fail at its first step; fix the hook or drop model="
+        ) from e
+    if _shape(g) != (n_particles, n_params) or \
+            _shape(lp) != (n_particles,):
+        raise ValueError(
+            "throughput_config probe: custom_grads must return "
+            f"(logp_vals [{n_particles}], grads "
+            f"[{n_particles}, {n_params}]); got ({_shape(lp)}, "
+            f"{_shape(g)})"
+        )
 
 
 def throughput_config(n_particles, n_params, mesh=None, model_axis=None,
@@ -440,10 +609,13 @@ def throughput_config(n_particles, n_params, mesh=None, model_axis=None,
     ``quadratic_form`` or ``pallas_grads`` hook; beyond the gate, the
     streaming tile. ``pallas_interpret`` is accepted for parity and
     ignored: the dict never carries it (the CUDA kernels have no interpret
-    mode)."""
+    mode).
+
+    ``probe_batch=`` (with ``model=``): every branch that wires a model
+    hook calls it once on this batch and checks its contract shapes
+    (``_probe_model_hooks``, ``_probe_custom_grads``), raising the JAX
+    package's ValueError where the hook is wrong."""
     del pallas_interpret
-    if probe_batch is not None:
-        raise _unported("throughput_config(probe_batch=...)", "A3")
     f32 = dtype == torch.float32
     cfg = dict(median="bisect", warm_median=True, dtype=dtype)
     large = n_particles >= 4096
@@ -467,9 +639,16 @@ def throughput_config(n_particles, n_params, mesh=None, model_axis=None,
                 if not large:
                     cfg["median_max_rows"] = 256
                 if model is not None and hasattr(model, "quadratic_form"):
+                    if probe_batch is not None:
+                        _probe_model_hooks(model, n_particles, n_params,
+                                           probe_batch)
                     cfg["quadratic_form"] = model.quadratic_form
                 elif model is not None and hasattr(model, "pallas_grads"):
-                    cfg["custom_grads"] = model.pallas_grads()
+                    hook = model.pallas_grads()
+                    if probe_batch is not None:
+                        _probe_custom_grads(hook, n_particles, n_params,
+                                            probe_batch)
+                    cfg["custom_grads"] = hook
             elif large:
                 cfg.update(kernel_impl="pallas", pallas_block=1024)
             elif n_params >= 256:
@@ -481,6 +660,10 @@ def throughput_config(n_particles, n_params, mesh=None, model_axis=None,
                        min(cfg.get("median_max_rows", 512), 256)):
         cfg.update(step_impl="fused_gram", median_impl="fused",
                    median_max_rows=256)
+        if model is not None and probe_batch is not None and (
+                hasattr(model, "quadratic_form")
+                or hasattr(model, "inkernel_model")):
+            _probe_model_hooks(model, n_particles, n_params, probe_batch)
         if model is not None and hasattr(model, "quadratic_form"):
             cfg.update(step_impl="fused_glm",
                        quadratic_form=model.quadratic_form,
@@ -497,7 +680,10 @@ def throughput_config(n_particles, n_params, mesh=None, model_axis=None,
         cfg.update(kernel_impl="pallas", pallas_block=512,
                    median_impl="fused_gram", median_max_rows=128)
         if model is not None and hasattr(model, "pallas_grads"):
-            cfg["custom_grads"] = model.pallas_grads()
+            hook = model.pallas_grads()
+            if probe_batch is not None:
+                _probe_custom_grads(hook, n_particles, n_params, probe_batch)
+            cfg["custom_grads"] = hook
     return cfg
 
 
@@ -514,7 +700,9 @@ def _check_options(n_params, dtype, median, kernel_impl, median_max_rows,
                    custom_grads, remat, pallas_precision, quadratic_form,
                    inkernel_model):
     """The JAX sampler's ValueError guards, in its order, then the
-    NotImplementedError of every option the port does not run yet."""
+    NotImplementedError of every option the port does not run yet.
+    ``kernel`` is None for the default RBF kernel (an exact
+    SquaredExponentialKernel included)."""
     f32 = dtype == torch.float32
     if median_impl not in ("xla", "fused", "fused_gram"):
         raise ValueError(f"unknown median_impl: {median_impl!r}")
@@ -604,10 +792,11 @@ def _check_options(n_params, dtype, median, kernel_impl, median_max_rows,
         raise ValueError(f"unknown median mode: {median!r}")
     if pallas_precision not in svgd_tile.PRECISIONS:
         raise ValueError(f"unknown pallas_precision: {pallas_precision!r}")
-    if kernel is not None:
-        raise _unported("kernel=", "A3")
-    if remat:
-        raise _unported("remat=True", "A2")
+    if kernel is not None and kernel_impl != "xla":
+        raise ValueError(
+            "kernel_impl='pallas' supports only the RBF kernel; use "
+            "kernel_impl='xla' for custom kernels"
+        )
 
 
 def _check_mesh_options(dtype, median, kernel_impl, kernel, warm_median,
@@ -695,10 +884,6 @@ def _check_mesh_options(dtype, median, kernel_impl, kernel, warm_median,
         raise _unported(f"median={median!r}", "A5")
     if pallas_precision not in svgd_tile.PRECISIONS:
         raise ValueError(f"unknown pallas_precision: {pallas_precision!r}")
-    if kernel is not None:
-        raise _unported("kernel=", "A3")
-    if remat:
-        raise _unported("remat=True", "A2")
 
 
 class SVGDSampler:
@@ -722,11 +907,12 @@ class SVGDSampler:
         processes, each of which builds the same sampler (the same
         ``generator`` seed or ``theta``) and keeps its block. ``device``
         must be of the mesh's kind (NCCL: cuda, gloo: cpu). ``run``,
-        ``train_on_batch`` and ``load_state`` work on the local block;
-        ``samples`` and ``theta`` all-gather the full particles, so every
-        rank must read them. ``comm``, ``median_collectives`` and
-        ``median_grid_g1`` are the JAX sampler's; ``model_axis`` (the 2-D
-        mesh) is not ported.
+        ``train_on_batch(es)``, ``train_minibatched`` and ``load_state``
+        work on the local block; ``samples``, ``theta``,
+        ``function_posterior``, ``ksd`` and ``save`` all-gather the full
+        particles, so every rank must call them. ``comm``,
+        ``median_collectives`` and ``median_grid_g1`` are the JAX
+        sampler's; ``model_axis`` (the 2-D mesh) is not ported.
     pallas_block, donate, pallas_interpret : accepted so JAX configs carry
         over and ignored: the CUDA tile's sizes are its own, PyTorch runs
         eagerly with no buffers to donate, and the kernels have no
@@ -741,6 +927,12 @@ class SVGDSampler:
     custom_grads : a callable (theta [n, p], batch) -> (logp [n],
         grads [n, p]) replacing the autodiff gradient stage, e.g.
         ``BayesianNNModel.pallas_grads()`` (kernel B7).
+    remat : recompute log_p's forward in the backward of the gradient
+        stage (``torch.utils.checkpoint``; see ``_make_grad_all``).
+    kernel : a ``kernels/`` kernel. An exact ``SquaredExponentialKernel``
+        is the default RBF kernel; any other (a subclass included) takes
+        the generic two-matrix path with ``kernel_impl='xla'`` and the
+        cold step (``warm_median`` and the fused tails refuse it).
     quadratic_form, inkernel_model : a model's hooks for
         step_impl='fused_glm' (``LinearRegressionModel.quadratic_form``)
         and 'fused_model' (``LogisticRegressionModel.inkernel_model``),
@@ -772,12 +964,19 @@ class SVGDSampler:
         if (binned_bins, binned_block_rows) != (4096, 256):
             raise _unported("binned_bins= and binned_block_rows= (the "
                             "median='binned' settings)", "A5")
+        if type(kernel) is SquaredExponentialKernel:
+            # The default kernel itself: every dispatch (the fused RBF
+            # paths, the warm_median guards) treats it as kernel=None. A
+            # subclass may override weights() and stays generic.
+            kernel = None
         self.device = _device.resolve_device(device, "SVGDSampler")
         self.mesh = mesh
         self.log_p = log_p
         self.gd = gd
         self.dtype = dtype
         self.n_params, self.unravel_fn = template_unraveler(param_template)
+        self._posterior_cache = {}
+        self._score_fn = None
         if mesh is None:
             _check_options(self.n_params, dtype, median, kernel_impl,
                            median_max_rows, self.n_particles, kernel,
@@ -832,7 +1031,8 @@ class SVGDSampler:
                 step_impl=step_impl, quadratic_form=quadratic_form,
                 median_collectives=median_collectives,
                 median_grid_g1=median_grid_g1,
-                pallas_precision=pallas_precision)
+                pallas_precision=pallas_precision, kernel=kernel,
+                remat=remat)
             return
 
         if median == "exact":
@@ -852,8 +1052,9 @@ class SVGDSampler:
                         median_max_rows=median_max_rows,
                         median_passes=median_passes,
                         median_impl=median_impl,
-                        pallas_precision=pallas_precision),
+                        pallas_precision=pallas_precision, kernel=kernel),
             max_phi_norm=max_phi_norm, custom_grads=custom_grads,
+            remat=remat,
         )
         self._warm_step_fn = None
         if warm_median:
@@ -867,7 +1068,7 @@ class SVGDSampler:
                         warm_passes=warm_passes,
                         gram_in_kernel=step_impl != "fused",
                         quadratic_form=quadratic_form,
-                        inkernel_model=inkernel_model,
+                        inkernel_model=inkernel_model, remat=remat,
                     )
             elif step_impl == "epilogue":
                 self._warm_step_fn, self._warm_init_med = \
@@ -877,6 +1078,7 @@ class SVGDSampler:
                         median_max_rows=median_max_rows,
                         median_passes=median_passes,
                         warm_passes=warm_passes, median_impl=median_impl,
+                        remat=remat,
                     )
             else:
                 warm_phi = make_warm_phi_fn(
@@ -889,6 +1091,7 @@ class SVGDSampler:
                 self._warm_step_fn = make_warm_step_fn(
                     log_p, self.unravel_fn, gd, warm_phi,
                     max_phi_norm=max_phi_norm, custom_grads=custom_grads,
+                    remat=remat,
                 )
                 self._warm_init_med = warm_phi.init_med
 
@@ -896,7 +1099,7 @@ class SVGDSampler:
                           median_max_rows, median_passes, kernel_impl,
                           custom_grads, warm_median, warm_passes, step_impl,
                           quadratic_form, median_collectives, median_grid_g1,
-                          pallas_precision):
+                          pallas_precision, kernel, remat):
         """The mesh steps, as the JAX sampler builds them: the cold step
         for train_on_batch on every mesh, then the fused or plain warm step
         for run. self.state becomes this rank's block."""
@@ -912,12 +1115,12 @@ class SVGDSampler:
             mesh, median=median, max_phi_norm=max_phi_norm, comm=comm,
             median_max_rows=median_max_rows, median_passes=median_passes,
             kernel_impl=kernel_impl, custom_grads=custom_grads,
-            pallas_precision=pallas_precision)
+            pallas_precision=pallas_precision, kernel=kernel, remat=remat)
         self._warm_step_fn = None
         common = dict(max_phi_norm=max_phi_norm,
                       median_max_rows=median_max_rows,
                       median_passes=median_passes, warm_passes=warm_passes,
-                      comm=comm, custom_grads=custom_grads)
+                      comm=comm, custom_grads=custom_grads, remat=remat)
         if step_impl == "fused_shard":
             self._warm_step_fn, self._warm_init_med = \
                 make_sharded_fused_warm_step(
@@ -950,27 +1153,81 @@ class SVGDSampler:
         self.state, aux = self._step_fn(self.state, batch)
         return aux
 
-    def run(self, batch, n_steps):
-        """``n_steps`` full-batch SVGD steps. Returns aux with a leading
-        [n_steps] axis. The loop issues device work only: no scalar is read
-        on the host until the caller reads the result."""
-        n_steps = int(n_steps)
-        if n_steps < 1:
-            raise ValueError(f"run needs n_steps >= 1 (got {n_steps})")
-        self._check_batch(batch)
+    def _steps(self, n_steps, batch_at):
+        """``n_steps`` steps, step i on ``batch_at(i)``; aux stacked to a
+        leading [n_steps] axis on the device. The warm path seeds its carry
+        with the cold median once per call, as the JAX sampler's scans do.
+        The loop issues device work only: no scalar is read on the host
+        until the caller reads the result. Zero steps leave the state as it
+        was and return the four diagnostics with shape (0,), as a JAX scan
+        of length 0 does."""
+        if n_steps == 0:
+            return {k: torch.empty(0, dtype=self.dtype, device=self.device)
+                    for k in ("h2", "log_p_mean", "median", "phi_norm")}
         auxes = []
         if self._warm_step_fn is not None:
             med = self._warm_init_med(self.state.particles).to(self.dtype)
             carry = (self.state, med)
-            for _ in range(n_steps):
-                carry, aux = self._warm_step_fn(carry, batch)
+            for i in range(n_steps):
+                carry, aux = self._warm_step_fn(carry, batch_at(i))
                 auxes.append(aux)
             self.state = carry[0]
         else:
-            for _ in range(n_steps):
-                self.state, aux = self._step_fn(self.state, batch)
+            for i in range(n_steps):
+                self.state, aux = self._step_fn(self.state, batch_at(i))
                 auxes.append(aux)
         return {k: torch.stack([a[k] for a in auxes]) for k in auxes[0]}
+
+    def run(self, batch, n_steps):
+        """``n_steps`` full-batch SVGD steps. Returns aux with a leading
+        [n_steps] axis (see ``_steps``)."""
+        n_steps = _step_count(n_steps)
+        self._check_batch(batch)
+        return self._steps(n_steps, lambda i: batch)
+
+    def train_on_batches(self, batches):
+        """One SVGD step per slice of the leading [k] axis of every leaf of
+        ``batches`` (k stacked minibatches, e.g. gathered rows of a
+        dataset); counterpart of ``stein_tpu/api.py:1731``. Returns aux
+        with a leading [k] axis."""
+        self._check_batch(batches)
+        leaves = _tensor_leaves(batches)
+        k = leaves[0].shape[0] if leaves and leaves[0].dim() else None
+        if k is None or any(l.dim() == 0 or l.shape[0] != k
+                            for l in leaves):
+            raise ValueError(
+                "train_on_batches needs tensors with one leading [k] axis, "
+                f"got shapes {[tuple(l.shape) for l in leaves]}"
+            )
+        return self._steps(k, lambda i: _tree_map(lambda l: l[i], batches))
+
+    def train_minibatched(self, data, n_steps, n_batch, key):
+        """``n_steps`` minibatch SVGD steps on a dataset resident on the
+        sampler's device; counterpart of ``stein_tpu/api.py:1755``.
+        ``data`` is the full dataset (leaves [n_rows, ...]); each step
+        gathers ``n_batch`` rows drawn uniformly WITH replacement (the JAX
+        package's documented trade against the reference's
+        replace=False). The indices of the whole call come from one draw,
+        ``minibatch_indices(key, n_steps, n_batch, n_rows, device)``; its
+        ``key`` is an int seed or a torch.Generator on the sampler's
+        device. The JAX PRNG, and a CPU generator against a CUDA one, draw
+        other indices from the same seed: the same indices gathered by the
+        caller and passed to ``train_on_batches`` give the same result.
+        Returns aux with a leading [n_steps] axis."""
+        n_steps = _step_count(n_steps)
+        self._check_batch(data)
+        leaves = _tensor_leaves(data)
+        if not leaves or any(l.dim() == 0 or l.shape[0] != leaves[0].shape[0]
+                             for l in leaves):
+            raise ValueError(
+                "train_minibatched needs a dataset of tensors with one "
+                f"leading [n_rows] axis, got shapes "
+                f"{[tuple(l.shape) for l in leaves]}"
+            )
+        idx = minibatch_indices(key, n_steps, n_batch, leaves[0].shape[0],
+                                self.device)
+        return self._steps(n_steps, lambda i: _tree_map(
+            lambda l: l.index_select(0, idx[i]), data))
 
     def load_state(self, state):
         """Replace the sampler state (e.g. from
@@ -1017,23 +1274,106 @@ class SVGDSampler:
         mesh, all-gathered)."""
         return unravel_particles(self._particles(), self.unravel_fn)
 
-    def train_on_batches(self, batches):
-        raise _unported("SVGDSampler.train_on_batches", "A2")
-
-    def train_minibatched(self, data, n_steps, n_batch, key):
-        raise _unported("SVGDSampler.train_minibatched", "A2")
-
     def function_posterior(self, func, batch, axis=None):
-        raise _unported("SVGDSampler.function_posterior", "A2")
+        """Posterior of ``func(params, batch) -> tensor`` over the
+        particles (reference: abstract_stein_sampler.py:129-168;
+        ``stein_tpu/api.py:1865``): ``torch.func.vmap`` over the particle
+        rows, each result raveled, cached per ``func``. Returns the [n,
+        size] samples as a host numpy array, or their mean over ``axis``.
+        On a mesh it works on the all-gathered particles (a collective:
+        every rank calls it)."""
+        self._check_batch(batch)
+        fn = self._posterior_cache.get(func)
+        if fn is None:
+            unravel = self.unravel_fn
+
+            def per_particle(row, b):
+                return func(unravel(row), b).reshape(-1)
+            fn = vmap(per_particle, in_dims=(0, None))
+            self._posterior_cache[func] = fn
+        with torch.no_grad():
+            dist = fn(self._particles(), batch)
+            if axis is not None:
+                dist = dist.mean(dim=axis)
+        return dist.cpu().numpy()
 
     def ksd(self, batch, u_statistic=False):
-        raise _unported("SVGDSampler.ksd", "A3")
+        """Kernel Stein discrepancy (squared) of the current particles
+        w.r.t. the target defined by log_p on ``batch``
+        (``ops.diagnostics.ksd_rbf``; ``stein_tpu/api.py:1828``): the
+        scores by ``torch.func`` autodiff of log_p, never ``custom_grads``,
+        as in the JAX package. Returns a Python float. On a mesh it works
+        on the all-gathered particles (a collective: every rank calls
+        it)."""
+        self._check_batch(batch)
+        if self._score_fn is None:
+            log_p, unravel = self.log_p, self.unravel_fn
+
+            def log_p_flat(row, b):
+                return log_p(unravel(row), b)
+            self._score_fn = vmap(grad(log_p_flat), in_dims=(0, None))
+        theta = self._particles()
+        return float(ksd_rbf(theta, self._score_fn(theta, batch),
+                             u_statistic=u_statistic))
 
     def save(self, path):
-        raise _unported("SVGDSampler.save", "A4")
+        """Checkpoint the full sampler state (particles, optimizer
+        moments, decayed learning rate, step count) to ``path``, in the
+        JAX package's npz format (``utils/checkpoint.py``). On a mesh
+        every rank calls it: the blocks are all-gathered and rank 0
+        writes."""
+        from .utils.checkpoint import save_checkpoint
+        save_checkpoint(path, self.state, mesh=self.mesh)
 
     def restore(self, path):
-        raise _unported("SVGDSampler.restore", "A4")
+        """Restore a state saved by ``save`` (by either package) onto the
+        sampler's device; on a mesh every rank restores the full state and
+        keeps its own block (``parallel.sharded.shard_state``)."""
+        from .utils.checkpoint import restore_checkpoint
+        if self.mesh is None:
+            self.state = restore_checkpoint(path, self.state)
+            return
+        from .parallel.sharded import shard_state
+        full = _tree_map(
+            lambda l: torch.empty(
+                (self.n_particles, *l.shape[1:]) if l.dim() else (),
+                dtype=l.dtype, device=l.device), self.state)
+        self.state = shard_state(restore_checkpoint(path, full), self.mesh)
+
+
+def _step_count(n_steps):
+    n_steps = int(n_steps)
+    if n_steps < 0:
+        raise ValueError(f"n_steps must be >= 0 (got {n_steps})")
+    return n_steps
+
+
+def minibatch_indices(key, n_steps, n_batch, n_rows, device=None):
+    """The row indices ``SVGDSampler.train_minibatched`` gathers: an
+    [n_steps, n_batch] int64 tensor, uniform on [0, n_rows) with
+    replacement, from one ``torch.randint`` call. ``key`` is an int seed
+    (a new ``torch.Generator`` on ``device`` seeded with it) or a
+    ``torch.Generator`` on ``device``, which the draw advances.
+    ``device`` defaults to the current card (raising without one)."""
+    device = _device.resolve_device(device, "minibatch_indices")
+    if isinstance(key, torch.Generator):
+        gen = key
+    else:
+        gen = torch.Generator(device).manual_seed(int(key))
+    return torch.randint(0, n_rows, (n_steps, n_batch), generator=gen,
+                         device=device, dtype=torch.int64)
+
+
+def _tree_map(fn, tree):
+    """fn on every tensor of a structure of dicts, lists and tuples
+    (named tuples kept); other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[_tree_map(fn, v) for v in tree])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
 
 
 def _tensor_leaves(tree):

@@ -1,4 +1,4 @@
-from .rbf import pairwise_sq_dists, svgd_phi
+from .rbf import pairwise_sq_dists, rbf_kernel_and_repulse, svgd_phi
 from .median import exact_median, bisect_median
 from .optimizers import (
     Adam,
@@ -9,6 +9,7 @@ from .optimizers import (
 
 __all__ = [
     "pairwise_sq_dists",
+    "rbf_kernel_and_repulse",
     "svgd_phi",
     "exact_median",
     "bisect_median",

@@ -37,6 +37,18 @@ def bandwidth_sq_from_median(med, n_particles):
     return med / log_n(n_particles, med.dtype)
 
 
+def rbf_kernel_and_repulse(theta, median_fn=exact_median):
+    """Return (K, dK, h2) exactly as the oracle's rbf_kernel_and_repulse
+    (``stein_tpu/ops/rbf.py:53``)."""
+    n = theta.shape[0]
+    D = pairwise_sq_dists(theta)
+    h2 = bandwidth_sq_from_median(median_fn(D), n)
+    K = torch.exp(-D / h2 / 2.0)
+    ksum = torch.sum(K, dim=1, keepdim=True)
+    dK = (ksum * theta - torch.matmul(K, theta)) / h2
+    return K, dK, h2
+
+
 def svgd_phi(theta, grads, median_fn=exact_median):
     """SVGD direction phi = (K @ grads + dK) / n, with the attractive and
     repulsive contractions as one [n, n] x [n, 2p] product. Returns

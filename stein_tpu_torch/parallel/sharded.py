@@ -16,7 +16,9 @@ the step on its own block and calls the collectives
 - the clip norm is a psum of the local squared sums
   (abstract_stein_sampler.py:125), so every rank clips alike.
 
-The binned median (A2) and custom kernels (A9) are not ported.
+A ``kernels/`` kernel other than the RBF one takes the generic
+weights-kernel tile (K @ grads and W @ theta, gathered or around the ring)
+on the cold step; the binned median (ROADMAP A5) is not ported.
 """
 
 import torch
@@ -110,6 +112,30 @@ def _ring_kernel_pass(theta_loc, grads_loc, rsq_loc, h2, mesh):
     return acc_both[:, :p], acc_both[:, p:], acc_ksum
 
 
+def _ring_generic_pass(theta_loc, grads_loc, rsq_loc, h2, mesh, kernel):
+    """The ring pass for a weights-kernel (``kernels/``): each visiting
+    block's D gives (K, W) = kernel.weights(D, h2), and the local rows
+    accumulate K @ grads, W @ theta and W's row sums. Returns (attract,
+    wtheta, wsum)."""
+    p = theta_loc.shape[1]
+    blk = torch.cat([grads_loc, theta_loc], dim=1)
+    blk_rsq = rsq_loc
+    z = torch.zeros_like(theta_loc)
+    acc_attract, acc_wtheta = z, z
+    acc_wsum = torch.zeros(theta_loc.shape[0], 1, dtype=theta_loc.dtype,
+                           device=theta_loc.device)
+    for r in range(mesh.size):
+        D = _row_block_sq_dists(theta_loc, blk[:, p:], rsq_loc, blk_rsq)
+        K, W = kernel.weights(D, h2)
+        acc_attract = acc_attract + torch.matmul(K, blk[:, :p])
+        acc_wtheta = acc_wtheta + torch.matmul(W, blk[:, p:])
+        acc_wsum = acc_wsum + torch.sum(W, dim=1, keepdim=True)
+        if r + 1 < mesh.size:
+            blk = coll.ppermute_ring(blk, mesh)
+            blk_rsq = coll.ppermute_ring(blk_rsq, mesh)
+    return acc_attract, acc_wtheta, acc_wsum
+
+
 def _ring_kernel_pass_pallas(theta_loc, grads_loc, h2, mesh,
                              precision="f32"):
     """The ring pass with each rotation's tile streamed through kernel B3
@@ -181,7 +207,7 @@ def make_sharded_step(log_p, unravel_fn, gd, n_particles, state, mesh,
                       median="exact", max_phi_norm=10.0, comm="all_gather",
                       median_max_rows=512, median_passes=30,
                       kernel_impl="xla", custom_grads=None,
-                      pallas_precision="f32"):
+                      pallas_precision="f32", kernel=None, remat=False):
     """Build (step_fn, local_state): step_fn(local_state, batch) ->
     (local_state, aux) is the cold mesh step every rank runs on its block;
     local_state is this rank's block of the full ``state``.
@@ -189,13 +215,24 @@ def make_sharded_step(log_p, unravel_fn, gd, n_particles, state, mesh,
     ``kernel_impl='pallas'`` streams the tiles through kernel B3: local rows
     against the gathered columns, or one [n_loc, n_loc] tile per ring
     rotation, at ``pallas_precision``. It needs the bisect median (the tile
-    never materialises the rows median='exact' sorts)."""
+    never materialises the rows median='exact' sorts). A ``kernel`` other
+    than exactly SquaredExponentialKernel takes the generic weights-kernel
+    tile (``stein_tpu/parallel/sharded.py:307``)."""
+    from ..kernels import SquaredExponentialKernel
+    if type(kernel) is SquaredExponentialKernel:
+        kernel = None    # the fused RBF path
     _check_divides(n_particles, mesh)
-    grad_all = _make_grad_all(log_p, unravel_fn, custom_grads)
+    grad_all = _make_grad_all(log_p, unravel_fn, custom_grads, remat)
     if comm not in ("all_gather", "ring"):
         raise ValueError(f"unknown comm mode: {comm!r}")
     if kernel_impl not in ("xla", "pallas"):
         raise ValueError(f"unknown kernel_impl: {kernel_impl!r}")
+    if kernel_impl == "pallas" and kernel is not None:
+        raise ValueError(
+            "kernel_impl='pallas' implements the fused RBF tile only; "
+            "custom kernels use kernel_impl='xla' (the generic two-matmul "
+            "tile path)"
+        )
     if kernel_impl == "pallas" and median not in ("bisect", "binned"):
         raise ValueError(
             f"kernel_impl='pallas' requires a gather-free median ('bisect' "
@@ -233,11 +270,15 @@ def make_sharded_step(log_p, unravel_fn, gd, n_particles, state, mesh,
                 ku, ksum, c = _ring_kernel_pass_pallas(
                     theta_loc, grads_loc, h2, mesh, pallas_precision)
                 phi = (ku + ksum * (theta_loc - c) / h2) / n_particles
-            else:
+            elif kernel is None:
                 attract, ktheta, ksum = _ring_kernel_pass(
                     theta_loc, grads_loc, rsq_loc, h2, mesh)
                 phi = (attract + (ksum * theta_loc - ktheta) / h2) \
                     / n_particles
+            else:
+                attract, wtheta, wsum = _ring_generic_pass(
+                    theta_loc, grads_loc, rsq_loc, h2, mesh, kernel)
+                phi = (attract + (wsum * theta_loc - wtheta)) / n_particles
         else:
             theta_all = coll.all_gather(theta_loc, mesh)
             grads_all = coll.all_gather(grads_loc, mesh)
@@ -257,9 +298,18 @@ def make_sharded_step(log_p, unravel_fn, gd, n_particles, state, mesh,
             if kernel_impl == "pallas":
                 phi = _rbf_phi_rows_pallas(theta_loc, theta_all, grads_all,
                                            h2, n_particles, pallas_precision)
-            else:
+            elif kernel is None:
                 phi = _rbf_phi_rows_xla(theta_loc, theta_all, grads_all,
                                         D_rows, h2, n_particles)
+            else:
+                # The generic tile: K and W differ, so the attractive and
+                # repulsive products cannot share one matmul (the order of
+                # kernels.generic_svgd_phi).
+                K_rows, W_rows = kernel.weights(D_rows, h2)
+                wsum = torch.sum(W_rows, dim=1, keepdim=True)
+                attract = torch.matmul(K_rows, grads_all)
+                wtheta = torch.matmul(W_rows, theta_all)
+                phi = (attract + (wsum * theta_loc - wtheta)) / n_particles
         return _clip_update_aux(state, phi, log_p_vals, h2, med, gd,
                                 max_phi_norm, mesh)
 
@@ -270,7 +320,8 @@ def make_sharded_warm_step(log_p, unravel_fn, gd, n_particles, mesh,
                            max_phi_norm=10.0, median_max_rows=512,
                            median_passes=30, warm_passes=8,
                            kernel_impl="xla", comm="all_gather",
-                           custom_grads=None, pallas_precision="f32"):
+                           custom_grads=None, pallas_precision="f32",
+                           remat=False):
     """The warm-median mesh step for ``run``: the carry is (local_state,
     med_prev) and the bandwidth search refines the previous median inside a
     count-verified bracket, its counts psum'd (ops/median.
@@ -282,7 +333,7 @@ def make_sharded_warm_step(log_p, unravel_fn, gd, n_particles, mesh,
         raise ValueError(f"unknown kernel_impl: {kernel_impl!r}")
     if comm not in ("all_gather", "ring"):
         raise ValueError(f"unknown comm mode: {comm!r}")
-    grad_all = _make_grad_all(log_p, unravel_fn, custom_grads)
+    grad_all = _make_grad_all(log_p, unravel_fn, custom_grads, remat)
 
     def warm_step_fn(carry, batch):
         state, med_prev = carry

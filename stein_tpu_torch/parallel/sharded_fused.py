@@ -62,7 +62,8 @@ def make_sharded_fused_warm_step(log_p, unravel_fn, gd, n_particles, state,
                                  brackets=DEFAULT_BRACKETS, epilogue="xla",
                                  quadratic_form=None,
                                  median_collectives="grid", median_grid_g1=16,
-                                 comm="all_gather", custom_grads=None):
+                                 comm="all_gather", custom_grads=None,
+                                 remat=False):
     """Build (warm_step_fn, init_med_fn), the contract of
     parallel.sharded.make_sharded_warm_step, for the fused mesh step. f32,
     the RBF kernel and a 1-D particle mesh (the sampler guards the rest).
@@ -104,7 +105,7 @@ def make_sharded_fused_warm_step(log_p, unravel_fn, gd, n_particles, state,
             "JAX package's gate; lower median_max_rows or use the unfused "
             "mesh step (step_impl='xla')"
         )
-    grad_all = _make_grad_all(log_p, unravel_fn, custom_grads)
+    grad_all = _make_grad_all(log_p, unravel_fn, custom_grads, remat)
 
     def finish(state, theta_loc, ku, ksum, center, h2, med, log_p_vals):
         """The phi combine, the psum'd global clip and the update."""

@@ -5,6 +5,8 @@ from .ravel import (
     init_particles,
 )
 from .convert import state_from_numpy
+from .checkpoint import save_checkpoint, restore_checkpoint
+from .metrics import MetricsLogger
 
 __all__ = [
     "template_unraveler",
@@ -12,4 +14,7 @@ __all__ = [
     "unravel_particles",
     "init_particles",
     "state_from_numpy",
+    "save_checkpoint",
+    "restore_checkpoint",
+    "MetricsLogger",
 ]

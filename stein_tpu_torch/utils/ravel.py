@@ -8,6 +8,8 @@ in sorted order at every level, the layout of ``jax.flatten_util.ravel_pytree``
 columns in both packages.
 """
 
+import math
+
 import torch
 
 from .. import _device
@@ -88,3 +90,31 @@ def init_particles(generator, n_particles, n_params, dtype=torch.float32,
     device = _device.resolve_device(device, "init_particles")
     return scale * torch.randn(n_particles, n_params, generator=generator,
                                dtype=dtype, device=device)
+
+
+def convert_dictionary_to_array(dictionary):
+    """Reference-compatible converter (converters.py:4-55;
+    ``stein_tpu/utils/ravel.py:48``): a dict of {name: [n_particles,
+    *shape]} arrays -> ([n_particles, n_params] tensor, access_indices
+    {name: (start, end)}), keys in sorted order (converters.py:40)."""
+    keys = sorted(dictionary.keys())
+    n_particles = next(iter(dictionary.values())).shape[0]
+    parts, access_indices, index = [], {}, 0
+    for k in keys:
+        v = torch.as_tensor(dictionary[k])
+        dim = math.prod(v.shape[1:]) if v.dim() > 1 else 1
+        parts.append(v.reshape(n_particles, dim))
+        access_indices[k] = (index, index + dim)
+        index += dim
+    return torch.cat(parts, dim=1), access_indices
+
+
+def convert_array_to_dictionary(array, access_indices, shapes):
+    """Inverse of convert_dictionary_to_array (converters.py:58-89;
+    ``stein_tpu/utils/ravel.py:65``). ``shapes`` maps each name to its
+    per-particle shape."""
+    n_particles = array.shape[0]
+    return {
+        k: array[:, s:e].reshape((n_particles,) + tuple(shapes[k]))
+        for k, (s, e) in access_indices.items()
+    }

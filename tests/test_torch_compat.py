@@ -6,7 +6,9 @@ a parameter of the port's counterpart, in the same order, with the same
 default where the JAX default is a plain value (a number, string, bool or
 None; a dtype default is compared by its name). The port may add
 parameters (``device=``). The one rename is JAX's ``key`` (a PRNG key),
-which is the port's ``generator`` (a torch.Generator).
+which is the port's ``generator`` (a torch.Generator) where the port has no
+``key`` of its own (``train_minibatched`` keeps ``key``: an int seed or a
+torch.Generator).
 
 Messages: every ``_unported(what, item)`` in the port names an item of
 ROADMAP.md's queue A that exists and mentions the option, so that a
@@ -23,12 +25,28 @@ import torch
 
 import stein_tpu as sj
 import stein_tpu_torch as st
+from stein_tpu import kernels as jk
 from stein_tpu import models as jm
+from stein_tpu.ops import diagnostics as jd
 from stein_tpu.ops import pallas_step as jstep
+from stein_tpu.ops import rbf as jrbf
+from stein_tpu.utils import checkpoint as jc
+from stein_tpu.utils import hostio as jh
+from stein_tpu.utils import metrics as jmet
+from stein_tpu.utils import profiling as jprof
 from stein_tpu.utils import ravel as jr
+from stein_tpu.utils import recovery as jrec
+from stein_tpu_torch import kernels as tk
 from stein_tpu_torch import models as tm
+from stein_tpu_torch.ops import diagnostics as td
 from stein_tpu_torch.ops import fused_step as tstep
+from stein_tpu_torch.ops import rbf as trbf
+from stein_tpu_torch.utils import checkpoint as tc
+from stein_tpu_torch.utils import hostio as th
+from stein_tpu_torch.utils import metrics as tmet
+from stein_tpu_torch.utils import profiling as tprof
 from stein_tpu_torch.utils import ravel as tr
+from stein_tpu_torch.utils import recovery as trec
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 RENAMES = {"key": "generator"}
@@ -48,7 +66,30 @@ ENTRY_POINTS = [
     (jm.LinearRegressionModel, tm.LinearRegressionModel),
     (jm.LogisticRegressionModel, tm.LogisticRegressionModel),
     (jstep.InKernelModel, tstep.InKernelModel),
-]
+    (jr.convert_dictionary_to_array, tr.convert_dictionary_to_array),
+    (jr.convert_array_to_dictionary, tr.convert_array_to_dictionary),
+    (jrbf.rbf_kernel_and_repulse, trbf.rbf_kernel_and_repulse),
+    (jd.ksd_rbf, td.ksd_rbf),
+    (jk.SquaredExponentialKernel, tk.SquaredExponentialKernel),
+    (jk.InverseMultiquadricKernel, tk.InverseMultiquadricKernel),
+    (jk.generic_svgd_phi, tk.generic_svgd_phi),
+    (jk.SquaredExponentialKernel.kernel_and_grad,
+     tk.SquaredExponentialKernel.kernel_and_grad),
+    (jk.InverseMultiquadricKernel.kernel_and_grad,
+     tk.InverseMultiquadricKernel.kernel_and_grad),
+    (jc.save_checkpoint, tc.save_checkpoint),
+    (jc.restore_checkpoint, tc.restore_checkpoint),
+    (jrec.train_with_recovery, trec.train_with_recovery),
+    (jmet.MetricsLogger, tmet.MetricsLogger),
+    (jmet.MetricsLogger.record, tmet.MetricsLogger.record),
+    (jh.host_array, th.host_array),
+    (jh.host_scalar, th.host_scalar),
+    (jprof.trace, tprof.trace),
+    (jprof.annotate, tprof.annotate),
+] + [(getattr(sj.SVGDSampler, name), getattr(st.SVGDSampler, name))
+     for name in ("run", "train_on_batch", "train_on_batches",
+                  "train_minibatched", "function_posterior", "ksd", "save",
+                  "restore")]
 
 
 def _default(value):
@@ -59,11 +100,12 @@ def _default(value):
 
 
 @pytest.mark.parametrize("jax_fn,port_fn", ENTRY_POINTS,
-                         ids=[j.__name__ for j, _ in ENTRY_POINTS])
+                         ids=[j.__qualname__ for j, _ in ENTRY_POINTS])
 def test_port_signature_takes_every_jax_parameter(jax_fn, port_fn):
     jp = inspect.signature(jax_fn).parameters
     tp = inspect.signature(port_fn).parameters
-    names = [RENAMES.get(n, n) for n in jp]
+    renames = {k: v for k, v in RENAMES.items() if k not in tp}
+    names = [renames.get(n, n) for n in jp]
     missing = [n for n in names if n not in tp]
     assert not missing, f"{port_fn.__name__} lacks {missing}"
     order = list(tp)
@@ -72,17 +114,15 @@ def test_port_signature_takes_every_jax_parameter(jax_fn, port_fn):
     for name, param in jp.items():
         if param.default is inspect.Parameter.empty:
             continue
-        got = tp[RENAMES.get(name, name)].default
+        got = tp[renames.get(name, name)].default
         assert _default(got) == _default(param.default), (
             f"{port_fn.__name__}({name}=): {got!r} vs JAX {param.default!r}")
 
 
 def test_top_level_exports_cover_the_jax_package():
-    """Every name the JAX package exports that the port has ported (the
-    kernels/ module, SquaredExponentialKernel and
-    InverseMultiquadricKernel, is ROADMAP A3)."""
-    unported = {"SquaredExponentialKernel", "InverseMultiquadricKernel"}
-    assert set(sj.__all__) - unported <= set(st.__all__)
+    """Every name the JAX package exports (the kernels/ module's two
+    kernels included since ROADMAP A3 was ported)."""
+    assert set(sj.__all__) <= set(st.__all__)
     for name in st.__all__:
         assert hasattr(st, name)
 
@@ -121,7 +161,9 @@ _GENERIC = {"SVGDSampler", "throughput_config", "the", "D", "particles", "x",
 def test_unported_messages_name_their_roadmap_item():
     items = _queue_a()
     calls = _unported_calls()
-    assert len(calls) >= 15
+    # Items A2-A4 are ported; A5 (the other medians) and A7 (the 2-D mesh)
+    # keep their messages.
+    assert len(calls) >= 7
     for where, text, item in calls:
         number = int(item.lstrip("A"))
         assert item == f"A{number}" and number in items, (where, item)

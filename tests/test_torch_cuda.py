@@ -930,3 +930,62 @@ def test_new_defaults_land_on_the_current_card(dev):
     for gd in (Adam(0.1), Adagrad(0.1)):
         assert all(t.device == here for t in gd.init((4, 3)))
     assert init_particles(None, 4, 3).device == here
+
+
+def _logistic_on_card(dev, n_rows=2000, d=15, seed=0):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n_rows, d))
+    data = {"X": torch.tensor(X, dtype=torch.float32, device=dev),
+            "y": torch.tensor((X.sum(1, keepdims=True) > 0) * 1.0,
+                              dtype=torch.float32, device=dev)}
+    model = LogisticRegressionModel(d, n_rows, 50)
+    theta0 = rng.normal(size=(1000, d + 1)) * 0.1
+    cfg = throughput_config(1000, d + 1, model=model)
+
+    def make():
+        return SVGDSampler(1000, model.log_p, model.template(), Adam(1e-1),
+                           theta=theta0, device="cuda", **cfg)
+    return data, make
+
+
+def test_train_minibatched_on_the_card(dev):
+    """train_minibatched through fused_model on the card (the logistic
+    stage and B1 every step, B2 once): bitwise equal to train_on_batches on
+    the batches minibatch_indices draws for the same key, and to a second
+    call from the same state and key."""
+    from stein_tpu_torch.api import minibatch_indices
+
+    data, make = _logistic_on_card(dev)
+    counters = (model_grad.logistic_grads, fused_step.fused_warm_step_tail,
+                fused_median.fused_warm_median_rows)
+    a, b, c = make(), make(), make()
+    for fn in counters:
+        fn.launches = 0
+    aux = a.train_minibatched(data, 20, 50, 7)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counters] == [20, 20, 1]
+    idx = minibatch_indices(7, 20, 50, 2000, dev)
+    assert idx.device == dev
+    aux_b = b.train_on_batches({k: v[idx] for k, v in data.items()})
+    c.train_minibatched(data, 20, 50, 7)
+    assert np.array_equal(a.samples, b.samples)
+    assert np.array_equal(a.samples, c.samples)
+    for key in aux:
+        assert torch.equal(aux[key], aux_b[key])
+    assert a.train_minibatched(data, 0, 50, 7)["phi_norm"].shape == (0,)
+
+
+def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    """save then restore on the card: a fresh sampler resumes bitwise, and
+    its leaves lie on the card."""
+    data, make = _logistic_on_card(dev)
+    batch = {k: v[:50] for k, v in data.items()}
+    a = make()
+    a.run(batch, 5)
+    a.save(tmp_path / "card.npz")
+    a.run(batch, 5)
+    b = make()
+    b.restore(tmp_path / "card.npz")
+    assert b.state.particles.device == dev and int(b.state.step) == 5
+    b.run(batch, 5)
+    assert np.array_equal(a.samples, b.samples)

@@ -280,13 +280,16 @@ def _glm_inkernel_model(batch):
          step_impl="epilogue"),
     dict(median="bisect", kernel_impl="pallas", pallas_precision="bf16"),
     dict(donate=False, pallas_interpret=True),
+    dict(kernel=st.InverseMultiquadricKernel()),
+    dict(remat=True),
+    dict(median="bisect", warm_median=True, remat=True),
 ])
 def test_ported_options_construct_and_step(kw):
     """Options that raised before they were ported (the streaming tile,
     the in-kernel-Gram median, custom_grads, the step tails 'fused',
-    'fused_glm', 'fused_model', 'epilogue', the tile's bf16 operands) or
-    were refused (the JAX keywords donate=, pallas_interpret=): each
-    constructs and steps."""
+    'fused_glm', 'fused_model', 'epilogue', the tile's bf16 operands, a
+    non-RBF kernel=, remat=) or were refused (the JAX keywords donate=,
+    pallas_interpret=): each constructs and steps."""
     X, y, _ = _problem()
     if kw.get("custom_grads") == "lr":
         kw = dict(custom_grads=_lr_grads())
@@ -309,15 +312,13 @@ def mesh1():
     lambda mesh: _sampler(mesh=mesh, model_axis="model"),
     dict(binned_bins=1024),
     dict(binned_block_rows=128),
-    lambda mesh: st.throughput_config(48, 6, probe_batch={}),
     lambda mesh: st.throughput_config(48, 6, mesh=mesh, model_axis="model"),
     dict(median="subsample"),
     dict(median="binned"),
-    dict(kernel=object()),
-    dict(remat=True),
 ])
 def test_unported_options_raise(kw, mesh1):
-    """Options not ported yet; the 2-D mesh (model_axis=) names A7."""
+    """Options not ported yet: the 2-D mesh (model_axis=) names A7, the
+    other medians and their settings A5."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         kw(mesh1) if callable(kw) else _sampler(**kw)
 
@@ -329,16 +330,6 @@ def test_unported_options_raise(kw, mesh1):
 def test_mesh_must_be_a_particle_mesh(make):
     with pytest.raises(TypeError, match="ParticleMesh"):
         make()
-
-
-@pytest.mark.parametrize("method,args", [
-    ("train_on_batches", (None,)), ("train_minibatched", (None, 1, 1, None)),
-    ("function_posterior", (None, None)), ("ksd", (None,)),
-    ("save", ("x",)), ("restore", ("x",)),
-])
-def test_unported_methods_raise(method, args):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        getattr(_sampler(), method)(*args)
 
 
 @pytest.mark.parametrize("kw,match", [

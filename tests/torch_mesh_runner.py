@@ -73,6 +73,8 @@ SCENARIOS = {
 }
 # make_sharded_fused_warm_step with either epilogue, 3 steps (no sampler).
 EPILOGUES = ("epilogue_fused", "epilogue_xla")
+# save on the mesh, restore into a fresh mesh sampler (port only).
+CHECKPOINT = "checkpoint"
 LR = {"lr": 1e-1, "glm": 1e-1, "nn": 1e-2}
 
 
@@ -122,11 +124,14 @@ def _agree(aux, mesh):
     return True
 
 
-def port_scenario(name, mesh):
+def port_scenario(name, mesh, workdir=None):
     """Run one scenario on ``mesh``; returns its all-gathered samples, its
-    aux arrays and whether the ranks agreed bitwise on the aux."""
+    aux arrays and whether the ranks agreed bitwise on the aux. The
+    checkpoint scenario writes its file into ``workdir``."""
     if name in EPILOGUES:
         return _epilogue_scenario(name.split("_")[1], mesh)
+    if name == CHECKPOINT:
+        return _checkpoint_scenario(mesh, workdir)
     kind, rule, steps, how, cfg, hook = SCENARIOS[name]
     dev = mesh.device
     model, batch, theta0 = _problem(kind, dev)
@@ -167,6 +172,32 @@ def _epilogue_scenario(mode, mesh):
         carry, aux = step_fn(carry, batch)
     return {"samples": coll.all_gather(carry[0].particles, mesh).numpy(),
             "agree": np.asarray(_agree(aux, mesh))}
+
+
+def _checkpoint_scenario(mesh, workdir):
+    """The warm LR mesh sampler (Adam with decay) runs 3 steps, saves to
+    workdir/mesh_ckpt.npz (rank 0 writes the gathered state) and runs 3
+    more; a fresh mesh sampler restores the file (every rank its block)
+    and runs the same 3. Returns both samples, the restored step and
+    whether the ranks agreed on the last aux."""
+    model, batch, theta0 = _problem("lr", mesh.device)
+
+    def make():
+        return st.SVGDSampler(16, model.log_p, model.template(),
+                              st.Adam(learning_rate=1e-1, decay=0.99),
+                              theta=theta0, device=mesh.device, mesh=mesh,
+                              **_WARM)
+    path = os.path.join(workdir, "mesh_ckpt.npz")
+    a = make()
+    a.run(batch, 3)
+    a.save(path)
+    a.run(batch, 3)
+    b = make()
+    b.restore(path)
+    step = int(b.state.step)
+    aux = b.run(batch, 3)
+    return {"samples": a.samples, "restored": b.samples,
+            "step": np.asarray(step), "agree": np.asarray(_agree(aux, mesh))}
 
 
 def check_collectives(mesh):
@@ -247,8 +278,9 @@ def main(argv):
         mesh = particle_mesh()
         results = {f"coll/{k}": v
                    for k, v in check_collectives(mesh).items()}
+        workdir = os.path.dirname(os.path.abspath(out))
         for name in names:
-            for k, v in port_scenario(name, mesh).items():
+            for k, v in port_scenario(name, mesh, workdir).items():
                 results[f"{name}/{k}"] = v
         if rank == 0:
             np.savez(out, **results)
