@@ -82,7 +82,25 @@ results, and times the steps and the kernels. Phases:
               CPU and against the single-device fused_gram sampler on the
               card, the posterior mean; mesh-grid ('grid': B9, B3),
               mesh-ring (comm='ring': B9, B3), mesh-glm (quadratic_form:
-              B8, B3) and mesh-nn (the NN with custom_grads: B7, B8, B3)
+              B8, B3) and mesh-nn (the NN with custom_grads: B7, B8, B3);
+              mesh-binned and mesh-ring-binned (median='binned' with the
+              tile, gathered and around the ring: B3); mesh2d,
+              mesh2d-grid and mesh2d-nn on a 1x1 2-D mesh through
+              throughput_config(model_axis=) (B10 every step): counts, 10
+              steps against the CPU gloo run, [mesh2d]'s log_p_mean and
+              posterior against the JAX package's; B10 on the 2-D step's
+              own D rows and u
+     median-binned, median-subsample  SVGDSampler(median='binned' |
+              'subsample', kernel_impl='pallas') at large_particle.py's
+              default size (n=10240, p=64; B3): counts, 4 steps against the
+              plain functions on the card, the binned median against the
+              exact median of the full D and the CPU's, the subsample
+              median against a full sort of its block, us/step
+     examples every CLI of examples_torch/ on the card at its default
+              sizes (regression_neural_network with --prior-beta 10,
+              large_particle also with --median binned, production_run
+              again from its checkpoint): the printed acceptance numbers
+              and each CLI's kernel launches
   5. timing   per-step time of run() (and of the B12 and B11 loops) with
               the kernels and with the plain functions on the card, and
               each kernel against its plain version and its library call
@@ -737,11 +755,13 @@ def run_nn_paths(dev, torch, nn_model, counters):
             batch, big, lr_batch, nn16, large)
 
 
-def plain_pallas_runner(sampler, batch, grad_fn, gram):
+def plain_pallas_runner(sampler, batch, grad_fn, gram, median_fn=None):
     """run() of a kernel_impl='pallas' sampler with every kernel's plain
     version called on the card's tensors. run(k) starts from the sampler's
     state and returns (theta, optimizer state, [median], [phi_norm]) after
-    k steps; the sampler is not advanced."""
+    k steps; the sampler is not advanced. ``median_fn(theta)``, where
+    given, is the cold median of every step (median='binned' or
+    'subsample') in place of the warm search."""
     import torch
     from stein_tpu_torch.ops import fused_median, rbf, svgd_tile
     from stein_tpu_torch.ops.median import row_subsample_block, subsample_rows
@@ -749,6 +769,8 @@ def plain_pallas_runner(sampler, batch, grad_fn, gram):
     n = sampler.n_particles
 
     def median(theta, med_prev, passes):
+        if median_fn is not None:
+            return median_fn(theta)
         if gram:
             rows = subsample_rows(theta, 128)
             c = svgd_tile.column_center(theta)
@@ -820,6 +842,34 @@ LOGREG_LOGP_JAX = -139.94369506835938
 POSTERIOR_MESH_JAX = 0.007894717227018955
 POSTERIOR_MESH_GLM_JAX = 0.007850189669081131
 MESH_STEPS = 500
+# [mesh2d]'s recipe, throughput_config(1000, 128, mesh=, model_axis='model')
+# on a 1x1 2-D mesh, [main]'s data, Adam(0.1), 500 steps: the JAX package's
+# run on the CPU (interpret mode) reads this log_p_mean at step 500, and
+# this max |particle mean - posterior mean|. Its trajectories part
+# chaotically: the JAX package's own runs of the recipe with
+# median_collectives='grid', kernel_impl='xla' and the single-device
+# throughput_config land 1.854, 0.365 and 0.714 from it at step 500 (all
+# read -48985.28 at step 10), the port's plain versions on the CPU 0.486
+# (posterior error 0.00967) and the card 1.892 (H100 run). So the card's
+# log_p_mean is held within twice the largest of the JAX package's own
+# spreads (the model check is the posterior error, held to 4x the JAX
+# value); tests/test_torch_reference_values.py recomputes all three.
+MESH2D_LOGP_JAX = -254.36280822753906
+MESH2D_LOGP_SPREAD_JAX = 1.8538665771484375
+POSTERIOR_MESH2D_JAX = 0.00949752300508655
+# The 2-D step's tile works on the UNCENTRED u = grads - theta / h^2 and
+# adds ksum theta / h^2 back (the JAX order), so phi cancels and its
+# rounding grows by |theta / h^2| / |phi|: the JAX package's own
+# kernel_impl='pallas' and 'xla' 2-D runs of each recipe part by these
+# max abs sample differences after 10 steps (CPU, interpret mode), as
+# step_impl='fused' does (FUSED_SPREAD_JAX); both runs leave the fused_gram
+# class by step 10. The card is held to the class for FUSED_CLASS_STEPS
+# steps and to twice these for 10: each is one draw of the rounding's
+# growth, and the card's 3xTF32 tile against the CPU's f32 product drew
+# 4.724e-06, 7.756e-06 (mesh2d-grid) on the H100.
+MESH2D_SPREAD_JAX = {"mesh2d": 6.040558218955994e-06,
+                     "mesh2d-grid": 5.200505256652832e-06,
+                     "mesh2d-nn": 4.76837158203125e-06}
 # The ring shape of B9's check: a 4-process mesh at n=1000 holds n_loc =
 # 250 columns (not a multiple of the 32-column tile) and m_loc = 64 rows.
 RING_M, RING_N = 64, 250
@@ -1894,7 +1944,8 @@ def check_bracket_kernels(dev, torch, theta, nn_theta):
 @contextlib.contextmanager
 def plain_kernels():
     """The mesh paths' kernels swapped for their plain versions (on the
-    card's tensors) while the block runs: B8, B9, B3 and B7."""
+    card's tensors) while the block runs: B8, B9, B3 (both of its mesh
+    entry points), B7 and B10."""
     from stein_tpu_torch.models import bayesian_nn
     from stein_tpu_torch.ops import fused_median as fm
     from stein_tpu_torch.ops import svgd_tile
@@ -1904,11 +1955,23 @@ def plain_kernels():
         return bayesian_nn.nn_grads_plain(
             theta, batch["X"], batch["y"].reshape(-1), f, H, consts)
 
+    def phi_rect_plain(rows, cols, grads, h2, n_total=None, center=None,
+                       precision="f32"):
+        c = (svgd_tile.column_center(cols) if center is None
+             else center).reshape(1, -1)
+        ku, ks = svgd_tile.svgd_both_ksum_plain(rows, cols, grads, h2, c,
+                                                precision)
+        return svgd_tile._combine(ku, ks, rows, c, h2,
+                                  n_total or cols.shape[0])
+
     swaps = [(sharded_fused, "fused_bracket_pass",
               fm.fused_bracket_pass_plain),
              (sharded_fused, "fused_bracket_grid_pass",
               fm.fused_bracket_grid_pass_plain),
              (svgd_tile, "svgd_both_ksum", svgd_tile.svgd_both_ksum_plain),
+             (svgd_tile, "svgd_phi_rect", phi_rect_plain),
+             (svgd_tile, "svgd_both_ksum_on_D",
+              svgd_tile.svgd_both_ksum_on_D_plain),
              (bayesian_nn, "nn_grads", nn_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
@@ -1930,12 +1993,19 @@ def run_mesh_paths(dev, torch, counters, X, y, theta0, batch, nn_model):
     from stein_tpu_torch import Adam, SVGDSampler, throughput_config
     from stein_tpu_torch.models import LinearRegressionModel
     from stein_tpu_torch.parallel import collectives as coll
-    from stein_tpu_torch.parallel import particle_mesh, setup_distributed
+    from stein_tpu_torch.parallel import (
+        mesh_2d,
+        particle_mesh,
+        setup_distributed,
+    )
 
     setup_distributed("nccl", store=dist.HashStore(), world_size=1, rank=0,
                       device_id=dev)
     mesh = particle_mesh()
     cpu_mesh = particle_mesh(dist.new_group(backend="gloo"))
+    # The 2-D mesh of one process: an NCCL group for each axis, and the
+    # same on gloo for the CPU comparisons.
+    mesh2, cpu_mesh2 = mesh_2d(1, 1), mesh_2d(1, 1, backend="gloo")
     t0 = time.perf_counter()
     coll.psum(torch.ones(1, device=dev), mesh)   # NCCL's lazy set-up
     torch.cuda.synchronize()
@@ -1945,9 +2015,12 @@ def run_mesh_paths(dev, torch, counters, X, y, theta0, batch, nn_model):
     suff = lin.sufficient_batch(batch)
     counts, timed = {}, {}
 
-    def sampler_for(n, model, theta, cfg):
+    def sampler_for(n, model, theta, cfg, two_d=False):
         def make(device):
-            m = mesh if device == "cuda" else cpu_mesh
+            if two_d:
+                m = mesh2 if device == "cuda" else cpu_mesh2
+            else:
+                m = mesh if device == "cuda" else cpu_mesh
             return SVGDSampler(n, model.log_p, model.template(),
                                Adam(0.1, decay=0.999 if model is nn_model
                                     else 1.0),
@@ -1956,6 +2029,9 @@ def run_mesh_paths(dev, torch, counters, X, y, theta0, batch, nn_model):
         return make
 
     def run_path(label, make, b, want, lr=0.1):
+        """run(b, MESH_STEPS) on the card: counts, finiteness; 10 steps
+        against the CPU at the class, or for the 2-D paths 5 at the class
+        and 10 within the JAX package's own spread (MESH2D_SPREAD_JAX)."""
         s = make("cuda")
         reset(counters)
         t0 = time.perf_counter()
@@ -1967,7 +2043,13 @@ def run_mesh_paths(dev, torch, counters, X, y, theta0, batch, nn_model):
         check_finite(label, s, aux, MESH_STEPS)
         log(f"[{label}] last step: " + ", ".join(
             f"{k}={v[-1].item():.6g}" for k, v in aux.items()))
-        compare_with_cpu(make, b, 10, label, lr)
+        if label in MESH2D_SPREAD_JAX:
+            compare_with_cpu(make, b, FUSED_CLASS_STEPS, label, lr)
+            compare_spread(label, make, b, 10,
+                           2 * MESH2D_SPREAD_JAX[label],
+                           "kernel_impl='pallas' vs 'xla' spread, twice")
+        else:
+            compare_with_cpu(make, b, 10, label, lr)
         timed[label] = (s, b)
         return s, aux
 
@@ -2026,7 +2108,340 @@ def run_mesh_paths(dev, torch, counters, X, y, theta0, batch, nn_model):
     if abs(lp / NN_MESH_LOGP_JAX - 1) > NN_LOGP_RTOL:
         fail(f"[mesh-nn] log_p_mean is not within {NN_LOGP_RTOL:g} of the "
              "JAX package's")
-    return counts, timed, mesh
+    run_mesh_medians_2d(sampler_for, mesh2, run_path, X, y, theta0, batch,
+                        nn_model, nn_batch)
+    b10_err = check_b10_2d(dev, torch, mesh2, nn_model, theta0, nn_batch,
+                           batch)
+    return counts, timed, mesh, b10_err
+
+
+# --------------------------------------------- A5: the other medians
+# large_particle.py's default size: n=10240, LinearRegressionModel(64),
+# 1000 observations from numpy seed 0 (its data recipe), Adam(1e-2), the
+# streaming tile (B3) for phi.
+MED_N, MED_P, MED_OBS, MED_STEPS = 10240, 64, 1000, 50
+MED_ROWS = 128
+
+
+def large_particle_data(seed=0):
+    """examples/large_particle.py's data at its defaults, f32."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(MED_OBS, MED_P))
+    w_true = rng.normal(size=(MED_P, 1))
+    y = X @ w_true + rng.normal(size=(MED_OBS, 1)) * 0.5
+    theta0 = np.random.default_rng(3).normal(size=(MED_N, MED_P)) * 0.01
+    return (X.astype(np.float32), y.astype(np.float32),
+            theta0.astype(np.float32))
+
+
+def run_median_paths(dev, torch, counters, gpu):
+    """[median-binned] and [median-subsample]: SVGDSampler(median='binned'
+    | 'subsample', kernel_impl='pallas') at large_particle.py's default
+    size. Counts (B3 every step, nothing else), 4 steps against the plain
+    functions on the card, the medians against the exact ones, wall and
+    device us a step. Returns each path's counts and (sampler, batch)."""
+    from stein_tpu_torch import Adam, SVGDSampler
+    from stein_tpu_torch.api import _make_grad_all
+    from stein_tpu_torch.models import LinearRegressionModel
+    from stein_tpu_torch.ops.median import (
+        binned_median,
+        exact_median,
+        row_subsample_block,
+        subsampled_sq_dist_median,
+    )
+    from stein_tpu_torch.ops.rbf import pairwise_sq_dists
+
+    X, y, theta0 = large_particle_data()
+    model = LinearRegressionModel(MED_P)
+    batch = {"X": torch.tensor(X, device=dev), "y": torch.tensor(y,
+                                                                 device=dev)}
+    counts, timed = {}, {}
+    for label, cfg, median_fn in (
+            ("median-binned", dict(median="binned"),
+             lambda t: binned_median(t)),
+            ("median-subsample", dict(median="subsample",
+                                      median_max_rows=MED_ROWS),
+             lambda t: subsampled_sq_dist_median(t, MED_ROWS))):
+        def make(cfg=cfg):
+            return SVGDSampler(MED_N, model.log_p, model.template(),
+                               Adam(1e-2), theta=theta0, device="cuda",
+                               kernel_impl="pallas", **cfg)
+        s = make()
+        reset(counters)
+        t0 = time.perf_counter()
+        aux = s.run(batch, MED_STEPS)
+        torch.cuda.synchronize()
+        log(f"[{label}] run(batch, {MED_STEPS}) in "
+            f"{time.perf_counter() - t0:.2f} s (first call)")
+        counts[label] = check_counts(label, counters, dict(B3=MED_STEPS))
+        check_finite(label, s, aux, MED_STEPS)
+        log(f"[{label}] last step: " + ", ".join(
+            f"{k}={v[-1].item():.6g}" for k, v in aux.items()))
+        compare_with_plain(label, make, batch, plain_pallas_runner(
+            make(), batch, _make_grad_all(model.log_p, s.unravel_fn),
+            gram=False, median_fn=median_fn), 4, 1e-2)
+
+        theta = s.state.particles
+        med = median_fn(theta).item()
+        med_cpu = median_fn(theta.cpu()).item()
+        if label == "median-binned":
+            # Against the exact median of the full [n, n] D (420 MB) within
+            # the histogram's bound, range / n_bins^2 / 2, plus the f32
+            # Gram's rounding of an entry, (p + 2) eps hi0; against the
+            # CPU's binned_median of the same theta within one final bin.
+            D = pairwise_sq_dists(theta)
+            exact = exact_median(D).item()
+            del D
+            hi0 = 4.0 * torch.sum(theta * theta, 1).max().item()
+            width = hi0 * (1 + 1e-6) / 4096 ** 2
+            gram = (MED_P + 2) * float(np.finfo(np.float32).eps) * hi0
+            log(f"[{label}] binned median of the card's theta {med!r}; exact "
+                f"median of the full D on the card {exact!r} (gap "
+                f"{abs(med - exact):.3e}, bound {width / 2 + gram:.3e}); "
+                f"the CPU's binned_median {med_cpu!r} (gap "
+                f"{abs(med - med_cpu):.3e}, bound one final bin "
+                f"{width:.3e})")
+            if abs(med - exact) > width / 2 + gram or \
+                    abs(med - med_cpu) > width:
+                fail(f"[{label}] the binned median is off its bounds")
+        else:
+            # The exact median of the same row block, by a full sort.
+            block = row_subsample_block(theta, MED_ROWS).reshape(-1)
+            v = torch.sort(block).values
+            k = block.numel()
+            exact = ((v[(k + 1) // 2 - 1] + v[k // 2]) * 0.5).item()
+            log(f"[{label}] subsample median of the card's theta {med!r}; "
+                f"by a full sort of the same [{MED_ROWS}, {MED_N}] block "
+                f"{exact!r}; the CPU's {med_cpu!r} (rel "
+                f"{abs(med / med_cpu - 1):.3e}, bound 1e-5: the f32 Gram's "
+                "order)")
+            if med != exact or abs(med / med_cpu - 1) > 1e-5:
+                fail(f"[{label}] the subsample median is off")
+        us = run_timed(lambda k: s.run(batch, k), torch, 20)
+        log(f"[timing] {gpu}: {label} (n={MED_N}, p={MED_P}) run() "
+            f"{us:.2f} us/step by CUDA events")
+        timed[label] = (s, batch)
+    return counts, timed
+
+
+def run_mesh_medians_2d(sampler_for, mesh2, run_path, X, y, theta0, batch,
+                        nn_model, nn_batch):
+    """[mesh-binned], [mesh-ring-binned] (the 1-D mesh with median='binned'
+    and the tile) and [mesh2d], [mesh2d-nn], [mesh2d-grid] (the 2-D mesh
+    ``mesh2`` of one process, throughput_config(model_axis=): B10 every
+    step), each against the CPU gloo run of the same sampler.
+    ``sampler_for(n, model, theta, cfg, two_d)`` builds a path's
+    make(device); ``run_path`` is run_mesh_paths'."""
+    from stein_tpu_torch import throughput_config
+    from stein_tpu_torch.models import LinearRegressionModel
+
+    lin = LinearRegressionModel(P)
+    for label, comm in (("mesh-binned", "all_gather"),
+                        ("mesh-ring-binned", "ring")):
+        cfg = dict(median="binned", kernel_impl="pallas", comm=comm)
+        run_path(label, sampler_for(N, lin, theta0, cfg), batch,
+                 dict(B3=MESH_STEPS))
+
+    cfg = throughput_config(N, P, mesh=mesh2, model_axis="model")
+    log(f"[mesh2d] throughput_config({N}, {P}, mesh=, model_axis='model') "
+        f"= { {k: str(v) for k, v in cfg.items() if k != 'mesh'} }")
+    if (cfg.get("kernel_impl"), cfg.get("median_collectives")) != (
+            "pallas", "rounds"):
+        fail("[mesh2d] throughput_config did not pick the tile and rounds")
+    cfg.pop("mesh")
+    s, aux = run_path("mesh2d", sampler_for(N, lin, theta0, cfg, True),
+                      batch, dict(B10=MESH_STEPS))
+    lp = aux["log_p_mean"][-1].item()
+    post = np.linalg.solve(X.T @ X + np.eye(P), X.T @ y).ravel()
+    err = float(np.max(np.abs(s.samples.mean(0) - post)))
+    log(f"[mesh2d] log_p_mean step {MESH_STEPS} {lp!r}; the JAX package's "
+        f"1x1 run {MESH2D_LOGP_JAX} (gap {abs(lp - MESH2D_LOGP_JAX):.4g}, "
+        f"relative {abs(lp / MESH2D_LOGP_JAX - 1):.3e}; bound twice the JAX "
+        f"package's own spread {MESH2D_LOGP_SPREAD_JAX:.4g}); posterior mean "
+        f"max abs error {err:.4e} (JAX's {POSTERIOR_MESH2D_JAX:.4e}, bound "
+        f"4x)")
+    if abs(lp - MESH2D_LOGP_JAX) > 2 * MESH2D_LOGP_SPREAD_JAX or \
+            not err <= 4 * POSTERIOR_MESH2D_JAX:
+        fail("[mesh2d] log_p_mean or the posterior mean is off")
+    run_path("mesh2d-grid", sampler_for(N, lin, theta0, dict(
+        cfg, median_collectives="grid"), True), batch, dict(B10=MESH_STEPS))
+
+    theta_nn = nn_data(NN_N)[2]
+    cfg_nn = throughput_config(NN_N, NN_P, mesh=mesh2, model_axis="model",
+                               model=nn_model)
+    cfg_nn.pop("mesh")
+    if "custom_grads" in cfg_nn:
+        fail("[mesh2d-nn] a model axis takes no custom_grads")
+    run_path("mesh2d-nn", sampler_for(NN_N, nn_model, theta_nn, cfg_nn,
+                                      True), nn_batch, dict(B10=MESH_STEPS))
+
+
+def check_b10_2d(dev, torch, mesh2, nn_model, theta0, nn_batch, lin_batch):
+    """B10 against its plain version on the 2-D step's own operands: the
+    psum'd D rows of [mesh2d] (p=128) and [mesh2d-nn] (p=303) at theta0 with
+    u = grads - theta / h^2, and an odd [333, 777] x [777, 300]: <= 1e-5
+    normalised, a second call bitwise. Returns the max abs error."""
+    from stein_tpu_torch.api import _make_grad_all
+    from stein_tpu_torch.models import LinearRegressionModel
+    from stein_tpu_torch.ops import fused_median, svgd_tile
+    from stein_tpu_torch.ops.median import sharded_bisect_median_on_D
+    from stein_tpu_torch.parallel import collectives as coll
+    from stein_tpu_torch.ops.rbf import pairwise_sq_dists
+    from stein_tpu_torch.parallel.sharded2d import _d_rows_2d
+    from stein_tpu_torch.utils.ravel import template_unraveler
+
+    f32 = torch.float32
+    lin = LinearRegressionModel(P)
+    cases = []
+    for label, model, theta_np, b in (
+            ("mesh2d", lin, theta0, lin_batch),
+            ("mesh2d-nn", nn_model, nn_data(NN_N)[2], nn_batch)):
+        theta = torch.tensor(theta_np, dtype=f32, device=dev)
+        D, _ = _d_rows_2d(theta, coll.all_gather(theta, mesh2.particles),
+                          mesh2.model)
+        med = sharded_bisect_median_on_D(D, mesh2.particles, 256, 30)
+        h2 = med / np.log(theta.shape[0])
+        _, g = _make_grad_all(model.log_p,
+                              template_unraveler(model.template())[1])(
+            theta, b)
+        cases.append((f"{label} [{theta.shape[0]}, {theta.shape[0]}] x "
+                      f"[{theta.shape[0]}, {theta.shape[1]}]", D,
+                      g - theta / h2, h2))
+    rng = np.random.default_rng(8)
+    t_r = torch.tensor(rng.normal(size=(777, 300)), dtype=f32, device=dev)
+    D_r = pairwise_sq_dists(t_r)[:333].contiguous()
+    zero = torch.zeros((), dtype=f32, device=dev)
+    h2_r = fused_median.warm_search_on_value(D_r, zero, 30) / np.log(777)
+    cases.append(("[333, 777] x [777, 300]", D_r,
+                  torch.randn_like(t_r) - t_r / h2_r, h2_r))
+    err_abs = 0.0
+    for label, D_, u_, h2_ in cases:
+        ku, ks = svgd_tile.svgd_both_ksum_on_D(D_, u_, h2_)
+        ku2, ks2 = svgd_tile.svgd_both_ksum_on_D(D_, u_, h2_)
+        ku0, ks0 = svgd_tile.svgd_both_ksum_on_D_plain(D_, u_, h2_)
+        torch.cuda.synchronize()
+        err = max(norm_err(ku, ku0), norm_err(ks, ks0))
+        same = torch.equal(ku, ku2) and torch.equal(ks, ks2)
+        log(f"[kernels] B10 on the 2-D step's operands, {label}: normalised "
+            f"error {err:.3e} (bound 1e-05), repeat bitwise {same}")
+        if err > 1e-5 or not same:
+            fail(f"B10 {label} disagrees with its plain version or itself")
+        err_abs = max(err_abs, (ku - ku0).abs().max().item(),
+                      (ks - ks0).abs().max().item())
+    return err_abs
+
+
+# ------------------------------------------ A6: the example CLIs
+# Each CLI of examples_torch/ at its default sizes on the card; the
+# production run goes again with 500 more iterations from its checkpoint.
+EXAMPLES = (
+    ("linear_regression", []),
+    ("logistic_regression", []),
+    ("regression_neural_network", ["--prior-beta", "10"]),
+    ("gaussian_mixture", []),
+    ("production_run", ["--ckpt", "{ckpt}"]),
+    ("production_run", ["--ckpt", "{ckpt}", "--n-iters", "3500"]),
+    ("large_particle", []),
+    ("large_particle", ["--median", "binned"]),
+)
+
+
+def _floats(line):
+    import re
+    return [float(t) for t in
+            re.findall(r"[-+]?(?:\d+\.?\d*|\.\d+)(?:e[-+]?\d+)?", line)]
+
+
+def _last(out, prefix):
+    hits = [ln for ln in out.splitlines() if ln.startswith(prefix)]
+    if not hits:
+        fail(f"[examples] no line starting with {prefix!r}")
+    return hits[-1]
+
+
+def check_example(name, out):
+    """The acceptance numbers of a CLI's printed lines, as
+    tests/test_torch_examples.py checks them. Returns the line shown."""
+    if name == "linear_regression":
+        est = _floats(_last(out, "Est. coefficients:"))
+        conj = _floats(_last(out, "Conjugate posterior mean:"))
+        ok = len(est) == len(conj) and np.allclose(est, conj, atol=5e-2,
+                                                   rtol=0)
+        return ok, f"est {est} vs conjugate {conj} (atol 5e-2)"
+    if name == "logistic_regression":
+        acc = _floats(_last(out, "Final accuracy:"))[0]
+        return acc > 0.9, f"held-out accuracy {acc} (> 0.9)"
+    if name == "regression_neural_network":
+        first = _floats(_last(out, "Iteration: 0."))[-1]
+        final = _floats(_last(out, "Final MSE:"))[0]
+        return (np.isfinite(final) and final < first - 0.05,
+                f"MSE {first} -> {final}")
+    if name == "gaussian_mixture":
+        modes = [_floats(ln) for ln in out.splitlines()
+                 if ln.startswith("mode ")]
+        ksd = _floats(_last(out, "KSD^2:"))[-1]
+        ok = (len(modes) == 3 and 0 < ksd < 0.1
+              and all(abs(m[2] - m[1]) < 0.15 and m[3] < 0.15
+                      for m in modes))
+        return ok, (f"modes (true, particle mass, mean err) "
+                    f"{[m[1:4] for m in modes]}, KSD^2 {ksd}")
+    if name == "production_run":
+        ksd = _floats(_last(out, "final KSD^2:"))[-1]
+        ran = _last(out, "executed")
+        return np.isfinite(ksd) and ksd > 0, f"{ran}; KSD^2 {ksd}"
+    err = _floats(_last(out, "posterior mean max-abs-err"))[0]
+    rate = [ln for ln in out.splitlines() if " steps of n=" in ln]
+    return err < 0.2 and len(rate) == 1, (
+        f"{rate}; posterior mean max-abs-err {err} (< 0.2)")
+
+
+def run_examples(torch, counters, gpu):
+    """[examples]: each CLI of examples_torch/ in this process
+    (runpy, --device cuda) at its default sizes, its printed acceptance
+    numbers checked and its launch counts read. Returns the counts."""
+    import contextlib
+    import io
+    import runpy
+    import shutil
+
+    ckdir = os.path.join(HERE, "build", "chip_smoke_examples")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    os.makedirs(ckdir)
+    ckpt = os.path.join(ckdir, "production.ckpt")
+    counts = {}
+    argv = sys.argv
+    for i, (name, extra) in enumerate(EXAMPLES):
+        args = [a.format(ckpt=ckpt) for a in extra]
+        label = " ".join([name] + args).replace(ckpt, "<ckpt>")
+        sys.argv = [name, *args, "--device", "cuda"]
+        buf = io.StringIO()
+        reset(counters)
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                runpy.run_path(os.path.join(HERE, "examples_torch",
+                                            f"{name}.py"),
+                               run_name="__main__")
+            torch.cuda.synchronize()
+        finally:
+            sys.argv = argv
+        wall = time.perf_counter() - t0
+        got = {k: v for k, v in read(counters).items() if v}
+        counts[f"examples/{name}#{i}"] = read(counters)
+        out = buf.getvalue()
+        ok, shown = check_example(name, out)
+        if name == "production_run":
+            # The second run resumes from the first's checkpoint.
+            want = ("executed 500 steps" if "--n-iters" in args
+                    else "executed 3000 steps")
+            ok = ok and want in out
+        log(f"[examples] {label}: {wall:.1f} s; {shown}; kernel launches "
+            f"{got}")
+        for line in out.splitlines()[-3:]:
+            log(f"[examples]   | {line}")
+        if not ok:
+            fail(f"[examples] {label}: its acceptance check failed")
+    return counts
 
 
 def profile_split(label, sampler, batch, steps, torch, gpu):
@@ -2731,9 +3146,12 @@ def main():
     entry_counts, entry_timed = run_entry_paths(dev, torch, nn_model,
                                                 counters)
     path_counts.update(entry_counts)
-    mesh_counts, mesh_timed, mesh = run_mesh_paths(
+    mesh_counts, mesh_timed, mesh, b10_2d_err = run_mesh_paths(
         dev, torch, counters, X, y, theta0, batch, nn_model)
     path_counts.update(mesh_counts)
+    med_counts, med_timed = run_median_paths(dev, torch, counters, gpu)
+    path_counts.update(med_counts)
+    path_counts.update(run_examples(torch, counters, gpu))
 
     # --------------------------------------------------------- 5. timing
     K = 200
@@ -3028,10 +3446,12 @@ def main():
         def plain(k, s_=s_, b_=b_):
             with plain_kernels():
                 s_.run(b_, k)
-        p1 = run_timed(plain, torch, 200)
-        k1 = run_timed(lambda k: s_.run(b_, k), torch, 200)
-        k2 = run_timed(lambda k: s_.run(b_, k), torch, 200)
-        p2 = run_timed(plain, torch, 200)
+        # The binned and 2-D paths take 7-15 ms a step: 50 a reading.
+        reps = 50 if "binned" in label or "mesh2d" in label else 200
+        p1 = run_timed(plain, torch, reps)
+        k1 = run_timed(lambda k: s_.run(b_, k), torch, reps)
+        k2 = run_timed(lambda k: s_.run(b_, k), torch, reps)
+        p2 = run_timed(plain, torch, reps)
         path_us[label] = ((k1 + k2) / 2, (p1 + p2) / 2)
         log(f"[timing] {gpu}: {label} run() {path_us[label][0]:.2f} us/step "
             f"with the kernels, {path_us[label][1]:.2f} us/step with the "
@@ -3104,6 +3524,8 @@ def main():
     profile_split("main-nn-pblock", pb_loop, pb_batch, 20, torch, gpu)
     profile_split("covertype-e2e", cov_loop, None, 20, torch, gpu)
     profile_split("large-n-sym", sym_loops["B11"], None, 10, torch, gpu)
+    for label, (s_, b_) in med_timed.items():
+        profile_split(label, s_, b_, 10, torch, gpu)
 
     total = {k: sum(c[k] for c in path_counts.values()) for k in counters}
 
@@ -3178,7 +3600,8 @@ def main():
             *row_ms["B7"][:2], 4 * (2 * nn_n * nn_p + nn_n + 40),
             20 * 100 * nn_n * 14, ms_by=row_ms["B7"][2]),
         row("svgd_on_d", "B10", "svgd_on_d.cu",
-            "stein_tpu/ops/pallas_svgd.py:217", tail_errs["B10"],
+            "stein_tpu/ops/pallas_svgd.py:217",
+            max(tail_errs["B10"], b10_2d_err),
             *row_ms["B10"][:2], 4 * (n * n + 2 * n * p + n), 3 * n * n,
             tf32_ops=3 * 2 * n * n * p, ms_by=row_ms["B10"][2]),
         row("glm_grad, B1's model stage", "glm", "model_grad.cu",

@@ -10,18 +10,19 @@ here it is a Python loop that keeps every carried scalar (median, h^2, clip
 norm, Adam's count and learning rate) on the device and never reads one on
 the host.
 
-Ported: the reference path (``step_impl='xla'``, ``median`` in
-{'exact', 'bisect'}, the warm median, ``median_impl`` in {'xla', 'fused',
-'fused_gram'}), the streaming tile (``kernel_impl='pallas'``, at either
-``pallas_precision``), every
-single-device step tail (``step_impl`` 'fused', 'fused_gram', 'fused_glm',
-'fused_model' and 'epilogue'), ``custom_grads=``, ``remat=``, ``kernel=``
-(``kernels/``), the 1-D particle mesh (``mesh=``, ``parallel/``: the mesh
-steps and ``step_impl='fused_shard'``), and every method of the JAX
+Every option of the JAX sampler runs: the reference path
+(``step_impl='xla'``, every ``median``: 'exact', 'subsample', 'bisect',
+'binned'), the warm median, ``median_impl`` in {'xla', 'fused',
+'fused_gram'}, the streaming tile (``kernel_impl='pallas'``, at either
+``pallas_precision``), every single-device step tail (``step_impl``
+'fused', 'fused_gram', 'fused_glm', 'fused_model' and 'epilogue'),
+``custom_grads=``, ``remat=``, ``kernel=`` (``kernels/``), the 1-D
+particle mesh (``mesh=``, ``parallel/``: the mesh steps and
+``step_impl='fused_shard'``), the 2-D (particles x model) mesh
+(``mesh=`` a ``Mesh2D`` with ``model_axis=``), and every method of the JAX
 sampler: ``run``, ``train_on_batch``, ``train_on_batches``,
 ``train_minibatched``, ``function_posterior``, ``ksd``, ``save`` and
-``restore``. Every other option raises ``NotImplementedError`` naming the
-ROADMAP.md item that will port it.
+``restore``.
 """
 
 import functools
@@ -56,14 +57,16 @@ from .ops.median import (
     QUAD_MIN_TOTAL,
     _strided_rows,
     _warm_search,
+    binned_median,
     bisect_median,
     bisect_median_on_D,
     exact_median,
     row_subsample_block,
     subsample_rows,
+    subsampled_sq_dist_median,
 )
 from .parallel import collectives as coll
-from .parallel.mesh import ParticleMesh
+from .parallel.mesh import Mesh2D, ParticleMesh
 from .utils.ravel import (
     init_particles,
     ravel_particles,
@@ -77,13 +80,6 @@ EXACT_MEDIAN_WARN_BYTES = 2 ** 27
 
 _FUSED_STEP_IMPLS = ("fused", "fused_gram", "fused_glm", "fused_model")
 _STEP_IMPLS = ("xla", "epilogue") + _FUSED_STEP_IMPLS
-
-
-def _unported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported to stein_tpu_torch yet; see ROADMAP.md "
-        f"queue A, item {item}"
-    )
 
 
 class SVGDState(NamedTuple):
@@ -175,14 +171,20 @@ def _pallas_only_bisect(median):
             "kernel_impl='pallas' streams the kernel matrix precisely to "
             "avoid materialising the n^2 distance matrix, but "
             "median='exact' would materialise it anyway; use "
-            "median='bisect' or kernel_impl='xla'"
+            "median='bisect' (recommended), 'subsample', or 'binned', or "
+            "kernel_impl='xla' for the exact median"
         )
 
 
 def make_phi_fn(n_particles, median="exact", kernel_impl="xla",
-                median_max_rows=512, median_passes=30, median_impl="xla",
-                pallas_precision="f32", kernel=None):
+                median_max_rows=512, binned_bins=4096, binned_block_rows=256,
+                kernel=None, median_passes=30, pallas_precision="f32",
+                median_impl="xla"):
     """Build phi_fn(theta, grads) -> (phi, aux), the cold step's phi.
+    ``median='subsample'`` is the exact median of the strided row block,
+    'binned' the histogram search (``binned_bins`` bins a level, row blocks
+    of ``binned_block_rows``); both compute their own distances, so every
+    kernel path takes the median they return.
     ``median_impl='fused'`` runs the cold bisect search as kernel B2 where
     the block is in its envelope (ops.fused_median.fused_block_ok);
     ``'fused_gram'`` computes the block's Gram in a kernel too (B5, or
@@ -196,9 +198,16 @@ def make_phi_fn(n_particles, median="exact", kernel_impl="xla",
         raise ValueError(f"unknown median_impl: {median_impl!r}")
     if kernel_impl not in ("xla", "pallas"):
         raise ValueError(f"unknown kernel_impl: {kernel_impl!r}")
-    if median in ("subsample", "binned"):
-        raise _unported(f"median={median!r}", "A5")
-    if median not in ("exact", "bisect"):
+    if median == "subsample":
+        def theta_median(theta):
+            return subsampled_sq_dist_median(theta, max_rows=median_max_rows)
+    elif median == "binned":
+        def theta_median(theta):
+            return binned_median(theta, n_bins=binned_bins,
+                                 block_rows=binned_block_rows)
+    elif median in ("exact", "bisect"):
+        theta_median = None
+    else:
         raise ValueError(f"unknown median mode: {median!r}")
 
     def fused_cold_or_none(D_sub):
@@ -224,23 +233,32 @@ def make_phi_fn(n_particles, median="exact", kernel_impl="xla",
             return lambda theta, grads: generic_svgd_phi(
                 kernel, theta, grads, median_fn=bisect_on_D)
 
-        def generic_exact(theta, grads):
-            med = exact_median(rbf.pairwise_sq_dists(theta))
+        def generic_other(theta, grads):
+            med = (exact_median(rbf.pairwise_sq_dists(theta))
+                   if theta_median is None else theta_median(theta))
             return generic_svgd_phi(kernel, theta, grads,
                                     median_fn=lambda D: med)
-        return generic_exact
+        return generic_other
 
     if kernel_impl == "xla":
         if median == "exact":
             return lambda theta, grads: rbf.svgd_phi(
                 theta, grads, median_fn=exact_median
             )
-        return lambda theta, grads: rbf.svgd_phi(theta, grads,
-                                                 median_fn=bisect_on_D)
+        if median == "bisect":
+            return lambda theta, grads: rbf.svgd_phi(theta, grads,
+                                                     median_fn=bisect_on_D)
+
+        def phi_given_med(theta, grads):
+            med = theta_median(theta)
+            return rbf.svgd_phi(theta, grads, median_fn=lambda D: med)
+        return phi_given_med
 
     _pallas_only_bisect(median)
 
     def median_fn(theta, center):
+        if theta_median is not None:
+            return theta_median(theta)
         if median_impl == "fused_gram":
             med = _gram_in_kernel_med(theta, 0.0, median_passes,
                                       median_max_rows, center)
@@ -602,6 +620,11 @@ def throughput_config(n_particles, n_params, mesh=None, model_axis=None,
     ``inkernel_model`` step_impl='fused_model': B1 with its model stage
     (``ops/model_grad.py``) computing the gradients too.
 
+    On a 2-D ``mesh`` (a ``Mesh2D``) with ``model_axis``: the tile on the
+    psum'd D rows (B10) for f32, the warm median with 256 rows below
+    n=4096, its collectives 'rounds' on one particle rank and 'grid' on
+    more (``stein_tpu/api.py:863-891``).
+
     On a 1-D particle ``mesh`` (a ``ParticleMesh``, which the dict carries)
     f32 shapes whose median block passes ``bracket_pass_fits`` get
     step_impl='fused_shard' (B8 with median_collectives='rounds' on one
@@ -623,10 +646,22 @@ def throughput_config(n_particles, n_params, mesh=None, model_axis=None,
         cfg.update(median_max_rows=128)
     if mesh is not None:
         _check_mesh_type(mesh)
-        if model_axis is not None:
-            raise _unported("throughput_config(model_axis=...), the 2-D "
-                            "mesh,", "A7")
+        _check_mesh_axes(mesh, model_axis)
         cfg["mesh"] = mesh
+        if model_axis is not None:
+            cfg["model_axis"] = model_axis
+            if f32:
+                cfg.update(kernel_impl="pallas",
+                           pallas_block=1024 if large else 512)
+            if not large:
+                cfg["median_max_rows"] = 256
+            n_p_dev = 1
+            for ax in mesh.axis_names:
+                if ax != model_axis:
+                    n_p_dev *= mesh.shape[ax]
+            cfg["median_collectives"] = "rounds" if n_p_dev == 1 else "grid"
+            cfg["median_grid_g1"] = 8
+            return cfg
         if f32:
             m_loc = max(min(cfg.get("median_max_rows", 512) // mesh.size,
                             max(n_particles // mesh.size, 1)), 1)
@@ -688,20 +723,40 @@ def throughput_config(n_particles, n_params, mesh=None, model_axis=None,
 
 
 def _check_mesh_type(mesh):
-    if not isinstance(mesh, ParticleMesh):
+    if not isinstance(mesh, (ParticleMesh, Mesh2D)):
         raise TypeError(
             f"mesh must be a stein_tpu_torch.parallel.ParticleMesh (see "
-            f"particle_mesh), got {type(mesh).__name__}"
+            f"particle_mesh) or Mesh2D (see mesh_2d), got "
+            f"{type(mesh).__name__}"
         )
+
+
+def _check_mesh_axes(mesh, model_axis, particle_axis=None):
+    """A 1-D mesh is a ``ParticleMesh``; with ``model_axis`` the mesh is a
+    ``Mesh2D`` with that axis; ``particle_axis`` (when given) names the
+    other."""
+    if model_axis is None and not isinstance(mesh, ParticleMesh):
+        raise TypeError("a 2-D mesh (Mesh2D) needs model_axis=")
+    if model_axis is not None:
+        if not isinstance(mesh, Mesh2D):
+            raise TypeError(
+                f"model_axis={model_axis!r} needs a 2-D mesh, a "
+                f"stein_tpu_torch.parallel.Mesh2D (see mesh_2d), got "
+                f"{type(mesh).__name__}"
+            )
+        mesh.axis(model_axis)   # raises if the mesh has no such axis
+    axes = (mesh.axis_names if model_axis is not None
+            else (mesh.axis_name,))
+    if particle_axis is not None and particle_axis != axes[0]:
+        raise ValueError(f"particle_axis={particle_axis!r} is not "
+                         f"the mesh's particle axis {axes[0]!r}")
 
 
 def _check_options(n_params, dtype, median, kernel_impl, median_max_rows,
                    n_particles, kernel, warm_median, median_impl, step_impl,
                    custom_grads, remat, pallas_precision, quadratic_form,
                    inkernel_model):
-    """The JAX sampler's ValueError guards, in its order, then the
-    NotImplementedError of every option the port does not run yet.
-    ``kernel`` is None for the default RBF kernel (an exact
+    """The JAX sampler's ValueError guards, in its order. ``kernel`` is None for the default RBF kernel (an exact
     SquaredExponentialKernel included)."""
     f32 = dtype == torch.float32
     if median_impl not in ("xla", "fused", "fused_gram"):
@@ -786,9 +841,7 @@ def _check_options(n_params, dtype, median, kernel_impl, median_max_rows,
             "of the two"
         )
 
-    if median in ("subsample", "binned"):
-        raise _unported(f"median={median!r}", "A5")
-    if median not in ("exact", "bisect"):
+    if median not in ("exact", "subsample", "bisect", "binned"):
         raise ValueError(f"unknown median mode: {median!r}")
     if pallas_precision not in svgd_tile.PRECISIONS:
         raise ValueError(f"unknown pallas_precision: {pallas_precision!r}")
@@ -803,10 +856,9 @@ def _check_mesh_options(dtype, median, kernel_impl, kernel, warm_median,
                         median_impl, step_impl, custom_grads, remat,
                         pallas_precision, quadratic_form, inkernel_model,
                         model_axis, comm, median_collectives):
-    """The JAX sampler's ValueError guards of a mesh, in its order, then
-    the NotImplementedError of every mesh option the port does not run yet.
-    The mesh builders (parallel/sharded.py, sharded_fused.py) check the
-    rest, as the JAX builders do."""
+    """The JAX sampler's ValueError guards of a mesh, in its order. The
+    mesh steps' constructors (parallel/sharded.py, sharded_fused.py,
+    sharded2d.py) check the rest, as the JAX package's do."""
     if kernel_impl not in ("xla", "pallas"):
         raise ValueError(f"unknown kernel_impl: {kernel_impl!r}")
     if median_impl not in ("xla", "fused", "fused_gram"):
@@ -877,18 +929,13 @@ def _check_mesh_options(dtype, median, kernel_impl, kernel, warm_median,
         raise ValueError("warm_median=True requires median='bisect' and "
                          "the default RBF kernel")
 
-    if model_axis is not None:
-        raise _unported("model_axis=, the 2-D (particles x model) mesh,",
-                        "A7")
-    if median in ("subsample", "binned"):
-        raise _unported(f"median={median!r}", "A5")
     if pallas_precision not in svgd_tile.PRECISIONS:
         raise ValueError(f"unknown pallas_precision: {pallas_precision!r}")
 
 
 class SVGDSampler:
-    """Stein variational gradient descent on one device or a 1-D particle
-    mesh.
+    """Stein variational gradient descent on one device, a 1-D particle
+    mesh or a 2-D (particles x model) mesh.
 
     Parameters follow ``stein_tpu.SVGDSampler``; the differences:
 
@@ -912,14 +959,19 @@ class SVGDSampler:
         ``function_posterior``, ``ksd`` and ``save`` all-gather the full
         particles, so every rank must call them. ``comm``,
         ``median_collectives`` and ``median_grid_g1`` are the JAX
-        sampler's; ``model_axis`` (the 2-D mesh) is not ported.
+        sampler's. With ``model_axis``, ``mesh`` is a ``parallel.Mesh2D``
+        (``mesh_2d(dp, mp)``) whose axes are ``particle_axis`` and
+        ``model_axis``: each rank keeps an [n/dp, p/mp] block
+        (``parallel/sharded2d.py``), and the gathers above cover both
+        axes.
     pallas_block, donate, pallas_interpret : accepted so JAX configs carry
         over and ignored: the CUDA tile's sizes are its own, PyTorch runs
         eagerly with no buffers to donate, and the kernels have no
         interpret mode.
-    binned_bins, binned_block_rows : the JAX sampler's median='binned'
-        settings; a value other than the default raises
-        NotImplementedError (ROADMAP.md queue A, item 5).
+    binned_bins, binned_block_rows : median='binned''s bins a level and
+        row block (``ops.median.binned_median``); on the ring mesh step
+        only the bins apply (``ring_binned_median``), as in the JAX
+        package.
     pallas_precision : 'f32' (default) or 'bf16', the streaming tile's
         operands (kernel_impl='pallas', on one device and on the mesh):
         'bf16' rounds the centred particles for the dot and K and u for
@@ -938,9 +990,7 @@ class SVGDSampler:
         and 'fused_model' (``LogisticRegressionModel.inkernel_model``),
         called on each batch; the fused tail computes the gradients.
 
-    Options the port does not run yet raise NotImplementedError (see
-    ``_check_options``); options the JAX sampler refuses raise the same
-    ValueError.
+    Options the JAX sampler refuses raise the same ValueError.
     """
 
     def __init__(self, n_particles, log_p, param_template, gd,
@@ -961,9 +1011,6 @@ class SVGDSampler:
                 "SVGD needs n_particles >= 2 (the median-heuristic bandwidth "
                 "h^2 = median(D)/log(n) is undefined for n=1)"
             )
-        if (binned_bins, binned_block_rows) != (4096, 256):
-            raise _unported("binned_bins= and binned_block_rows= (the "
-                            "median='binned' settings)", "A5")
         if type(kernel) is SquaredExponentialKernel:
             # The default kernel itself: every dispatch (the fused RBF
             # paths, the warm_median guards) treats it as kernel=None. A
@@ -991,14 +1038,12 @@ class SVGDSampler:
                     f"{mesh.device_type} tensors: NCCL meshes take "
                     "device='cuda', gloo meshes device='cpu'"
                 )
-            if particle_axis != mesh.axis_name:
-                raise ValueError(f"particle_axis={particle_axis!r} is not "
-                                 f"the mesh's axis {mesh.axis_name!r}")
             _check_mesh_options(dtype, median, kernel_impl, kernel,
                                 warm_median, median_impl, step_impl,
                                 custom_grads, remat, pallas_precision,
                                 quadratic_form, inkernel_model, model_axis,
                                 comm, median_collectives)
+            _check_mesh_axes(mesh, model_axis, particle_axis)
         del pallas_block, donate, pallas_interpret   # see the docstring
 
         if theta is not None:
@@ -1022,6 +1067,15 @@ class SVGDSampler:
             theta0, gd.init(tuple(theta0.shape), dtype, self.device),
             torch.zeros((), dtype=torch.int32, device=self.device),
         )
+        self.model_axis = model_axis if mesh is not None else None
+        if self.model_axis is not None:
+            self._build_2d_steps(
+                mesh, median=median, max_phi_norm=max_phi_norm,
+                median_max_rows=median_max_rows, median_passes=median_passes,
+                kernel_impl=kernel_impl, warm_median=warm_median,
+                warm_passes=warm_passes, median_collectives=median_collectives,
+                median_grid_g1=median_grid_g1, kernel=kernel, remat=remat)
+            return
         if mesh is not None:
             self._build_mesh_steps(
                 mesh, median=median, max_phi_norm=max_phi_norm, comm=comm,
@@ -1032,7 +1086,8 @@ class SVGDSampler:
                 median_collectives=median_collectives,
                 median_grid_g1=median_grid_g1,
                 pallas_precision=pallas_precision, kernel=kernel,
-                remat=remat)
+                remat=remat, binned_bins=binned_bins,
+                binned_block_rows=binned_block_rows)
             return
 
         if median == "exact":
@@ -1050,6 +1105,8 @@ class SVGDSampler:
             make_phi_fn(self.n_particles, median=median,
                         kernel_impl=kernel_impl,
                         median_max_rows=median_max_rows,
+                        binned_bins=binned_bins,
+                        binned_block_rows=binned_block_rows,
                         median_passes=median_passes,
                         median_impl=median_impl,
                         pallas_precision=pallas_precision, kernel=kernel),
@@ -1095,11 +1152,41 @@ class SVGDSampler:
                 )
                 self._warm_init_med = warm_phi.init_med
 
+    def _build_2d_steps(self, mesh, median, max_phi_norm, median_max_rows,
+                        median_passes, kernel_impl, warm_median, warm_passes,
+                        median_collectives, median_grid_g1, kernel, remat):
+        """The 2-D mesh steps, as the JAX sampler builds them
+        (``stein_tpu/api.py:1589-1617``): the cold step, then the warm
+        step for run. self.state becomes this rank's block."""
+        from .parallel.sharded2d import (
+            make_sharded2d_step,
+            make_sharded2d_warm_step,
+        )
+
+        self._step_fn, self.state = make_sharded2d_step(
+            self.log_p, self.unravel_fn, self.gd, self.n_particles,
+            self.n_params, self.state, mesh, max_phi_norm=max_phi_norm,
+            remat=remat, median=median, median_max_rows=median_max_rows,
+            median_passes=median_passes, kernel=kernel,
+            kernel_impl=kernel_impl)
+        self._warm_step_fn = None
+        if warm_median:
+            self._warm_step_fn, self._warm_init_med = \
+                make_sharded2d_warm_step(
+                    self.log_p, self.unravel_fn, self.gd, self.n_particles,
+                    self.n_params, mesh, max_phi_norm=max_phi_norm,
+                    remat=remat, median_max_rows=median_max_rows,
+                    median_passes=median_passes, warm_passes=warm_passes,
+                    kernel_impl=kernel_impl,
+                    median_collectives=median_collectives,
+                    median_grid_g1=median_grid_g1)
+
     def _build_mesh_steps(self, mesh, median, max_phi_norm, comm,
                           median_max_rows, median_passes, kernel_impl,
                           custom_grads, warm_median, warm_passes, step_impl,
                           quadratic_form, median_collectives, median_grid_g1,
-                          pallas_precision, kernel, remat):
+                          pallas_precision, kernel, remat, binned_bins,
+                          binned_block_rows):
         """The mesh steps, as the JAX sampler builds them: the cold step
         for train_on_batch on every mesh, then the fused or plain warm step
         for run. self.state becomes this rank's block."""
@@ -1115,7 +1202,8 @@ class SVGDSampler:
             mesh, median=median, max_phi_norm=max_phi_norm, comm=comm,
             median_max_rows=median_max_rows, median_passes=median_passes,
             kernel_impl=kernel_impl, custom_grads=custom_grads,
-            pallas_precision=pallas_precision, kernel=kernel, remat=remat)
+            pallas_precision=pallas_precision, kernel=kernel, remat=remat,
+            binned_bins=binned_bins, binned_block_rows=binned_block_rows)
         self._warm_step_fn = None
         common = dict(max_phi_norm=max_phi_norm,
                       median_max_rows=median_max_rows,
@@ -1234,8 +1322,7 @@ class SVGDSampler:
         utils.convert.state_from_numpy), checking its shapes and device. On
         a mesh, the state is this rank's block (state_from_numpy(...,
         mesh=))."""
-        shape = (self.n_particles // (self.mesh.size if self.mesh else 1),
-                 self.n_params)
+        shape = self._block_shape()
         if tuple(state.particles.shape) != shape:
             raise ValueError(f"state particles {tuple(state.particles.shape)}"
                              f" != {shape}")
@@ -1255,6 +1342,15 @@ class SVGDSampler:
                     f"{self.device}"
                 )
         self.state = state
+
+    def _block_shape(self):
+        """The shape of the particles this rank holds."""
+        if self.mesh is None:
+            return (self.n_particles, self.n_params)
+        if self.model_axis is None:
+            return (self.n_particles // self.mesh.size, self.n_params)
+        return (self.n_particles // self.mesh.particles.size,
+                self.n_params // self.mesh.model.size)
 
     def _particles(self):
         if self.mesh is None:
@@ -1334,11 +1430,14 @@ class SVGDSampler:
             self.state = restore_checkpoint(path, self.state)
             return
         from .parallel.sharded import shard_state
+        from .parallel.sharded2d import shard_state_2d
+        full_shape = (self.n_particles, self.n_params)
         full = _tree_map(
-            lambda l: torch.empty(
-                (self.n_particles, *l.shape[1:]) if l.dim() else (),
-                dtype=l.dtype, device=l.device), self.state)
-        self.state = shard_state(restore_checkpoint(path, full), self.mesh)
+            lambda l: torch.empty(full_shape if l.dim() else (),
+                                  dtype=l.dtype, device=l.device),
+            self.state)
+        shard = shard_state if self.model_axis is None else shard_state_2d
+        self.state = shard(restore_checkpoint(path, full), self.mesh)
 
 
 def _step_count(n_steps):

@@ -1,5 +1,10 @@
 from .rbf import pairwise_sq_dists, rbf_kernel_and_repulse, svgd_phi
-from .median import exact_median, bisect_median
+from .median import (
+    exact_median,
+    subsampled_sq_dist_median,
+    binned_median,
+    bisect_median,
+)
 from .optimizers import (
     Adam,
     Adagrad,
@@ -12,6 +17,8 @@ __all__ = [
     "rbf_kernel_and_repulse",
     "svgd_phi",
     "exact_median",
+    "subsampled_sq_dist_median",
+    "binned_median",
     "bisect_median",
     "Adam",
     "Adagrad",

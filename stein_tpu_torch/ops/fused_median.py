@@ -318,31 +318,36 @@ def _bracket_checks(rows, cols, center, what):
 
 
 @functools.lru_cache(maxsize=None)
-def _multiples(brackets, device):
-    """The bracket multiples (lo, hi) as f32 tensors on ``device``, copied
-    there once."""
-    return tuple(torch.tensor([b[i] for b in brackets], dtype=torch.float32,
+def _multiples(brackets, device, dtype=torch.float32):
+    """The bracket multiples (lo, hi) as ``dtype`` tensors on ``device``,
+    copied there once (each multiple rounded once to ``dtype``, as a
+    Python float meets a JAX array of that dtype)."""
+    return tuple(torch.tensor([b[i] for b in brackets], dtype=dtype,
                               device=device) for i in (0, 1))
 
 
 @functools.lru_cache(maxsize=None)
-def grid_steps(g, device):
-    """0, 1, ..., g as an f32 tensor on ``device``, made there once."""
-    return torch.arange(g + 1, dtype=torch.float32, device=device)
+def grid_steps(g, device, dtype=torch.float32):
+    """0, 1, ..., g as a ``dtype`` tensor on ``device``, made there once."""
+    return torch.arange(g + 1, dtype=dtype, device=device)
 
 
 def grid_edges(med_prev, hi_bound, brackets, g1):
     """The threshold grids of the grid warm search: for every candidate
     bracket (multiples of ``med_prev``) and the full-range fallback
-    [-1e-6 (1 + hi_bound), hi_bound], its g1 + 1 uniform edges, one f32
-    tensor of (n_brackets + 1) * (g1 + 1) values, bracket-major, tightest
-    first, fallback last. The JAX expression order: w = (hi - lo) / g1, then
-    lo + t * w. ``med_prev`` and ``hi_bound`` are 0-d f32 device tensors;
-    ``hi_bound`` must bound every entry of D."""
-    lo_m, hi_m = _multiples(tuple(brackets), hi_bound.device)
-    steps = grid_steps(g1, hi_bound.device)
+    [-1e-6 (1 + hi_bound), hi_bound], its g1 + 1 uniform edges, one
+    tensor of (n_brackets + 1) * (g1 + 1) values in ``hi_bound``'s dtype,
+    bracket-major, tightest first, fallback last. The JAX expression
+    order: w = (hi - lo) / g1, then lo + t * w. ``med_prev`` and
+    ``hi_bound`` are 0-d device tensors of one dtype (f32 on the kernels'
+    paths, f64 on the 2-D mesh's x64 runs); ``hi_bound`` must bound every
+    entry of D."""
+    dev, dt = hi_bound.device, hi_bound.dtype
+    lo_m, hi_m = _multiples(tuple(brackets), dev, dt)
+    steps = grid_steps(g1, dev, dt)
+    # -1e-6 is an f32 literal in the JAX expression, also under x64.
     lo_f = torch.full((1,), -1e-6, dtype=torch.float32,
-                      device=hi_bound.device) * (1.0 + hi_bound)
+                      device=dev).to(dt) * (1.0 + hi_bound)
     lo = torch.cat([lo_m * med_prev, lo_f])
     hi = torch.cat([hi_m * med_prev, hi_bound.reshape(1)])
     # g1 as a tensor: on the card torch multiplies by the reciprocal of a

@@ -1,11 +1,11 @@
 """Medians for the RBF bandwidth heuristic.
 
-PyTorch counterpart of ``stein_tpu/ops/median.py`` but for
-``subsampled_sq_dist_median``, the binned medians and the 2-D mesh's
-searches on given D rows. The reference computes
+PyTorch counterpart of ``stein_tpu/ops/median.py``. The reference computes
 the exact median of all n^2 entries of the pairwise squared-distance matrix
-D (stein/utilities/compute_median.py:4-16); the sort-free searches here
-count ``|{D <= t}|`` on a strided row subsample.
+D (stein/utilities/compute_median.py:4-16). ``subsampled_sq_dist_median``
+is the exact median of a strided row block; the sort-free searches count
+``|{D <= t}|`` on such a block; ``binned_median`` refines a histogram of
+all n^2 entries, streamed in row blocks of D, level by level.
 
 Every search is the JAX search's scalar expression tree in f32 0-d tensors
 (integer counts, order-free min/max), so on the same D block it returns
@@ -17,6 +17,8 @@ a row block of the global sample, its counts are psum'd (one batched psum
 per pass) and its range pmax'd, so every rank refines the same interval and
 agrees bitwise on the result.
 """
+
+import functools
 
 import torch
 
@@ -129,6 +131,123 @@ def bisect_median(theta, max_rows=512, passes=30):
     return _bisect_search(D, lo0, hi0, passes)
 
 
+def subsampled_sq_dist_median(theta, max_rows=512):
+    """Exact median of the strided row block D[idx, :] (all of D when
+    n <= max_rows); D itself is never formed."""
+    return exact_median(row_subsample_block(theta, max_rows))
+
+
+# Spare bins past the histogram: bincount's atomics for the end bins'
+# entries go round-robin over them instead of onto two counters.
+_SPARE_BINS = 1024
+
+
+@functools.lru_cache(maxsize=8)
+def _spare_index(numel, n_bins, device):
+    return n_bins + torch.arange(numel, device=device,
+                                 dtype=torch.int32) % _SPARE_BINS
+
+
+def _bin_counts(D, lo, width, n_bins):
+    """The f32 histogram of the entries of D over n_bins bins of ``width``
+    from ``lo``, out-of-range entries in the end bins: JAX's
+    clip(((D - lo) / width).astype(int32), 0, n_bins - 1), whose end bins
+    are q < 1 and q >= n_bins - 1 for q = (D - lo) / width. XLA saturates
+    an out-of-range float on conversion, where torch's is undefined, so
+    only the interior quotients are converted. Past the first level nearly
+    every entry falls outside the interval, into the end bins: those two
+    are counted by reductions, and their entries' bincount atomics spread
+    over spare bins. The counts are exact integers, converted to f32 as
+    JAX's int32 block counts are."""
+    q = ((D - lo) / width).reshape(-1)
+    first, last = q < min(1.0, n_bins - 1.0), q >= n_bins - 1
+    inner = torch.clamp(q, 1.0, max(n_bins - 1.0, 1.0)).to(torch.int32)
+    idx = torch.where(first | last, _spare_index(q.numel(), n_bins,
+                                                 q.device), inner)
+    counts = torch.bincount(idx, minlength=n_bins + _SPARE_BINS)[:n_bins]
+    counts[0] = first.sum()
+    counts[n_bins - 1] += last.sum()
+    return counts.to(torch.float32)
+
+
+def _block_histogram(theta, rowsq, theta_cols, colsq, lo, hi, n_bins,
+                     block_rows):
+    """Histogram of the squared distances between ``theta``'s rows and
+    ``theta_cols``'s rows over [lo, hi], streaming row blocks of D (never
+    materialised): per-block exact counts, summed across blocks in f32 in
+    block order, the remainder rows (n not divisible by block_rows) last,
+    as the JAX scan sums them. A direct f32 count would saturate once a
+    bin passes 2^24."""
+    width = (hi - lo) / n_bins
+    counts = torch.zeros(n_bins, dtype=torch.float32, device=theta.device)
+    for start in range(0, theta.shape[0], block_rows):
+        D = _row_block_sq_dists(theta[start:start + block_rows], theta_cols,
+                                rowsq[start:start + block_rows], colsq)
+        counts = counts + _bin_counts(D, lo, width, n_bins)
+    return counts
+
+
+def _refine_levels(hist, lo0, hi0, total, n_bins, n_levels):
+    """The two middle ranks' bins refined ``n_levels`` times: each level
+    locates the bin holding rank k (searchsorted of the f32 cumulative
+    counts, side='left') and searches inside it. ``hist(lo, hi)`` is the
+    (global) f32 histogram of [lo, hi]. Returns the midpoint of the two
+    final bin centres (np.median's midpoint for an even total)."""
+    k_lo = (total + 1) // 2
+    k_hi = total // 2 + 1
+
+    def refine(lo, hi, k):
+        cum = torch.cumsum(hist(lo, hi), dim=0)
+        kf = torch.full((1,), float(k), dtype=torch.float32,
+                        device=cum.device)
+        b = torch.searchsorted(cum, kf, side="left")[0].to(lo.dtype)
+        width = (hi - lo) / n_bins
+        return lo + b * width, lo + (b + 1.0) * width
+
+    lo_a, hi_a = lo0, hi0
+    lo_b, hi_b = lo0, hi0
+    for _ in range(n_levels):
+        lo_a, hi_a = refine(lo_a, hi_a, k_lo)
+        lo_b, hi_b = refine(lo_b, hi_b, k_hi)
+    return 0.5 * ((lo_a + hi_a) * 0.5 + (lo_b + hi_b) * 0.5)
+
+
+def _binned_range(max_rsq, dtype):
+    """[lo0, hi0] bounding every entry of D: |a - b|^2 <= 4 max |x|^2, and
+    lo0 just below 0 for fp-negative distances."""
+    hi0 = 4.0 * max_rsq + 1e-12
+    return torch.tensor(-1e-6, dtype=dtype,
+                        device=max_rsq.device) * (1.0 + hi0), hi0
+
+
+def binned_median(theta, n_bins=4096, n_levels=2, block_rows=256,
+                  mesh=None, theta_cols=None):
+    """Near-exact median of all n^2 squared distances by histogram
+    refinement, D never materialised: each level shrinks the interval by
+    ``n_bins``, so the result is within range(D) / n_bins**n_levels / 2 of
+    the exact median. With ``mesh``, ``theta`` is this rank's block and
+    ``theta_cols`` the gathered particles; the histograms are psum'd and
+    the range pmax'd, so every rank finds the same median."""
+    rowsq = torch.sum(theta * theta, dim=1)
+    if theta_cols is None:
+        theta_cols, colsq = theta, rowsq
+    else:
+        colsq = torch.sum(theta_cols * theta_cols, dim=1)
+    max_rsq = torch.max(colsq)
+    if mesh is not None:
+        max_rsq = coll.pmax(max_rsq, mesh)
+    lo0, hi0 = _binned_range(max_rsq, theta.dtype)
+
+    def hist(lo, hi):
+        counts = _block_histogram(theta, rowsq, theta_cols, colsq, lo, hi,
+                                  n_bins, block_rows)
+        return counts if mesh is None else coll.psum(counts, mesh)
+
+    n_total = theta_cols.shape[0]
+    return _refine_levels(hist, lo0, hi0, n_total * n_total, n_bins,
+                          n_levels)
+
+
 def _counts(D, thresholds, cdt, mesh):
     """count_le at a list of 0-d thresholds, psum'd over the mesh if any."""
     c = count_le(D, torch.stack(list(thresholds)), cdt)
@@ -221,8 +340,7 @@ def _quad_rounds(D, lo0, hi0, k, rounds, cdt, mesh=None):
 
 
 # ------------------------------------------------------------ sharded
-# Counterparts of stein_tpu/ops/median.py:462-775 (the 2-D mesh's
-# sharded_warm_grid_on_D and the binned medians are not ported yet).
+# Counterparts of stein_tpu/ops/median.py:462-823.
 
 def sharded_warm_from_bracket(D, med_prev, mm, cnts_local, mesh, total,
                               warm_passes=8, brackets=DEFAULT_BRACKETS):
@@ -286,7 +404,7 @@ def sharded_warm_from_grid(D, med_prev, cnts_local, hi_bound, mesh, total,
     lo0 = lo[pick]
     hi0 = lo0 + w[pick]
     w2 = (hi0 - lo0) / g2
-    steps = grid_steps(g2, D.device)[1:g2]
+    steps = grid_steps(g2, D.device, lo0.dtype)[1:g2]
     cnts2 = coll.psum(count_le(D, lo0 + steps * w2, cdt), mesh)
     b2 = (cnts2 < k).to(lo0.dtype).sum()
     return lo0 + (b2 + 0.5) * w2
@@ -351,6 +469,39 @@ def sharded_warm_bisect_median_on_D(D_rows, med_prev, mesh, max_rows=512,
                         mesh=mesh, total=m_global * n)
 
 
+def sharded_bisect_median_on_D(D_rows, mesh, max_rows=512, passes=30):
+    """The cold sharded bisect on this rank's exact [n_loc, n] distance
+    rows (the 2-D mesh step's, psum'd over the model axis and so the same
+    on every rank of it): the strided local rows, counts psum'd over the
+    particle mesh ``mesh`` only."""
+    n_loc, n = D_rows.shape
+    idx, m_global = _local_row_idx(n_loc, mesh, max_rows, D_rows.device)
+    return _sharded_bisect_on_rows(D_rows[idx], mesh, m_global * n, passes)
+
+
+def sharded_warm_grid_on_D(D_rows, med_prev, hi_bound, mesh, max_rows=512,
+                           warm_passes=8, brackets=DEFAULT_BRACKETS, g1=8):
+    """The two-collective grid warm search on this rank's materialised
+    [n_loc, n] distance rows (the 2-D mesh step's): the counts at every
+    grid edge (grid_edges) in one broadcast compare of the strided rows,
+    then sharded_warm_from_grid's two psums over the particle mesh. The
+    counts are in the total's count dtype. ``hi_bound`` bounds every D
+    entry and is the same on every rank: the 2-D step takes 4 max |x -
+    mean|^2 of its psum'd CENTRED column norms, so the bound is at the
+    spread's scale even for a cloud far from the origin."""
+    from .fused_median import grid_edges
+
+    n_loc, n = D_rows.shape
+    idx, m_global = _local_row_idx(n_loc, mesh, max_rows, D_rows.device)
+    D = D_rows[idx]
+    total = m_global * n
+    cnts = count_le(D, grid_edges(med_prev, hi_bound, brackets, g1),
+                    _count_dtype(total))
+    return sharded_warm_from_grid(D, med_prev, cnts, hi_bound, mesh, total,
+                                  warm_passes=warm_passes, brackets=brackets,
+                                  g1=g1)
+
+
 def ring_median_block(theta_loc, mesh, max_rows=512):
     """This rank's strided local rows against all columns, assembled by
     circulating the column blocks around the ring instead of gathering
@@ -388,3 +539,31 @@ def ring_warm_bisect_median(theta_loc, med_prev, mesh, max_rows=512,
     D, total = ring_median_block(theta_loc, mesh, max_rows)
     return _warm_search(D, med_prev, warm_passes, brackets, mesh=mesh,
                         total=total)
+
+
+def ring_binned_median(theta_loc, mesh, n_bins=2048, n_levels=2):
+    """binned_median for the ring step: each rank histograms its local rows
+    against every column block as the blocks circulate around the ring
+    (``coll.ppermute_ring``), and the per-rotation counts, summed in f32,
+    are psum'd over the mesh for the full n^2 coverage."""
+    n_loc = theta_loc.shape[0]
+    n_total = n_loc * mesh.size
+    rsq_loc = torch.sum(theta_loc * theta_loc, dim=1)
+    lo0, hi0 = _binned_range(coll.pmax(torch.max(rsq_loc), mesh),
+                             theta_loc.dtype)
+
+    def hist(lo, hi):
+        width = (hi - lo) / n_bins
+        counts = torch.zeros(n_bins, dtype=torch.float32,
+                             device=theta_loc.device)
+        blk, blk_rsq = theta_loc, rsq_loc
+        for r in range(mesh.size):
+            D = _row_block_sq_dists(theta_loc, blk, rsq_loc, blk_rsq)
+            counts = counts + _bin_counts(D, lo, width, n_bins)
+            if r + 1 < mesh.size:
+                blk = coll.ppermute_ring(blk, mesh)
+                blk_rsq = coll.ppermute_ring(blk_rsq, mesh)
+        return coll.psum(counts, mesh)
+
+    return _refine_levels(hist, lo0, hi0, n_total * n_total, n_bins,
+                          n_levels)

@@ -4,9 +4,14 @@ The JAX mesh code calls ``jax.lax`` primitives inside ``shard_map``; the port
 calls these, each with the ``ParticleMesh`` in place of the axis name:
 
     all_gather(x, mesh)      jax.lax.all_gather(x, axis, tiled=True)
+    all_gather(x, mesh, dim=1)   the same, concatenated along axis 1
     psum, pmax, pmin, pmean  jax.lax.psum / pmax / pmin / pmean
     ppermute_ring(x, mesh)   jax.lax.ppermute(x, axis, [(j, j + 1 mod n)])
     axis_index, axis_size    jax.lax.axis_index / axis_size
+
+On a ``Mesh2D`` (the 2-D mesh), ``all_gather`` and ``psum`` run over both
+axes: the [n_loc, p_loc] blocks become the full [n, p], and a sum covers
+every rank.
 
 Each returns a new tensor (``torch.distributed`` reduces in place, so the
 input is copied first) and leaves the input as it was. Reductions and
@@ -19,6 +24,8 @@ rank of the group must make the same calls in the same order.
 
 import torch
 import torch.distributed as dist
+
+from .mesh import Mesh2D
 
 # torch 2.13 renamed all_gather_into_tensor (which it still has, with a
 # deprecation warning); older releases have only the old name.
@@ -45,16 +52,22 @@ def axis_size(mesh):
     return mesh.size
 
 
-def all_gather(x, mesh, tiled=True):
-    """The blocks of every rank in rank order, concatenated along axis 0
-    (``tiled=True``; a 0-d x gives [size]) or stacked along a new leading
-    axis ([size, *x.shape])."""
+def all_gather(x, mesh, tiled=True, dim=0):
+    """The blocks of every rank in rank order, concatenated along axis
+    ``dim`` (``tiled=True``; a 0-d x gives [size]) or stacked along a new
+    leading axis ([size, *x.shape]). On a ``Mesh2D``, this rank's [n_loc,
+    p_loc] block becomes the full [n, p]."""
+    if isinstance(mesh, Mesh2D):
+        return all_gather(all_gather(x, mesh.model, dim=1), mesh.particles)
     x = _check(x, mesh)
     if not tiled or x.dim() == 0:
         x = x.reshape(1, *x.shape)
     out = torch.empty((mesh.size * x.shape[0], *x.shape[1:]),
                       dtype=x.dtype, device=x.device)
     _all_gather_single(out, x, group=mesh.group)
+    if tiled and dim != 0:
+        parts = out.reshape(mesh.size, *x.shape)
+        out = torch.cat(list(parts.unbind(0)), dim=dim)
     return out
 
 
@@ -65,7 +78,10 @@ def _all_reduce(x, mesh, op):
 
 
 def psum(x, mesh):
-    """The sum over the ranks (0-d or 1-d; int32 or f32)."""
+    """The sum over the ranks (0-d or 1-d; int32 or f32); on a ``Mesh2D``
+    over the particle axis, then the model axis."""
+    if isinstance(mesh, Mesh2D):
+        return psum(psum(x, mesh.particles), mesh.model)
     return _all_reduce(x, mesh, dist.ReduceOp.SUM)
 
 

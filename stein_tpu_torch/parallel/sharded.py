@@ -18,16 +18,18 @@ the step on its own block and calls the collectives
 
 A ``kernels/`` kernel other than the RBF one takes the generic
 weights-kernel tile (K @ grads and W @ theta, gathered or around the ring)
-on the cold step; the binned median (ROADMAP A5) is not ported.
+on the cold step.
 """
 
 import torch
 
-from ..api import SVGDState, _make_grad_all, _unported
+from ..api import SVGDState, _make_grad_all
 from ..ops import rbf, svgd_tile
 from ..ops.median import (
     _row_block_sq_dists,
+    binned_median,
     exact_median,
+    ring_binned_median,
     ring_bisect_median,
     ring_warm_bisect_median,
     sharded_bisect_median,
@@ -207,10 +209,16 @@ def make_sharded_step(log_p, unravel_fn, gd, n_particles, state, mesh,
                       median="exact", max_phi_norm=10.0, comm="all_gather",
                       median_max_rows=512, median_passes=30,
                       kernel_impl="xla", custom_grads=None,
-                      pallas_precision="f32", kernel=None, remat=False):
+                      pallas_precision="f32", kernel=None, remat=False,
+                      binned_bins=4096, binned_block_rows=256):
     """Build (step_fn, local_state): step_fn(local_state, batch) ->
     (local_state, aux) is the cold mesh step every rank runs on its block;
     local_state is this rank's block of the full ``state``.
+
+    ``median='binned'`` psums the histograms of the local rows against the
+    gathered columns (``binned_median``; ``binned_bins`` bins a level, row
+    blocks of ``binned_block_rows``), or with comm='ring' against each
+    circulating block (``ring_binned_median``, ``binned_bins`` only).
 
     ``kernel_impl='pallas'`` streams the tiles through kernel B3: local rows
     against the gathered columns, or one [n_loc, n_loc] tile per ring
@@ -242,7 +250,8 @@ def make_sharded_step(log_p, unravel_fn, gd, n_particles, state, mesh,
     if median == "exact":
         check_exact_median_gather(
             n_particles, state.particles.dtype, "mesh",
-            "median='bisect' (exact to fp-bisection resolution, no gather)",
+            "median='bisect' (exact to fp-bisection resolution, no "
+            "gather) or median='binned' (psum'd histogram)",
         )
     if comm == "ring" and median not in ("binned", "bisect"):
         raise ValueError(
@@ -250,20 +259,21 @@ def make_sharded_step(log_p, unravel_fn, gd, n_particles, state, mesh,
             f"strided row block) or 'binned', got {median!r}: the ring never "
             "assembles the global column block the other median modes need"
         )
-    if median == "binned":
-        raise _unported("median='binned'", "A5")
-    if median not in ("exact", "bisect"):
+    if median not in ("exact", "bisect", "binned"):
         raise ValueError(f"unknown sharded median mode: {median!r} (use "
-                         "'exact' or 'bisect')")
+                         "'exact', 'bisect', or 'binned')")
 
     def step_fn(state, batch):
         theta_loc = state.particles
         log_p_vals, grads_loc = grad_all(theta_loc, batch)
         rsq_loc = torch.sum(theta_loc * theta_loc, dim=1)
         if comm == "ring":
-            med = ring_bisect_median(theta_loc, mesh,
-                                     max_rows=median_max_rows,
-                                     passes=median_passes)
+            if median == "bisect":
+                med = ring_bisect_median(theta_loc, mesh,
+                                         max_rows=median_max_rows,
+                                         passes=median_passes)
+            else:
+                med = ring_binned_median(theta_loc, mesh, n_bins=binned_bins)
             h2 = rbf.bandwidth_sq_from_median(med.to(theta_loc.dtype),
                                               n_particles)
             if kernel_impl == "pallas":
@@ -289,10 +299,14 @@ def make_sharded_step(log_p, unravel_fn, gd, n_particles, state, mesh,
                     torch.sum(theta_all * theta_all, dim=1))
             if median == "exact":
                 med = exact_median(coll.all_gather(D_rows, mesh))
-            else:
+            elif median == "bisect":
                 med = sharded_bisect_median(theta_loc, theta_all, mesh,
                                             max_rows=median_max_rows,
                                             passes=median_passes)
+            else:
+                med = binned_median(theta_loc, n_bins=binned_bins,
+                                    block_rows=binned_block_rows, mesh=mesh,
+                                    theta_cols=theta_all)
             h2 = rbf.bandwidth_sq_from_median(med.to(theta_loc.dtype),
                                               n_particles)
             if kernel_impl == "pallas":

@@ -76,8 +76,9 @@ def save_checkpoint(path, state, mesh=None):
     ``stein_tpu/utils/checkpoint.py:32``.
 
     With a ``mesh``, every leaf of one or more dimensions is this rank's
-    block of rows and is all-gathered (a collective: every rank calls
-    this), rank 0 of the mesh writes, and no rank returns before the file
+    block of rows (on a ``Mesh2D``, of rows and columns) and is
+    all-gathered (a collective: every rank calls this), rank 0 of the mesh
+    writes, and no rank returns before the file
     is in place. Without one, process 0 of an initialised
     ``torch.distributed`` group (or the only process) writes. The write
     goes through a side-named temp file (np.savez's implicit '.npz' suffix

@@ -30,8 +30,9 @@ def state_from_numpy(particles, opt_state, step, device=None, mesh=None):
     sampler); counts become int32. ``device`` defaults to the current card
     (raising without one). With a ``mesh`` the state is this rank's block
     (parallel.sharded.shard_state): the rows of every [n, ...] leaf that
-    the rank holds, the scalars whole; a JAX mesh sampler's full state
-    carries across so."""
+    the rank holds, the scalars whole; on a ``Mesh2D`` its [n/dp, p/mp]
+    block of every [n, p] leaf (shard_state_2d); a JAX mesh sampler's full
+    state carries across so."""
     from ..api import SVGDState
 
     device = _device.resolve_device(device, "state_from_numpy")
@@ -59,5 +60,9 @@ def state_from_numpy(particles, opt_state, step, device=None, mesh=None):
     state = SVGDState(tensor(particles), opt, tensor(step, torch.int32))
     if mesh is None:
         return state
+    from ..parallel.mesh import Mesh2D
+    if isinstance(mesh, Mesh2D):
+        from ..parallel.sharded2d import shard_state_2d
+        return shard_state_2d(state, mesh)
     from ..parallel.sharded import shard_state
     return shard_state(state, mesh)

@@ -10,8 +10,9 @@ from ..parallel import collectives as coll
 
 def host_array(x, mesh=None):
     """numpy value of ``x``. With a ``mesh`` (a ``ParticleMesh``), ``x`` is
-    this rank's block of rows and the full array is all-gathered: every
-    rank must call this together."""
+    this rank's block of rows and the full array is all-gathered (on a
+    ``Mesh2D``, its [n_loc, p_loc] block over both axes): every rank must
+    call this together."""
     if mesh is not None:
         x = coll.all_gather(x, mesh)
     return x.detach().cpu().numpy()

@@ -13,7 +13,11 @@ torch.Generator).
 Messages: every ``_unported(what, item)`` in the port names an item of
 ROADMAP.md's queue A that exists and mentions the option, so that a
 renumbering of the queue cannot leave a message pointing at the wrong
-item."""
+item; since queue A's modules are all ported, none is left.
+
+Public names: every name in ``__all__`` of ``stein_tpu``, ``stein_tpu.ops``,
+``stein_tpu.parallel`` and ``stein_tpu.models`` exists in the port's
+matching module."""
 
 import ast
 import inspect
@@ -161,9 +165,9 @@ _GENERIC = {"SVGDSampler", "throughput_config", "the", "D", "particles", "x",
 def test_unported_messages_name_their_roadmap_item():
     items = _queue_a()
     calls = _unported_calls()
-    # Items A2-A4 are ported; A5 (the other medians) and A7 (the 2-D mesh)
-    # keep their messages.
-    assert len(calls) >= 7
+    # Items A2-A7 are ported: no option of the JAX package is left that
+    # the port refuses.
+    assert calls == []
     for where, text, item in calls:
         number = int(item.lstrip("A"))
         assert item == f"A{number}" and number in items, (where, item)
@@ -177,11 +181,41 @@ def test_unported_messages_name_their_roadmap_item():
 
 @pytest.mark.parametrize("kw", [dict(binned_bins=2048),
                                 dict(binned_block_rows=64)])
-def test_binned_settings_name_the_medians_item(kw):
+def test_binned_settings_name_the_medians_item(kw, monkeypatch):
+    """median='binned''s settings (ROADMAP A5, ported): a sampler with a
+    non-default binned_bins or binned_block_rows hands them to
+    binned_median's histogram, and its first median is binned_median's
+    with them."""
+    from stein_tpu_torch.ops import median as tmed
+
+    seen = []
+    hist = tmed._block_histogram
+    monkeypatch.setattr(tmed, "_block_histogram", lambda *a: (
+        seen.append(a[-2:]), hist(*a))[1])
     model = tm.LinearRegressionModel(3)
-    with pytest.raises(NotImplementedError, match="item A5"):
-        st.SVGDSampler(8, model.log_p, model.template(), st.Adam(),
-                       device="cpu", **kw)
+    theta = torch.randn(40, 3, generator=torch.Generator().manual_seed(0))
+    s = st.SVGDSampler(40, model.log_p, model.template(), st.Adam(),
+                       theta=theta, device="cpu", median="binned", **kw)
+    batch = {"X": torch.ones(5, 3), "y": torch.ones(5, 1)}
+    med = s.train_on_batch(batch)["median"]
+    settings = (kw.get("binned_bins", 4096), kw.get("binned_block_rows", 256))
+    assert seen and set(seen) == {settings}
+    assert med == tmed.binned_median(theta, n_bins=settings[0],
+                                     block_rows=settings[1])
+
+
+@pytest.mark.parametrize("module", ["", ".ops", ".parallel", ".models"])
+def test_public_names_cover_the_jax_package(module):
+    """Every name the JAX module exports exists in the port's counterpart
+    (``from stein_tpu_torch.parallel import make_sharded_step`` works
+    where ``from stein_tpu.parallel import make_sharded_step`` does)."""
+    import importlib
+
+    jmod = importlib.import_module("stein_tpu" + module)
+    tmod = importlib.import_module("stein_tpu_torch" + module)
+    missing = [n for n in jmod.__all__ if not hasattr(tmod, n)]
+    assert not missing, f"stein_tpu_torch{module} lacks {missing}"
+    assert set(jmod.__all__) <= set(tmod.__all__)
 
 
 def test_jax_keywords_are_accepted():

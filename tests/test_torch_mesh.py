@@ -35,7 +35,12 @@ from stein_tpu_torch.utils.convert import state_from_numpy
 # bisect class (medians 5e-3, samples 2e-4 / 1e-6).
 TOL = {"fs": (dict(rtol=5e-5, atol=1e-7), 1e-6),
        "cold": (dict(rtol=1e-5, atol=1e-6), 1e-5),
-       "warm": (dict(rtol=2e-4, atol=1e-6), 5e-3)}
+       "warm": (dict(rtol=2e-4, atol=1e-6), 5e-3),
+       # median='binned': tests/test_sharded.py:64's mesh class for the
+       # samples; the medians rtol 1e-4 (the f32 samples drift by the
+       # tile's rounding, and a median moves a whole final bin, range /
+       # n_bins^2, when an entry crosses a bin edge).
+       "binned": (dict(rtol=1e-3, atol=1e-8), 1e-4)}
 ALL = list(R.SCENARIOS)
 
 
@@ -93,7 +98,8 @@ def _check_against_jax(name, got, want):
 
 # The subprocess runs: every scenario at 4 processes, the main ones at 2.
 AT_2 = ["fs_rounds", "fs_grid", "fs_ring", "fs_glm", "fs_nn", "warm_xla",
-        "cold_bisect", "cold_exact"]
+        "cold_bisect", "cold_exact", "binned_gather", "binned_ring",
+        "binned_pallas"]
 
 
 @functools.lru_cache(maxsize=None)

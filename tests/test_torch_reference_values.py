@@ -168,3 +168,70 @@ def test_nn_log_p_mean_at_step_500(case):
     want = {"main-nn": cs.NN_LOGP_JAX, "mesh-nn": cs.NN_MESH_LOGP_JAX,
             "main-nn-bf16": cs.NN_BF16_LOGP_JAX}[case]
     assert float(aux["log_p_mean"][-1]) == pytest.approx(want, rel=1e-5)
+
+
+def test_mesh2d_log_p_mean_at_step_500():
+    """[mesh2d]'s recipe through the JAX package's throughput_config(1000,
+    128, mesh=, model_axis='model') on a 1x1 2-D mesh (the on-D tile in
+    interpret mode), 500 steps: log_p_mean at the last step and the
+    posterior error; and the spread of the JAX package's own runs, its
+    median_collectives='grid' run against it."""
+    import jax
+    from jax.sharding import Mesh
+
+    X, y, model, batch, theta0 = _lr(cs.make_data()[2], sufficient=False)
+    mesh = Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1),
+                ("particles", "model"))
+    cfg = sj.throughput_config(cs.N, cs.P, mesh=mesh, model_axis="model",
+                               pallas_interpret=True)
+    assert (cfg["kernel_impl"], cfg["median_collectives"]) == ("pallas",
+                                                              "rounds")
+    lp = {}
+    for name, c in (("rounds", cfg),
+                    ("grid", dict(cfg, median_collectives="grid"))):
+        s = _sampler(model, theta0, sj.Adam(learning_rate=1e-1), c)
+        lp[name] = float(s.run(batch, cs.MESH_STEPS)["log_p_mean"][-1])
+        if name == "rounds":
+            post = np.linalg.solve(X.T @ X + np.eye(cs.P), X.T @ y).ravel()
+            err = float(np.max(np.abs(np.asarray(s.samples).mean(0)
+                                      - post)))
+    assert lp["rounds"] == pytest.approx(cs.MESH2D_LOGP_JAX, rel=1e-5)
+    assert err == pytest.approx(cs.POSTERIOR_MESH2D_JAX, rel=1e-3)
+    assert abs(lp["grid"] - lp["rounds"]) == pytest.approx(
+        cs.MESH2D_LOGP_SPREAD_JAX, rel=1e-3)
+
+
+@pytest.mark.parametrize("label", ["mesh2d", "mesh2d-grid", "mesh2d-nn"])
+def test_mesh2d_spread_of_the_jax_package_own_paths(label):
+    """The max abs difference of the samples after 10 steps between the
+    JAX package's kernel_impl='pallas' and 'xla' 2-D runs (1x1 mesh) of
+    [mesh2d]'s, [mesh2d-grid]'s and [mesh2d-nn]'s recipes."""
+    import jax
+    from jax.sharding import Mesh
+
+    from stein_tpu.models import BayesianNNModel as JNN
+
+    mesh = Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1),
+                ("particles", "model"))
+    if label == "mesh2d-nn":
+        X, y, theta0 = cs.nn_data(cs.NN_N)
+        model, n, p = JNN(1, 100, 20, 20, prior_beta=10.0), cs.NN_N, cs.NN_P
+        gd = lambda: sj.Adam(learning_rate=0.1, decay=0.999)  # noqa: E731
+    else:
+        X, y, theta0 = cs.make_data()
+        model, n, p = JM(cs.P), cs.N, cs.P
+        gd = lambda: sj.Adam(learning_rate=0.1)  # noqa: E731
+    batch = {"X": jnp.asarray(X, jnp.float32),
+             "y": jnp.asarray(y, jnp.float32)}
+    cfg = sj.throughput_config(n, p, mesh=mesh, model_axis="model",
+                               pallas_interpret=True)
+    if label == "mesh2d-grid":
+        cfg["median_collectives"] = "grid"
+    samples = []
+    for impl in ("pallas", "xla"):
+        s = _sampler(model, jnp.asarray(theta0, jnp.float32), gd(),
+                     dict(cfg, kernel_impl=impl))
+        s.run(batch, 10)
+        samples.append(np.asarray(s.samples))
+    spread = float(np.abs(samples[0] - samples[1]).max())
+    assert spread == pytest.approx(cs.MESH2D_SPREAD_JAX[label], rel=0.1)

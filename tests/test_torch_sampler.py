@@ -20,6 +20,7 @@ from stein_tpu_torch.models import BayesianNNModel as TNN
 from stein_tpu_torch.models import LinearRegressionModel as TModel
 from stein_tpu_torch.utils.ravel import template_unraveler
 from stein_tpu_torch.utils.convert import state_from_numpy
+from stein_tpu_torch.parallel import Mesh2D, ParticleMesh, mesh_2d
 from torch_mesh_runner import one_process_mesh
 
 
@@ -309,18 +310,27 @@ def mesh1():
 
 
 @pytest.mark.parametrize("kw", [
-    lambda mesh: _sampler(mesh=mesh, model_axis="model"),
-    dict(binned_bins=1024),
-    dict(binned_block_rows=128),
-    lambda mesh: st.throughput_config(48, 6, mesh=mesh, model_axis="model"),
+    lambda mesh: _sampler(mesh=mesh_2d(1, 1), model_axis="model"),
+    dict(median="binned", binned_bins=1024),
+    dict(median="binned", binned_block_rows=128),
+    lambda mesh: st.throughput_config(48, 6, mesh=mesh_2d(1, 1),
+                                      model_axis="model"),
     dict(median="subsample"),
     dict(median="binned"),
 ])
 def test_unported_options_raise(kw, mesh1):
-    """Options not ported yet: the 2-D mesh (model_axis=) names A7, the
-    other medians and their settings A5."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        kw(mesh1) if callable(kw) else _sampler(**kw)
+    """The options that raised NotImplementedError until ROADMAP A5 and A7
+    were ported: the 2-D mesh (model_axis=), the other medians and
+    their settings. Each now builds, and a sampler takes finite steps."""
+    X, y, _ = _problem()
+    got = kw(mesh1) if callable(kw) else _sampler(**kw)
+    if isinstance(got, dict):
+        assert got["model_axis"] == "model" and "mesh" in got
+        return
+    batch = {"X": torch.from_numpy(X), "y": torch.from_numpy(y)}
+    aux = got.run(batch, 2)
+    assert all(torch.isfinite(v).all() for v in aux.values())
+    assert np.isfinite(got.samples).all()
 
 
 @pytest.mark.parametrize("make", [
@@ -399,14 +409,17 @@ def _imported_roots(path):
 
 
 def test_port_imports_nothing_of_the_jax_package():
-    """No module of the port, nor chip_smoke.py, imports jax or anything of
-    stein_tpu, at any depth of the code (a lazy import inside a function
-    included)."""
+    """No module of the port, nor chip_smoke.py, nor an example CLI of
+    examples_torch/, imports jax or anything of stein_tpu, at any depth of
+    the code (a lazy import inside a function included)."""
     from pathlib import Path
 
     root = Path(__file__).resolve().parent.parent
     files = sorted((root / "stein_tpu_torch").rglob("*.py"))
     files.append(root / "chip_smoke.py")
+    examples = sorted((root / "examples_torch").glob("*.py"))
+    assert len(examples) >= 6
+    files += examples
     bad = {str(f.relative_to(root)): _imported_roots(f) & {"jax", "stein_tpu"}
            for f in files}
     assert len(files) > 20
@@ -545,3 +558,34 @@ def test_throughput_config_with_linear_model_matches_jax(n, p):
     assert got.pop("dtype") is torch.float32
     assert want.pop("dtype") == jnp.float32
     assert _presence(got) == _presence(want)
+
+
+def _mesh_2d_shape(dp, mp):
+    """A Mesh2D of rank 0's views, no process group (throughput_config
+    reads its axes and sizes only)."""
+    return Mesh2D(ParticleMesh(None, "particles", dp, 0, "cpu"),
+                  ParticleMesh(None, "model", mp, 0, "cpu"))
+
+
+@pytest.mark.parametrize("dp,mp", [(1, 1), (2, 1), (1, 2), (4, 2)])
+@pytest.mark.parametrize("n,p,dtype", [
+    (1000, 128, "f32"), (1000, 303, "f32"), (10240, 64, "f32"),
+    (64, 8, "f64"), (4096, 16, "f64")])
+def test_throughput_config_2d_matches_jax(dp, mp, n, p, dtype):
+    """throughput_config(n, p, mesh=, model_axis=) on a dp x mp mesh equal
+    to JAX's dict on as many fake devices (the mesh aside)."""
+    import jax
+    from jax.sharding import Mesh
+
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
+                else (jnp.float64, torch.float64))
+    jmesh = Mesh(np.asarray(jax.devices()[:dp * mp]).reshape(dp, mp),
+                 ("particles", "model"))
+    want = sj.throughput_config(n, p, mesh=jmesh, model_axis="model",
+                                dtype=jdt)
+    got = st.throughput_config(n, p, mesh=_mesh_2d_shape(dp, mp),
+                               model_axis="model", dtype=tdt)
+    assert isinstance(got.pop("mesh"), Mesh2D)
+    want.pop("mesh")
+    assert got.pop("dtype") is tdt and want.pop("dtype") == jdt
+    assert got == want

@@ -9,7 +9,9 @@ and 4 processes, each running this file:
 Every rank builds the same sampler from the same numpy data, runs the named
 scenarios and checks that the ranks agree bitwise on every aux scalar;
 rank 0 writes the all-gathered samples and aux of each scenario, and the
-results of the collectives' checks, to OUT.npz.
+results of the collectives' checks, to OUT.npz. A name "2d:NAME" runs the
+2-D mesh scenario NAME (SCENARIOS_2D) on every layout dp x mp of the world
+(LAYOUTS_2D), under "2d:NAME@DPxMP" in OUT.npz (tests/test_torch_sharded2d.py).
 """
 
 import contextlib
@@ -27,12 +29,13 @@ if ROOT not in sys.path:   # run as a script from tests/
     sys.path.insert(0, ROOT)
 
 import stein_tpu_torch as st  # noqa: E402
+from stein_tpu_torch.kernels import InverseMultiquadricKernel  # noqa: E402
 from stein_tpu_torch.models import (  # noqa: E402
     BayesianNNModel,
     LinearRegressionModel,
 )
 from stein_tpu_torch.parallel import collectives as coll  # noqa: E402
-from stein_tpu_torch.parallel import particle_mesh  # noqa: E402
+from stein_tpu_torch.parallel import mesh_2d, particle_mesh  # noqa: E402
 
 _FS = dict(median="bisect", warm_median=True, warm_passes=8,
            step_impl="fused_shard")
@@ -70,11 +73,21 @@ SCENARIOS = {
                               comm="ring"), None),
     "cold_nn": ("nn", "Adam", 3, "train", dict(median="bisect"),
                 "custom_grads"),
+    # median='binned' (tests/test_sharded.py:64, :140), 10 steps.
+    "binned_gather": ("lr", "Adam", 10, "train", dict(median="binned"),
+                      None),
+    "binned_ring": ("lr", "Adam", 10, "train",
+                    dict(median="binned", comm="ring"), None),
+    "binned_pallas": ("lr", "Adam", 10, "train",
+                      dict(median="binned", kernel_impl="pallas",
+                           binned_bins=1024, binned_block_rows=3), None),
 }
 # make_sharded_fused_warm_step with either epilogue, 3 steps (no sampler).
 EPILOGUES = ("epilogue_fused", "epilogue_xla")
 # save on the mesh, restore into a fresh mesh sampler (port only).
 CHECKPOINT = "checkpoint"
+# binned_median and ring_binned_median on the rank's block (no sampler).
+MEDIANS = "medians"
 LR = {"lr": 1e-1, "glm": 1e-1, "nn": 1e-2}
 
 
@@ -116,9 +129,12 @@ def _problem(kind, device):
 
 
 def _agree(aux, mesh):
-    """Whether every rank holds bitwise the same aux values."""
+    """Whether every rank holds bitwise the same aux values (on a Mesh2D,
+    every rank of both axes)."""
     for v in aux.values():
+        k = max(v.numel(), 1)
         g = coll.all_gather(v.reshape(1, -1), mesh)
+        g = g.reshape(g.shape[0], -1, k).reshape(-1, k)
         if not bool((g == g[0]).all()):
             return False
     return True
@@ -132,6 +148,8 @@ def port_scenario(name, mesh, workdir=None):
         return _epilogue_scenario(name.split("_")[1], mesh)
     if name == CHECKPOINT:
         return _checkpoint_scenario(mesh, workdir)
+    if name == MEDIANS:
+        return median_functions(mesh)
     kind, rule, steps, how, cfg, hook = SCENARIOS[name]
     dev = mesh.device
     model, batch, theta0 = _problem(kind, dev)
@@ -198,6 +216,143 @@ def _checkpoint_scenario(mesh, workdir):
     aux = b.run(batch, 3)
     return {"samples": a.samples, "restored": b.samples,
             "step": np.asarray(step), "agree": np.asarray(_agree(aux, mesh))}
+
+
+# 2-D mesh scenarios (tests/test_sharded2d.py's cases, f64): name ->
+# (sampler options, "run" or "train", steps, offset added to theta0).
+_W2 = dict(median="bisect", warm_median=True, warm_passes=8)
+SCENARIOS_2D = {
+    "exact": (dict(), "train", 5, 0.0),
+    "imq": (dict(kernel="imq"), "train", 5, 0.0),
+    "bisect": (dict(median="bisect"), "train", 5, 0.0),
+    "pallas": (dict(median="bisect", kernel_impl="pallas"), "train", 3,
+               0.0),
+    "rounds": (dict(_W2, median_collectives="rounds"), "run", 5, 0.0),
+    "grid": (dict(_W2, median_collectives="grid"), "run", 5, 0.0),
+    "warm_xla": (dict(_W2), "run", 4, 0.0),
+    "warm_pallas": (dict(_W2, kernel_impl="pallas"), "run", 4, 0.0),
+    "rounds_off": (dict(_W2, median_collectives="rounds"), "run", 5, 100.0),
+    "grid_off": (dict(_W2, median_collectives="grid"), "run", 5, 100.0),
+}
+# The 2-D checkpoint scenario and the diagnostics scenario.
+CHECKPOINT_2D = "ckpt"
+DIAGNOSTICS_2D = "diagnostics"
+LAYOUTS_2D = {1: ((1, 1),), 2: ((1, 2), (2, 1)), 4: ((2, 2),)}
+
+
+def linreg2d_data(n_particles=16, n_feats=8, seed=0):
+    """tests/test_sharded2d.py's _setup (f64)."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(40, n_feats))
+    y = X @ rng.normal(size=(n_feats, 1)) + rng.normal(size=(40, 1)) * 0.3
+    theta0 = rng.normal(size=(n_particles, n_feats)) * 0.01
+    return X, y, theta0
+
+
+def _sampler_2d(mesh, theta0, cfg, gd=None):
+    model = LinearRegressionModel(theta0.shape[1])
+    kw = dict(cfg)
+    if kw.get("kernel") == "imq":
+        kw["kernel"] = InverseMultiquadricKernel(c=1.0, beta=-0.5)
+    return st.SVGDSampler(theta0.shape[0], model.log_p, model.template(),
+                          gd or st.Adam(learning_rate=1e-1), theta=theta0,
+                          dtype=torch.float64, device=mesh.device, mesh=mesh,
+                          model_axis="model", **kw)
+
+
+def scenario_2d(name, mesh, workdir=None):
+    """Run one 2-D scenario on the Mesh2D ``mesh``: its all-gathered
+    samples, aux arrays and whether every rank agreed bitwise."""
+    X, y, theta0 = linreg2d_data()
+    batch = {"X": torch.from_numpy(X).to(mesh.device),
+             "y": torch.from_numpy(y).to(mesh.device)}
+    if name == CHECKPOINT_2D:
+        path = os.path.join(workdir, f"ckpt2d_{mesh.particles.size}x"
+                                     f"{mesh.model.size}.npz")
+        gd = lambda: st.Adam(learning_rate=1e-1, decay=0.99)  # noqa: E731
+        a = _sampler_2d(mesh, theta0, _W2, gd())
+        a.run(batch, 3)
+        a.save(path)
+        a.run(batch, 3)
+        b = _sampler_2d(mesh, theta0, _W2, gd())
+        b.restore(path)
+        step = int(b.state.step)
+        aux = b.run(batch, 3)
+        return {"samples": a.samples, "restored": b.samples,
+                "step": np.asarray(step),
+                "agree": np.asarray(_agree(aux, mesh))}
+    if name == DIAGNOSTICS_2D:
+        s = _sampler_2d(mesh, theta0, {})
+        aux = s.train_on_batch(batch)
+        model = LinearRegressionModel(theta0.shape[1])
+        return {"samples": s.samples,
+                "posterior": s.function_posterior(model.predict, batch),
+                "posterior_mean": s.function_posterior(model.predict, batch,
+                                                       axis=0),
+                "ksd": np.asarray(s.ksd(batch)),
+                "theta_w": s.theta["w"].cpu().numpy(),
+                "agree": np.asarray(_agree(aux, mesh))}
+    cfg, how, steps, offset = SCENARIOS_2D[name]
+    s = _sampler_2d(mesh, theta0 + offset, cfg)
+    out = {}
+    if how == "run":
+        aux = s.run(batch, steps)
+    else:
+        auxes, path = [], []
+        for _ in range(steps):
+            auxes.append(s.train_on_batch(batch))
+            path.append(s.samples)
+        aux = {k: torch.stack([a[k] for a in auxes]) for k in auxes[0]}
+        out["path"] = np.stack(path)
+    out.update({k: v.cpu().numpy() for k, v in aux.items()})
+    out["samples"] = s.samples
+    out["agree"] = np.asarray(_agree(aux, mesh))
+    return out
+
+
+def check_layout_2d(mesh):
+    """Where this rank sits on the Mesh2D and the 2-D collectives, for the
+    test to check: rank 0 receives every rank's (rank, particle index,
+    model index), the model-axis gather along dim 1 of a rank-dependent
+    block, and the two-axis psum."""
+    r = dist.get_rank()
+    pos = torch.tensor([[r, mesh.particles.rank, mesh.model.rank]],
+                       dtype=torch.int32)
+    x = torch.full((2, 1), float(r)) + torch.arange(2.0).reshape(2, 1)
+    return {
+        "pos": coll.all_gather(coll.all_gather(pos, mesh.model),
+                               mesh.particles).numpy(),
+        "gather_dim1": coll.all_gather(x, mesh.model, dim=1).numpy(),
+        "gather_2d": coll.all_gather(x, mesh).numpy(),
+        "psum_2d": coll.psum(torch.tensor(float(r + 1)), mesh).numpy(),
+        "rank": np.asarray(mesh.rank),
+    }
+
+
+def medians_theta(dtype):
+    """The particles of the mesh median functions' check: 64 x 3, numpy
+    seed 9."""
+    return np.random.default_rng(9).normal(size=(64, 3)).astype(dtype)
+
+
+def median_functions(mesh):
+    """binned_median (the all-gather step's: local rows against the
+    gathered columns) and ring_binned_median on this rank's block, f32 and
+    f64, at n_levels 2 and 3 (ring: 2, its only setting in the step)."""
+    from stein_tpu_torch.ops.median import binned_median, ring_binned_median
+
+    out = {}
+    for name, dt in (("f32", np.float32), ("f64", np.float64)):
+        theta = torch.from_numpy(medians_theta(dt))
+        n_loc = theta.shape[0] // mesh.size
+        loc = theta[mesh.rank * n_loc:(mesh.rank + 1) * n_loc]
+        for levels in (2, 3):
+            out[f"binned_{name}_{levels}"] = binned_median(
+                loc, n_bins=512, n_levels=levels, block_rows=5, mesh=mesh,
+                theta_cols=theta).numpy()
+        out[f"ring_{name}"] = ring_binned_median(loc, mesh,
+                                                 n_bins=512).numpy()
+    return out
 
 
 def check_collectives(mesh):
@@ -279,7 +434,18 @@ def main(argv):
         results = {f"coll/{k}": v
                    for k, v in check_collectives(mesh).items()}
         workdir = os.path.dirname(os.path.abspath(out))
+        # Every rank makes the same meshes in the same order.
+        meshes = ({lay: mesh_2d(*lay) for lay in LAYOUTS_2D[world]}
+                  if any(n.startswith("2d:") for n in names) else {})
+        for (dp, mp), m2 in meshes.items():
+            for k, v in check_layout_2d(m2).items():
+                results[f"2d:layout@{dp}x{mp}/{k}"] = v
         for name in names:
+            if name.startswith("2d:"):
+                for (dp, mp), m2 in meshes.items():
+                    for k, v in scenario_2d(name[3:], m2, workdir).items():
+                        results[f"{name}@{dp}x{mp}/{k}"] = v
+                continue
             for k, v in port_scenario(name, mesh, workdir).items():
                 results[f"{name}/{k}"] = v
         if rank == 0:
