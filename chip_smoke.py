@@ -96,11 +96,21 @@ results, and times the steps and the kernels. Phases:
               plain functions on the card, the binned median against the
               exact median of the full D and the CPU's, the subsample
               median against a full sort of its block, us/step
+     meshL    bench_torch.py's large-n mesh rows (n=8192, p=64, fused_shard,
+              1024-wide tiles, 64 median rows) on the one-process NCCL
+              mesh, 'rounds' (B8, B3) and meshL-grid ('grid': B9, B3):
+              counts, finiteness, 4 steps against the plain functions on
+              the card
      examples every CLI of examples_torch/ on the card at its default
               sizes (regression_neural_network with --prior-beta 10,
-              large_particle also with --median binned, production_run
-              again from its checkpoint): the printed acceptance numbers
-              and each CLI's kernel launches
+              large_particle also with --median binned at 500 of its 1500
+              iterations, production_run again from its checkpoint): the
+              printed acceptance numbers and each CLI's kernel launches
+     fidelity tests/test_torch_fidelity.py's card cases in a subprocess
+              (the f32 step against the f64 oracle at the JAX suite's
+              bounds): every case passed, none skipped
+     bench    bench_torch.py in a subprocess: its JSON line holds every
+              key of bench.py's line, each value positive
   5. timing   per-step time of run() (and of the B12 and B11 loops) with
               the kernels and with the plain functions on the card, and
               each kernel against its plain version and its library call
@@ -1833,6 +1843,55 @@ def run_slice_phases(dev, torch, counters, gpu, main_make, main_sampler,
 
 # ------------------------------------------------------------ the mesh
 
+def bracket_case(label, rows, cols, exact, dev, torch):
+    """B8 and B9 against their plain versions on one block (rows [m, p]
+    against cols [n, p], about the columns' mean, at their plain cold
+    median): D <= 1e-5 normalised (bitwise, with mm and the counts, where
+    ``exact``), the counts and mm those of the kernel's own D, B9's D that
+    of B8, two calls bitwise. Returns (D's max abs error, 0 where exact;
+    (rows, cols, med, center, hi_bound))."""
+    from stein_tpu_torch.ops import fused_median as fm
+    from stein_tpu_torch.ops import svgd_tile
+    from stein_tpu_torch.ops.median import DEFAULT_BRACKETS, count_le
+
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    c = svgd_tile.column_center(cols)
+    med = fm.warm_search_on_value(fm.dist_block_plain(rows, cols, c),
+                                  zero, 30)
+    hib = 4.0 * torch.max(torch.sum((cols - c) ** 2, dim=1)) * 1.0001 \
+        + 1e-30
+    out8 = fm.fused_bracket_pass(rows, cols, med, c)
+    again8 = fm.fused_bracket_pass(rows, cols, med, c)
+    out9 = fm.fused_bracket_grid_pass(rows, cols, med, c, hib, g1=8)
+    again9 = fm.fused_bracket_grid_pass(rows, cols, med, c, hib, g1=8)
+    torch.cuda.synchronize()
+    D, mm, cnts = out8
+    Dp, mmp, cp = fm.fused_bracket_pass_plain(rows, cols, med, c)
+    _, gp = fm.fused_bracket_grid_pass_plain(rows, cols, med, c, hib,
+                                             g1=8)
+    own = (torch.equal(cnts, count_le(D, fm._bracket_ends(
+               med, DEFAULT_BRACKETS)))
+           and torch.equal(mm, torch.stack(
+               [-torch.clamp(D.min(), max=0.0), D.max()]))
+           and torch.equal(out9[1], count_le(out9[0], fm.grid_edges(
+               med, hib, DEFAULT_BRACKETS, 8)))
+           and torch.equal(out9[0], D))
+    repeat = all(torch.equal(a, b) for a, b in
+                 zip((*out8, *out9), (*again8, *again9)))
+    err = norm_err(D, Dp)
+    log(f"[kernels] B8/B9 {label}: D normalised error {err:.3e}, "
+        f"bitwise {torch.equal(D, Dp)}; counts and mm of the kernel's "
+        f"own D {own}; repeat bitwise {repeat}; B8 counts "
+        f"{cnts.tolist()} vs plain {cp.tolist()}")
+    if not (own and repeat) or err > 1e-5 or (exact and not (
+            torch.equal(D, Dp) and torch.equal(mm, mmp)
+            and torch.equal(cnts, cp) and torch.equal(out9[1], gp))):
+        fail(f"B8/B9 ({label}) disagree with their plain versions or "
+             "themselves")
+    return (0.0 if exact else (D - Dp).abs().max().item(),
+            (rows, cols, med, c, hib))
+
+
 def check_bracket_kernels(dev, torch, theta, nn_theta):
     """B8 and B9 against their plain versions on the card: on lattice
     particles D, mm and the counts bitwise; on the [mesh] paths' own inputs
@@ -1844,11 +1903,9 @@ def check_bracket_kernels(dev, torch, theta, nn_theta):
     the f32 range's end) and of the bracket endpoints. Returns (max abs
     errors, the timing inputs)."""
     from stein_tpu_torch.ops import fused_median as fm
-    from stein_tpu_torch.ops import svgd_tile
     from stein_tpu_torch.ops.median import DEFAULT_BRACKETS, count_le
 
     rng = np.random.default_rng(6)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
     errs, inputs = {"B8": 0.0, "B9": 0.0}, {}
     ring_cols = torch.tensor(rng.normal(size=(RING_N, P)) * 0.01,
                              dtype=torch.float32, device=dev)
@@ -1868,46 +1925,11 @@ def check_bracket_kernels(dev, torch, theta, nn_theta):
     for label, cols, rows, exact in cases:
         if rows is None:
             rows = cols[::cols.shape[0] // MEDIAN_ROWS][:MEDIAN_ROWS]
-        c = svgd_tile.column_center(cols)
-        med = fm.warm_search_on_value(fm.dist_block_plain(rows, cols, c),
-                                      zero, 30)
-        hib = 4.0 * torch.max(torch.sum((cols - c) ** 2, dim=1)) * 1.0001 \
-            + 1e-30
-        out8 = fm.fused_bracket_pass(rows, cols, med, c)
-        again8 = fm.fused_bracket_pass(rows, cols, med, c)
-        out9 = fm.fused_bracket_grid_pass(rows, cols, med, c, hib, g1=8)
-        again9 = fm.fused_bracket_grid_pass(rows, cols, med, c, hib, g1=8)
-        torch.cuda.synchronize()
-        D, mm, cnts = out8
-        Dp, mmp, cp = fm.fused_bracket_pass_plain(rows, cols, med, c)
-        _, gp = fm.fused_bracket_grid_pass_plain(rows, cols, med, c, hib,
-                                                 g1=8)
-        own = (torch.equal(cnts, count_le(D, fm._bracket_ends(
-                   med, DEFAULT_BRACKETS)))
-               and torch.equal(mm, torch.stack(
-                   [-torch.clamp(D.min(), max=0.0), D.max()]))
-               and torch.equal(out9[1], count_le(out9[0], fm.grid_edges(
-                   med, hib, DEFAULT_BRACKETS, 8)))
-               and torch.equal(out9[0], D))
-        repeat = all(torch.equal(a, b) for a, b in
-                     zip((*out8, *out9), (*again8, *again9)))
-        err = norm_err(D, Dp)
-        log(f"[kernels] B8/B9 {label}: D normalised error {err:.3e}, "
-            f"bitwise {torch.equal(D, Dp)}; counts and mm of the kernel's "
-            f"own D {own}; repeat bitwise {repeat}; B8 counts "
-            f"{cnts.tolist()} vs plain {cp.tolist()}")
-        if not (own and repeat) or err > 1e-5 or (exact and not (
-                torch.equal(D, Dp) and torch.equal(mm, mmp)
-                and torch.equal(cnts, cp) and torch.equal(out9[1], gp))):
-            fail(f"B8/B9 ({label}) disagree with their plain versions or "
-                 "themselves")
-        if not exact:
-            e = (D - Dp).abs().max().item()
-            errs["B8"] = max(errs["B8"], e)
-            errs["B9"] = max(errs["B9"], e)
+        err, args = bracket_case(label, rows, cols, exact, dev, torch)
+        errs["B8"] = max(errs["B8"], err)
+        errs["B9"] = max(errs["B9"], err)
         if label.startswith("[mesh] path"):
-            inputs = {"B8": (rows, cols, med, c),
-                      "B9": (rows, cols, med, c, hib)}
+            inputs = {"B8": args[:4], "B9": args}
 
     # The thresholds the kernel formed, bitwise (as int32: the NaN of an
     # inf - inf at the f32 range's end included).
@@ -2113,6 +2135,178 @@ def run_mesh_paths(dev, torch, counters, X, y, theta0, batch, nn_model):
     b10_err = check_b10_2d(dev, torch, mesh2, nn_model, theta0, nn_batch,
                            batch)
     return counts, timed, mesh, b10_err
+
+
+# ------------------------------------------- the large-n mesh rows (PR 13)
+# bench_torch.py's meshL rows (bench.py:555-572): n=8192, p=64 linear
+# regression on the sufficient batch through fused_shard, 1024-wide tiles,
+# 64 median rows, on the one-process NCCL mesh.
+MESHL_STEPS, MESHL_CHECK_STEPS = 50, 4
+# The JAX suite's class of fused_shard against another fp order of the
+# same in-kernel-Gram path (tests_tpu/test_tpu_fidelity.py:776-777: "same
+# class, different tile/center fp order"): the samples after
+# MESHL_CHECK_STEPS steps. At the fused_gram class (rtol 2e-4 / atol 1e-6)
+# they leave it (measured excess 3.8e-5, H100): step 1 is in the class, but
+# a coordinate in Adam's eps regime there moves its particle by ~2e-4, and
+# the quadratic form's A (entries ~1e3) spreads that to all its gradients.
+MESHL_SAMPLES_CLASS = (2e-2, 1e-4)
+
+
+def run_meshL(dev, torch, counters, mesh):
+    """[meshL] ('rounds': B8) and [meshL-grid] ('grid': B9) at full width:
+    run(batch, MESHL_STEPS)'s counts (the bracket kernel and B3 every step,
+    nothing else) and finiteness; on the path's own particles after it, B3
+    against its plain version (<= 1e-4 normalised, repeat bitwise) and
+    B8/B9 on the [64, 8192] median block (bracket_case); then
+    MESHL_CHECK_STEPS steps against the plain functions on the card
+    (plain_kernels(), which must launch nothing): medians, phi_norm and
+    the first clipped phi at the fused_gram class, the samples at
+    MESHL_SAMPLES_CLASS. Returns each path's counts, (sampler, batch) and
+    the kernels' max abs errors."""
+    import bench_torch
+    from stein_tpu_torch.ops import model_grad, svgd_tile
+    from stein_tpu_torch.ops.median import subsample_rows
+
+    counts, timed, errs = {}, {}, {"B3": 0.0, "B8": 0.0, "B9": 0.0}
+    rtol, atol = MESHL_SAMPLES_CLASS
+    for label, arm, kernel in (("meshL", "meshL_fused_shard", "B8"),
+                               ("meshL-grid", "meshL_fused_shard_grid",
+                                "B9")):
+        def make(arm=arm):
+            return bench_torch.make_meshL_sampler(
+                mesh, n_obs=bench_torch.N_OBS, device=dev,
+                **bench_torch.MESHL_ARMS[arm])
+
+        s, b = make()
+        reset(counters)
+        t0 = time.perf_counter()
+        aux = s.run(b, MESHL_STEPS)
+        torch.cuda.synchronize()
+        log(f"[{label}] n={bench_torch.MESHL_N}, p={bench_torch.MESHL_P}, "
+            f"{bench_torch.MESHL_ARMS[arm]}: run(batch, {MESHL_STEPS}) in "
+            f"{time.perf_counter() - t0:.2f} s (first call)")
+        counts[label] = check_counts(label, counters,
+                                     {kernel: MESHL_STEPS, "B3": MESHL_STEPS})
+        check_finite(label, s, aux, MESHL_STEPS)
+        log(f"[{label}] last step: " + ", ".join(
+            f"{k}={v[-1].item():.6g}" for k, v in aux.items()))
+
+        theta = s.state.particles
+        A, b_eff, _ = bench_torch.LinearRegressionModel(
+            bench_torch.MESHL_P).quadratic_form(b)
+        g = model_grad.glm_grads_plain(theta, A, b_eff.reshape(1, -1))[0]
+        h2 = aux["h2"][-1]
+        c = svgd_tile.column_center(theta)
+        phi = svgd_tile.svgd_phi(theta, g, h2, center=c)
+        again = svgd_tile.svgd_phi(theta, g, h2, center=c)
+        ku, ks = svgd_tile.svgd_both_ksum_plain(theta, theta, g, h2,
+                                                c.reshape(1, -1))
+        plain = svgd_tile._combine(ku, ks, theta, c.reshape(1, -1), h2,
+                                   theta.shape[0])
+        err = norm_err(phi, plain)
+        log(f"[kernels] B3 {label} path (n={theta.shape[0]}, "
+            f"p={theta.shape[1]}): normalised error {err:.3e}, repeat "
+            f"bitwise {torch.equal(phi, again)}")
+        if err > 1e-4 or not torch.equal(phi, again):
+            fail(f"B3 ({label} path) disagrees with its plain version")
+        errs["B3"] = max(errs["B3"], (phi - plain).abs().max().item())
+        e8, _ = bracket_case(
+            f"{label} path [{bench_torch.MESHL_KW['median_max_rows']}, "
+            f"{theta.shape[0]}] p={theta.shape[1]}",
+            subsample_rows(theta, bench_torch.MESHL_KW["median_max_rows"]),
+            theta, False, dev, torch)
+        errs["B8"], errs["B9"] = max(errs["B8"], e8), max(errs["B9"], e8)
+
+        def plain_drive(s_, b_, k):
+            with plain_kernels():
+                return s_.run(b_, k)
+
+        log(f"[{label}] the samples after {MESHL_CHECK_STEPS} steps are "
+            f"held at rtol {rtol:g} / atol {atol:g} (MESHL_SAMPLES_CLASS)")
+        reset(counters)
+        want = sampler_trial(lambda: make()[0], b, MESHL_CHECK_STEPS,
+                             drive=plain_drive)
+        if any(read(counters).values()):
+            fail(f"[{label}] the plain run launched {read(counters)}")
+        check_class(label, "the plain functions on the card",
+                    sampler_trial(lambda: make()[0], b, MESHL_CHECK_STEPS),
+                    want, MESHL_CHECK_STEPS, 0.1,
+                    samples_excess=lambda a, b_: float(np.max(
+                        np.abs(a - b_) - (atol + rtol * np.abs(b_)))))
+        timed[label] = (s, b)
+    return counts, timed, errs
+
+
+# ------------------------------- the fidelity suite and the bench (PR 13)
+FIDELITY_CASES = 25
+FIDELITY_TIMEOUT_S = 420
+BENCH_TIMEOUT_S = 600
+
+
+def run_fidelity(torch):
+    """[fidelity]: tests/test_torch_fidelity.py's card cases in a
+    subprocess (the f32 step on the card against the f64 oracle); its
+    [fidelity] lines. Fails on any failure, error or skip (a skip on the
+    card hides the check), or on a count other than FIDELITY_CASES."""
+    import re
+
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "pytest", "tests/test_torch_fidelity.py",
+           "-m", "cuda", "-q", "--noconftest", "-p", "no:cacheprovider",
+           "-rs", "-s"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=FIDELITY_TIMEOUT_S)
+    out = res.stdout + res.stderr
+    for line in out.splitlines():
+        if "[fidelity]" in line:
+            log(line[line.index("[fidelity]"):])
+    summary = [ln for ln in out.splitlines()
+               if re.search(r"\d+ (passed|failed|skipped|error)", ln)]
+    summary = summary[-1] if summary else "(no summary)"
+    log(f"[fidelity] pytest {summary.strip('= ')}, exit {res.returncode}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    passed = re.search(r"(\d+) passed", summary)
+    if (res.returncode != 0 or re.search(r"failed|skipped|error", summary)
+            or not passed or int(passed.group(1)) != FIDELITY_CASES):
+        for line in out.splitlines()[-60:]:
+            log(f"[fidelity]   | {line}")
+        fail(f"[fidelity] {summary}: expected {FIDELITY_CASES} passed, "
+             "none failed or skipped")
+
+
+def run_bench(torch):
+    """[bench]: bench_torch.py in a subprocess at its default budget; its
+    JSON line must parse and hold every key of bench.py's line, each
+    value positive. Returns the line."""
+    import bench_torch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "bench_torch.py"], cwd=HERE,
+                         capture_output=True, text=True,
+                         timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for line in res.stderr.splitlines()[-20:]:
+        log(f"[bench]   | {line}")
+    lines = res.stdout.strip().splitlines()
+    try:
+        line = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        fail(f"[bench] no JSON line (exit {res.returncode}): "
+             f"{res.stdout[-2000:]}")
+    log(f"[bench] {json.dumps(line)}")
+    log(f"[bench] exit {res.returncode}, {wall:.1f} s")
+    top, extra = bench_torch.bench_py_keys()
+    missing = sorted(top - set(line)) + sorted(
+        extra - set(line.get("extra", {})))
+    values = [line.get("value"), line.get("vs_baseline"),
+              *line.get("extra", {}).values()]
+    if res.returncode != 0 or missing or not all(
+            isinstance(v, (int, float)) and v > 0 for v in values):
+        fail(f"[bench] exit {res.returncode}; keys of bench.py's line "
+             f"missing: {missing}; values {values}")
+    return line
 
 
 # --------------------------------------------- A5: the other medians
@@ -2342,7 +2536,9 @@ EXAMPLES = (
     ("production_run", ["--ckpt", "{ckpt}"]),
     ("production_run", ["--ckpt", "{ckpt}", "--n-iters", "3500"]),
     ("large_particle", []),
-    ("large_particle", ["--median", "binned"]),
+    # 500 of the default 1500 iterations: the binned histogram takes ~0.1 s
+    # a step (PERF.md section 5), and the whole run 149 s (PR 12).
+    ("large_particle", ["--median", "binned", "--n-iters", "500"]),
 )
 
 
@@ -3149,9 +3345,18 @@ def main():
     mesh_counts, mesh_timed, mesh, b10_2d_err = run_mesh_paths(
         dev, torch, counters, X, y, theta0, batch, nn_model)
     path_counts.update(mesh_counts)
+    meshL_counts, meshL_timed, meshL_errs = run_meshL(dev, torch, counters,
+                                                      mesh)
+    path_counts.update(meshL_counts)
+    mesh_timed.update(meshL_timed)
+    errs["B3"] = max(errs["B3"], meshL_errs["B3"])
+    for key in ("B8", "B9"):
+        bracket_errs[key] = max(bracket_errs[key], meshL_errs[key])
     med_counts, med_timed = run_median_paths(dev, torch, counters, gpu)
     path_counts.update(med_counts)
     path_counts.update(run_examples(torch, counters, gpu))
+    run_fidelity(torch)
+    run_bench(torch)
 
     # --------------------------------------------------------- 5. timing
     K = 200
@@ -3446,8 +3651,10 @@ def main():
         def plain(k, s_=s_, b_=b_):
             with plain_kernels():
                 s_.run(b_, k)
-        # The binned and 2-D paths take 7-15 ms a step: 50 a reading.
-        reps = 50 if "binned" in label or "mesh2d" in label else 200
+        # The binned, 2-D and large-n paths take 7-15 ms a step: 50 a
+        # reading.
+        reps = 50 if any(k in label for k in ("binned", "mesh2d",
+                                              "meshL")) else 200
         p1 = run_timed(plain, torch, reps)
         k1 = run_timed(lambda k: s_.run(b_, k), torch, reps)
         k2 = run_timed(lambda k: s_.run(b_, k), torch, reps)

@@ -67,6 +67,7 @@ from .ops.median import (
 )
 from .parallel import collectives as coll
 from .parallel.mesh import Mesh2D, ParticleMesh
+from .utils.hostio import host_array
 from .utils.ravel import (
     init_particles,
     ravel_particles,
@@ -1361,8 +1362,9 @@ class SVGDSampler:
     def samples(self):
         """[n_particles, n_params] particle matrix as a host numpy array
         (reference: stein_sampler.py:73-78); on a mesh, all-gathered (a
-        collective: every rank reads it)."""
-        return self._particles().detach().cpu().numpy()
+        collective: every rank reads it). bfloat16 particles come back as
+        float32 (``utils.hostio.host_array``)."""
+        return host_array(self._particles())
 
     @property
     def theta(self):
@@ -1391,7 +1393,7 @@ class SVGDSampler:
             dist = fn(self._particles(), batch)
             if axis is not None:
                 dist = dist.mean(dim=axis)
-        return dist.cpu().numpy()
+        return host_array(dist)
 
     def ksd(self, batch, u_statistic=False):
         """Kernel Stein discrepancy (squared) of the current particles

@@ -7,6 +7,7 @@ from .ravel import (
 from .convert import state_from_numpy
 from .checkpoint import save_checkpoint, restore_checkpoint
 from .metrics import MetricsLogger
+from .cache import enable_compilation_cache
 
 __all__ = [
     "template_unraveler",
@@ -17,4 +18,5 @@ __all__ = [
     "save_checkpoint",
     "restore_checkpoint",
     "MetricsLogger",
+    "enable_compilation_cache",
 ]

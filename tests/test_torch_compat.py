@@ -8,7 +8,9 @@ None; a dtype default is compared by its name). The port may add
 parameters (``device=``). The one rename is JAX's ``key`` (a PRNG key),
 which is the port's ``generator`` (a torch.Generator) where the port has no
 ``key`` of its own (``train_minibatched`` keeps ``key``: an int seed or a
-torch.Generator).
+torch.Generator). One default differs on purpose (``OWN_DEFAULTS``):
+``enable_compilation_cache``'s ``path`` is the port's build root beside the
+package, where the JAX package's XLA cache sits in ``/tmp``.
 
 Messages: every ``_unported(what, item)`` in the port names an item of
 ROADMAP.md's queue A that exists and mentions the option, so that a
@@ -16,8 +18,8 @@ renumbering of the queue cannot leave a message pointing at the wrong
 item; since queue A's modules are all ported, none is left.
 
 Public names: every name in ``__all__`` of ``stein_tpu``, ``stein_tpu.ops``,
-``stein_tpu.parallel`` and ``stein_tpu.models`` exists in the port's
-matching module."""
+``stein_tpu.parallel``, ``stein_tpu.models`` and ``stein_tpu.utils`` exists
+in the port's matching module."""
 
 import ast
 import inspect
@@ -34,6 +36,7 @@ from stein_tpu import models as jm
 from stein_tpu.ops import diagnostics as jd
 from stein_tpu.ops import pallas_step as jstep
 from stein_tpu.ops import rbf as jrbf
+from stein_tpu.utils import cache as jcache
 from stein_tpu.utils import checkpoint as jc
 from stein_tpu.utils import hostio as jh
 from stein_tpu.utils import metrics as jmet
@@ -45,6 +48,7 @@ from stein_tpu_torch import models as tm
 from stein_tpu_torch.ops import diagnostics as td
 from stein_tpu_torch.ops import fused_step as tstep
 from stein_tpu_torch.ops import rbf as trbf
+from stein_tpu_torch.utils import cache as tcache
 from stein_tpu_torch.utils import checkpoint as tc
 from stein_tpu_torch.utils import hostio as th
 from stein_tpu_torch.utils import metrics as tmet
@@ -54,6 +58,7 @@ from stein_tpu_torch.utils import recovery as trec
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 RENAMES = {"key": "generator"}
+OWN_DEFAULTS = {("enable_compilation_cache", "path")}
 
 ENTRY_POINTS = [
     (sj.SVGDSampler, st.SVGDSampler),
@@ -90,6 +95,7 @@ ENTRY_POINTS = [
     (jh.host_scalar, th.host_scalar),
     (jprof.trace, tprof.trace),
     (jprof.annotate, tprof.annotate),
+    (jcache.enable_compilation_cache, tcache.enable_compilation_cache),
 ] + [(getattr(sj.SVGDSampler, name), getattr(st.SVGDSampler, name))
      for name in ("run", "train_on_batch", "train_on_batches",
                   "train_minibatched", "function_posterior", "ksd", "save",
@@ -116,7 +122,8 @@ def test_port_signature_takes_every_jax_parameter(jax_fn, port_fn):
     assert [order.index(n) for n in names] == sorted(
         order.index(n) for n in names), f"{port_fn.__name__}: order"
     for name, param in jp.items():
-        if param.default is inspect.Parameter.empty:
+        if param.default is inspect.Parameter.empty or (
+                port_fn.__name__, name) in OWN_DEFAULTS:
             continue
         got = tp[renames.get(name, name)].default
         assert _default(got) == _default(param.default), (
@@ -204,7 +211,8 @@ def test_binned_settings_name_the_medians_item(kw, monkeypatch):
                                      block_rows=settings[1])
 
 
-@pytest.mark.parametrize("module", ["", ".ops", ".parallel", ".models"])
+@pytest.mark.parametrize("module", ["", ".ops", ".parallel", ".models",
+                                    ".utils"])
 def test_public_names_cover_the_jax_package(module):
     """Every name the JAX module exports exists in the port's counterpart
     (``from stein_tpu_torch.parallel import make_sharded_step`` works

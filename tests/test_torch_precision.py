@@ -153,3 +153,46 @@ def test_bf16_sampler_matches_jax(where):
                                rtol=1e-6)
     np.testing.assert_allclose(ta["phi_norm"].numpy(),
                                np.asarray(ja["phi_norm"]), rtol=1e-5)
+
+
+def test_bfloat16_sampler_host_reads():
+    """dtype=bfloat16 (the whole sampler: particles, moments, phi): the
+    host reads (samples, function_posterior, utils.hostio.host_array) come
+    back as float32, which holds every bfloat16 value exactly (numpy has no
+    bfloat16; the JAX package returns ml_dtypes'). They raised TypeError
+    before (ROADMAP C6, found by tests/test_torch_fidelity.py's
+    test_bfloat16_end_to_end_posterior_on_chip). 3 steps against the JAX
+    bf16 sampler from the same particles: within 2^-8 of the particles'
+    largest magnitude (a bf16 rounding of one step)."""
+    from stein_tpu_torch.utils.hostio import host_array
+
+    mu = np.array([1.0, -2.0, 0.5], np.float32)
+    theta0 = np.random.default_rng(1).normal(size=(16, 3)).astype(
+        np.float32)
+
+    def jlog_p(params, batch):
+        return -0.5 * jnp.sum((params["x"].astype(jnp.float32) - mu) ** 2)
+
+    def tlog_p(params, batch):
+        return -0.5 * torch.sum((params["x"].float() - torch.from_numpy(mu))
+                                ** 2)
+
+    js = sj.SVGDSampler(16, jlog_p, {"x": jnp.zeros(3, jnp.bfloat16)},
+                        sj.Adam(5e-2),
+                        theta=jnp.asarray(theta0, jnp.bfloat16),
+                        dtype=jnp.bfloat16)
+    ts = st.SVGDSampler(16, tlog_p,
+                        {"x": torch.zeros(3, dtype=torch.bfloat16)},
+                        st.Adam(5e-2), theta=theta0, dtype=torch.bfloat16,
+                        device="cpu")
+    js.run(None, 3)
+    ts.run(None, 3)
+    got = ts.samples
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, ts.state.particles.float().numpy())
+    want = np.asarray(js.samples, np.float32)
+    assert np.abs(got - want).max() <= 2.0 ** -8 * np.abs(want).max()
+    post = ts.function_posterior(lambda prm, b: prm["x"] * 2, None)
+    assert post.dtype == np.float32
+    np.testing.assert_array_equal(post, 2 * got)
+    assert host_array(torch.ones(2, dtype=torch.bfloat16)).dtype == np.float32

@@ -409,18 +409,22 @@ def _imported_roots(path):
 
 
 def test_port_imports_nothing_of_the_jax_package():
-    """No module of the port, nor chip_smoke.py, nor an example CLI of
-    examples_torch/, imports jax or anything of stein_tpu, at any depth of
-    the code (a lazy import inside a function included)."""
+    """No module of the port, nor chip_smoke.py, bench_torch.py, an example
+    CLI of examples_torch/ or tests/test_torch_fidelity.py (which runs on
+    the card without the JAX package's conftest), imports jax, anything of
+    stein_tpu or the JAX package's benchmarks/, at any depth of the code (a
+    lazy import inside a function included)."""
     from pathlib import Path
 
     root = Path(__file__).resolve().parent.parent
     files = sorted((root / "stein_tpu_torch").rglob("*.py"))
-    files.append(root / "chip_smoke.py")
+    files += [root / "chip_smoke.py", root / "bench_torch.py",
+              root / "tests" / "test_torch_fidelity.py"]
     examples = sorted((root / "examples_torch").glob("*.py"))
     assert len(examples) >= 6
     files += examples
-    bad = {str(f.relative_to(root)): _imported_roots(f) & {"jax", "stein_tpu"}
+    bad = {str(f.relative_to(root)):
+           _imported_roots(f) & {"jax", "stein_tpu", "benchmarks"}
            for f in files}
     assert len(files) > 20
     assert not any(bad.values()), bad
