@@ -117,6 +117,18 @@ results, and times the steps and the kernels. Phases:
               (CUDA events; plain, kernel, kernel, plain); a torch.profiler
               split of each fused path, of both loops and of the mesh
               paths (with the collectives' share)
+  6. graph    every sampler path's steps replayed from CUDA graphs
+              (utils/graphs.py; every entry point above replays them)
+              against the eager loop (SVGDSampler._eager) from the same
+              state: bitwise, with the same launch counts; wall us/step of
+              both in turns, and under the profiler device us/step, busy
+              share and kernel launches a step of both; the main path's
+              first call and step at chunk lengths 16, 32 and 64. The plain
+              functions of [timing] and [meshL] run through the eager loop.
+              Before [bench], [graph-tests] runs tests/test_torch_cuda.py's
+              graph cases in a subprocess (every single-card path and
+              one-process mesh path, each entry point, graph against
+              eager, bitwise): all 24 must pass.
 
 With --split it stops after the build and prints only [split]: the device
 time of the median kernel's Gram stage apart from its search at each
@@ -578,19 +590,14 @@ def check_new_kernels(dev, torch, fused_median, svgd_tile, bayesian_nn,
     return errs
 
 
-def _counter(c):
-    """(wrapper, attribute) of a launch count: a wrapper's ``launches``, or
-    another count it keeps (the tile's ``bf16_launches``)."""
-    return c if isinstance(c, tuple) else (c, "launches")
-
-
 def reset(counters):
+    """Every count of the registry (graphs.launch_counters) to 0."""
     for c in counters.values():
-        setattr(*_counter(c), 0)
+        setattr(*c, 0)
 
 
 def read(counters):
-    return {k: getattr(*_counter(c)) for k, c in counters.items()}
+    return {k: getattr(*c) for k, c in counters.items()}
 
 
 def run_nn_paths(dev, torch, nn_model, counters):
@@ -2219,7 +2226,7 @@ def run_meshL(dev, torch, counters, mesh):
 
         def plain_drive(s_, b_, k):
             with plain_kernels():
-                return s_.run(b_, k)
+                return s_._eager("run", b_, k)
 
         log(f"[{label}] the samples after {MESHL_CHECK_STEPS} steps are "
             f"held at rtol {rtol:g} / atol {atol:g} (MESHL_SAMPLES_CLASS)")
@@ -2273,6 +2280,41 @@ def run_fidelity(torch):
             log(f"[fidelity]   | {line}")
         fail(f"[fidelity] {summary}: expected {FIDELITY_CASES} passed, "
              "none failed or skipped")
+
+
+GRAPH_TEST_CASES = 24
+GRAPH_TEST_TIMEOUT_S = 300
+
+
+def run_graph_tests(torch):
+    """[graph-tests]: tests/test_torch_cuda.py's graph cases in a
+    subprocess (every captured single-card path at its widths and every
+    one-process NCCL mesh path, each entry point against the eager loop,
+    bitwise, with equal counts; median='binned' stays eager). Fails on any
+    failure, error or skip, or on a count other than GRAPH_TEST_CASES."""
+    import re
+
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "pytest", "tests/test_torch_cuda.py",
+           "-m", "cuda", "-q", "--noconftest", "-p", "no:cacheprovider",
+           "-rs", "-k", "graphs_equal_the_eager_loop or "
+           "binned_median_stays_eager"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=GRAPH_TEST_TIMEOUT_S)
+    out = res.stdout + res.stderr
+    summary = [ln for ln in out.splitlines()
+               if re.search(r"\d+ (passed|failed|skipped|error)", ln)]
+    summary = summary[-1] if summary else "(no summary)"
+    log(f"[graph-tests] pytest {summary.strip('= ')}, exit "
+        f"{res.returncode}, {time.perf_counter() - t0:.1f} s")
+    passed = re.search(r"(\d+) passed", summary)
+    if (res.returncode != 0 or re.search(r"failed|skipped|error", summary)
+            or not passed or int(passed.group(1)) != GRAPH_TEST_CASES):
+        for line in out.splitlines()[-60:]:
+            log(f"[graph-tests]   | {line}")
+        fail(f"[graph-tests] {summary}: expected {GRAPH_TEST_CASES} "
+             "passed, none failed or skipped")
 
 
 def run_bench(torch):
@@ -2411,7 +2453,7 @@ def run_median_paths(dev, torch, counters, gpu):
                 "order)")
             if med != exact or abs(med / med_cpu - 1) > 1e-5:
                 fail(f"[{label}] the subsample median is off")
-        us = run_timed(lambda k: s.run(batch, k), torch, 20)
+        us = run_timed(lambda k: s.run(batch, k), torch, 32)
         log(f"[timing] {gpu}: {label} (n={MED_N}, p={MED_P}) run() "
             f"{us:.2f} us/step by CUDA events")
         timed[label] = (s, batch)
@@ -2640,20 +2682,20 @@ def run_examples(torch, counters, gpu):
     return counts
 
 
-def profile_split(label, sampler, batch, steps, torch, gpu):
-    """torch.profiler over `steps` steps of sampler.run after 10 warm-up
-    steps: wall and device time per step, the device's busy share, and the
-    kernels by device time (self device time per step, launches per step).
-    Prints "not captured" when the profiler reports no device time."""
+def profile_numbers(fn, steps, torch):
+    """torch.profiler over fn(steps) after fn(10): (wall us/step under the
+    profiler, [(device us/step, kernel, launches/step)] of the kernels'
+    own events, largest first), the rows empty when the profiler reports
+    no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    sampler.run(batch, 10)
+    fn(10)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sampler.run(batch, steps)
+        fn(steps)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) / steps * 1e6
     rows = []
@@ -2663,6 +2705,16 @@ def profile_split(label, sampler, batch, steps, torch, gpu):
         if getattr(e, "device_type", None) == DeviceType.CUDA and t > 0:
             rows.append((t / steps, e.key, e.count / steps))
     rows.sort(reverse=True)
+    return wall_us, rows
+
+
+def profile_split(label, sampler, batch, steps, torch, gpu):
+    """torch.profiler over `steps` steps of sampler.run after 10 warm-up
+    steps: wall and device time per step, the device's busy share, and the
+    kernels by device time (self device time per step, launches per step).
+    Prints "not captured" when the profiler reports no device time."""
+    wall_us, rows = profile_numbers(lambda k: sampler.run(batch, k), steps,
+                                    torch)
     dev_us = sum(r[0] for r in rows)
     if not rows:
         log(f"[profile] {gpu}: {label}: device time not captured by "
@@ -2678,6 +2730,117 @@ def profile_split(label, sampler, batch, steps, torch, gpu):
     log(f"[profile] {label} kernels (us/step, launches/step; the ten "
         "largest, then the port's own): " + "; ".join(
             f"{k[:48]} {t:.1f} ({c:.0f})" for t, k, c in shown))
+
+
+# ------------------------------------------------------ the step graphs
+
+# [graph]'s chunk lengths for the main path's capture time and step.
+GRAPH_CHUNKS = (16, 32, 64)
+
+
+def graph_check(label, s, fn, torch):
+    """CHUNK + 3 steps (a chunk and a remainder) replayed from graphs,
+    then through the eager loop from the same state: bitwise, with the
+    same launch counts. fn(k, eager) drives k steps of sampler s."""
+    from stein_tpu_torch.utils import graphs
+
+    steps = graphs.CHUNK + 3
+    state0 = graphs.tree_map(torch.clone, s.state)
+    out = []
+    for eager in (False, True):
+        s.load_state(graphs.tree_map(torch.clone, state0))
+        graphs.set_counts(dict.fromkeys(graphs.read_counts(), 0))
+        aux = fn(steps, eager)
+        torch.cuda.synchronize()
+        out.append((graphs.tensor_leaves(s.state), aux,
+                    graphs.read_counts()))
+    (sg, ag, ng), (se, ae, ne) = out
+    if ng != ne:
+        fail(f"[graph] {label}: launch counts {ng} from the graphs, {ne} "
+             "from the eager loop")
+    diff = [k for k in ae if not torch.equal(ag[k], ae[k])]
+    if diff or not all(torch.equal(a, b) for a, b in zip(sg, se)):
+        fail(f"[graph] {label}: the graphs' {steps} steps differ from the "
+             f"eager loop's (aux {diff}, or the state)")
+    return steps, {k: v for k, v in ng.items() if v}
+
+
+def graph_chunks(make, batch, torch, gpu):
+    """The main path at each chunk length of GRAPH_CHUNKS: the first call
+    (the capture and its warm-up step, then the chunk's steps) and the
+    steady us/step of run(batch, 8 * C) by CUDA events."""
+    from stein_tpu_torch.utils import graphs
+
+    saved = graphs.CHUNK
+    try:
+        for c in GRAPH_CHUNKS:
+            graphs.CHUNK = c
+            s = make()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.run(batch, c)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            us = run_timed(lambda k: s.run(batch, k), torch, 8 * c)
+            log(f"[graph] {gpu}: main, CHUNK {c}: first call {first:.3f} s "
+                f"(capture, warm-up and {c} steps); {us:.2f} us/step over "
+                f"run(batch, {8 * c})")
+    finally:
+        graphs.CHUNK = saved
+
+
+def run_graph_phase(paths, torch, gpu):
+    """[graph]: each sampler path, replayed from graphs against the eager
+    loop. paths: {label: (sampler, fn(k, eager), reps)}. Per path: the
+    bitwise check (graph_check), us/step of both by CUDA events in turns
+    (eager, graph, graph, eager; reps steps a reading), and under the
+    profiler (reps / 2 steps) each one's device us/step and kernel
+    launches a step, with its busy share: that device time over its wall
+    by events. Returns {label: numbers} for the summary line."""
+    summary = {}
+    for label, (s, fn, reps) in paths.items():
+        if s._graphs is None:
+            log(f"[graph] {label}: eager by the rule ({s._eager_reason})")
+            summary[label] = {"graph": False, "reason": s._eager_reason}
+            continue
+        t0 = time.perf_counter()
+        steps, counts = graph_check(label, s, fn, torch)
+        t = {}
+        for eager in (True, False, False, True):
+            t.setdefault(eager, []).append(
+                run_timed(lambda k: fn(k, eager), torch, reps))
+        wall = {e: sum(v) / len(v) for e, v in t.items()}
+        prof = {}
+        for eager in (False, True):
+            _, rows = profile_numbers(lambda k: fn(k, eager), reps // 2,
+                                      torch)
+            prof[eager] = (None if not rows else
+                           (sum(r[0] for r in rows), sum(r[2] for r in rows)))
+        line = {"graph": True, "captures": s._graphs.captures,
+                "wall_us": wall[False], "eager_wall_us": wall[True]}
+        for eager, key in ((False, ""), (True, "eager_")):
+            if prof[eager] is not None:
+                dev_us, launches = prof[eager]
+                # Busy: the profiler's device time over the wall by CUDA
+                # events without it (the profiler's own cost is not the
+                # path's).
+                line.update({f"{key}device_us": dev_us,
+                             f"{key}busy": dev_us / wall[eager],
+                             f"{key}launches": launches})
+        summary[label] = line
+        shown = ("device time not reported by torch.profiler"
+                 if None in prof.values() else
+                 f"device {prof[False][0]:.1f} vs {prof[True][0]:.1f} "
+                 f"us/step, busy {line['busy']:.3f} vs "
+                 f"{line['eager_busy']:.3f}, kernels "
+                 f"{prof[False][1]:.1f} vs {prof[True][1]:.1f}/step")
+        log(f"[graph] {gpu}: {label}: replays graphs ({s._graphs.captures} "
+            f"captured); {steps} steps bitwise equal to the eager loop, "
+            f"launches equal {counts}; graph vs eager: wall "
+            f"{wall[False]:.2f} vs {wall[True]:.2f} us/step ({reps} steps "
+            f"a reading), {shown} (profiler); phase "
+            f"{time.perf_counter() - t0:.1f} s")
+    return summary
 
 
 def compare_spread(label, make, batch, steps, spread, paths):
@@ -3100,6 +3263,7 @@ def main():
         subsample_rows,
     )
     from stein_tpu_torch.ops.optimizers import AdagradState, AdamState
+    from stein_tpu_torch.utils import graphs
     from stein_tpu_torch.utils.ravel import template_unraveler
 
     # ---------------------------------------------------------- 1. device
@@ -3251,21 +3415,8 @@ def main():
                                                     nn_batch, nn_theta)
 
     # ------------------------------------------------------ 4. main path
-    counters = {"B1": fused_step.fused_warm_step_tail,
-                "B2": fused_median.fused_warm_median_rows,
-                "B3": svgd_tile.svgd_both_ksum,
-                "B3-bf16": (svgd_tile.svgd_both_ksum, "bf16_launches"),
-                "B4": fused_median.dist_block,
-                "B5": fused_median.fused_warm_median_from_theta,
-                "B6": fused_step.fused_epilogue,
-                "B7": bayesian_nn.nn_grads,
-                "B10": svgd_tile.svgd_both_ksum_on_D,
-                "B8": fused_median.fused_bracket_pass,
-                "B9": fused_median.fused_bracket_grid_pass,
-                "B11": svgd_tile.svgd_phi_sym,
-                "B12": fused_step.fused_warm_step_pblock,
-                "glm": model_grad.glm_grads,
-                "logistic": model_grad.logistic_grads}
+    # Every wrapper's launch count, the registry utils/graphs.py keeps.
+    counters = graphs.launch_counters()
     kw = throughput_config(N, P)
     log(f"[main] throughput_config({N}, {P}) = "
         f"{ {k: str(v) for k, v in kw.items()} }")
@@ -3356,10 +3507,11 @@ def main():
     path_counts.update(med_counts)
     path_counts.update(run_examples(torch, counters, gpu))
     run_fidelity(torch)
+    run_graph_tests(torch)
     run_bench(torch)
 
     # --------------------------------------------------------- 5. timing
-    K = 200
+    K = 6 * graphs.CHUNK   # whole graph chunks
     sampler.run(batch, K)   # warm
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -3403,14 +3555,15 @@ def main():
 
     # The NN path and the large-n path, then B3, B4, B5, B7 in turns.
     nn_step_us = run_timed(lambda k: nn_sampler.run(nn_batch, k), torch,
-                           200)
+                           K)
     nn_plain_us = run_timed(plain_pallas_runner(
         nn_sampler, nn_batch,
         lambda t, b: bayesian_nn.nn_grads_plain(
             t, b["X"], b["y"].reshape(-1), 1, 100, nn_model._consts()),
-        gram=True), torch, 200)
-    large_us = run_timed(lambda k: big.run(lr_batch, k), torch, 20)
-    nn16_us = run_timed(lambda k: nn16.run(nn_batch, k), torch, 200)
+        gram=True), torch, K)
+    large_us = run_timed(lambda k: big.run(lr_batch, k), torch,
+                         graphs.CHUNK)
+    nn16_us = run_timed(lambda k: nn16.run(nn_batch, k), torch, K)
     log(f"[timing] {gpu}: NN path (n={NN_N}, p={NN_P}) run() "
         f"{nn_step_us:.2f} us/step with the kernels, {nn_plain_us:.2f} "
         f"us/step with the plain functions; large-n (n={LARGE_N}, p={P}) "
@@ -3487,7 +3640,7 @@ def main():
     # This slice's paths (plain, kernel, kernel, plain) and kernels.
     path_us = {}
     for label, (s_, b_, plain) in tail_timed.items():
-        reps = 20 if label == "large-n-epilogue" else 200
+        reps = graphs.CHUNK if label == "large-n-epilogue" else K
         p1 = run_timed(plain, torch, reps)
         k1 = run_timed(lambda k: s_.run(b_, k), torch, reps)
         k2 = run_timed(lambda k: s_.run(b_, k), torch, reps)
@@ -3650,11 +3803,10 @@ def main():
     for label, (s_, b_) in mesh_timed.items():
         def plain(k, s_=s_, b_=b_):
             with plain_kernels():
-                s_.run(b_, k)
-        # The binned, 2-D and large-n paths take 7-15 ms a step: 50 a
-        # reading.
-        reps = 50 if any(k in label for k in ("binned", "mesh2d",
-                                              "meshL")) else 200
+                s_._eager("run", b_, k)
+        # The binned, 2-D and large-n paths: 2 chunks a reading.
+        reps = 2 * graphs.CHUNK if any(
+            k in label for k in ("binned", "mesh2d", "meshL")) else K
         p1 = run_timed(plain, torch, reps)
         k1 = run_timed(lambda k: s_.run(b_, k), torch, reps)
         k2 = run_timed(lambda k: s_.run(b_, k), torch, reps)
@@ -3718,21 +3870,57 @@ def main():
         if k_us is not None and p_us is not None:
             row_ms[key] = (k_us / 1e3, p_us / 1e3, "device")
 
-    profile_split("main (fused_gram)", sampler, batch, 20, torch, gpu)
-    profile_split("main-nn", nn_sampler, nn_batch, 20, torch, gpu)
-    profile_split("main-nn-bf16", nn16, nn_batch, 20, torch, gpu)
-    profile_split("main-nn-large", nn_large, nn_batch, 10, torch, gpu)
-    profile_split("large-n", big, lr_batch, 10, torch, gpu)
+    # Whole graph chunks: 2 (1 on the paths of 3 ms or more a step).
+    one, two = graphs.CHUNK, 2 * graphs.CHUNK
+    profile_split("main (fused_gram)", sampler, batch, two, torch, gpu)
+    profile_split("main-nn", nn_sampler, nn_batch, two, torch, gpu)
+    profile_split("main-nn-bf16", nn16, nn_batch, two, torch, gpu)
+    profile_split("main-nn-large", nn_large, nn_batch, one, torch, gpu)
+    profile_split("large-n", big, lr_batch, one, torch, gpu)
     for label, (s_, b_) in mesh_timed.items():
-        profile_split(label, s_, b_, 20, torch, gpu)
-    for label, (s_, b_, _) in tail_timed.items():
-        profile_split(label, s_, b_, 10 if label == "large-n-epilogue" else 20,
+        profile_split(label, s_, b_, one if "binned" in label else two,
                       torch, gpu)
+    for label, (s_, b_, _) in tail_timed.items():
+        profile_split(label, s_, b_,
+                      one if label == "large-n-epilogue" else two, torch,
+                      gpu)
     profile_split("main-nn-pblock", pb_loop, pb_batch, 20, torch, gpu)
-    profile_split("covertype-e2e", cov_loop, None, 20, torch, gpu)
+    profile_split("covertype-e2e", cov_loop, None, two, torch, gpu)
     profile_split("large-n-sym", sym_loops["B11"], None, 10, torch, gpu)
     for label, (s_, b_) in med_timed.items():
-        profile_split(label, s_, b_, 10, torch, gpu)
+        profile_split(label, s_, b_, 10 if "binned" in label else one,
+                      torch, gpu)
+
+    # [graph]: every sampler path replayed from graphs against the eager
+    # loop; the chunk length's capture time and step on [main].
+    from stein_tpu_torch import InverseMultiquadricKernel
+    graph_chunks(lambda: main_make("cuda"), batch, torch, gpu)
+
+    def by_run(s_, b_):
+        return lambda k, eager: (s_._eager("run", b_, k) if eager
+                                 else s_.run(b_, k))
+    # Steps a reading: whole chunks, 2 on the paths of 5 ms or more a
+    # step eagerly, else 4.
+    c2, c4 = 2 * graphs.CHUNK, 4 * graphs.CHUNK
+    g_paths = {"main": (sampler, by_run(sampler, batch), c4),
+               "main-nn": (nn_sampler, by_run(nn_sampler, nn_batch), c4),
+               "main-nn-bf16": (nn16, by_run(nn16, nn_batch), c4),
+               "main-nn-large": (nn_large, by_run(nn_large, nn_batch), c4),
+               "large-n": (big, by_run(big, lr_batch), c2)}
+    imq = main_make("cuda", kernel=InverseMultiquadricKernel())
+    g_paths["kernel-imq"] = (imq, by_run(imq, batch), c4)
+    for label, (s_, b_, _) in tail_timed.items():
+        g_paths[label] = (s_, by_run(s_, b_),
+                          c2 if label == "large-n-epilogue" else c4)
+    cov = cov_loop.sampler
+    g_paths["covertype-e2e"] = (cov, lambda k, eager: (
+        cov._eager("train_minibatched", cov_loop.data, k, COV_BATCH, COV_KEY)
+        if eager else cov_loop.run(None, k)), c4)
+    for label, (s_, b_) in list(mesh_timed.items()) + list(med_timed.items()):
+        g_paths[label] = (s_, by_run(s_, b_), c2)
+    t_graph = time.perf_counter()
+    graph_summary = run_graph_phase(g_paths, torch, gpu)
+    log(f"[graph] phase {time.perf_counter() - t_graph:.1f} s")
 
     total = {k: sum(c[k] for c in path_counts.values()) for k in counters}
 
@@ -3865,6 +4053,7 @@ def main():
     log(f"[result] step_ms={step_ms!r} plain_step_ms={plain_step_ms!r}")
     log(f"[result] tail paths (us/step, kernels vs plain) {path_us!r}; "
         f"B1 chains max abs error {tail_errs['B1 chains']!r}")
+    log(f"[result] graph {json.dumps(graph_summary)}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -128,8 +128,12 @@ def _nvcc():
 
 def _build(nvcc, sources, so):
     """Compile every source at once (one nvcc each), then link. Returns
-    the compilers' output; raises on the first failure."""
-    objs = [so.parent / (src.stem + ".o") for src in sources]
+    the compilers' output; raises on the first failure. The objects go to
+    a directory of this build's own and the library is renamed into place,
+    so processes that build at once (the ranks of a mesh) do not write
+    each other's files."""
+    work = Path(tempfile.mkdtemp(dir=so.parent))
+    objs = [work / (src.stem + ".o") for src in sources]
     procs = [(subprocess.Popen(
         [nvcc, *NVCC_FLAGS, "-o", str(obj), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), src)
@@ -154,6 +158,7 @@ def _build(nvcc, sources, so):
                            f"({res.returncode}):\n{' '.join(cmd)}\n"
                            f"{res.stdout}{res.stderr}")
     os.replace(tmp, so)
+    shutil.rmtree(work, ignore_errors=True)
     return log + res.stdout + res.stderr
 
 

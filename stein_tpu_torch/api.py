@@ -6,9 +6,10 @@ JAX package's: per-particle gradients by ``torch.func`` (vmap of
 grad_and_value) or by a model's own gradient kernel (``custom_grads=``),
 the median bandwidth, the RBF kernel and SVGD direction, the global norm
 clip and the optimizer update. JAX's ``run`` is one ``lax.scan`` dispatch;
-here it is a Python loop that keeps every carried scalar (median, h^2, clip
-norm, Adam's count and learning rate) on the device and never reads one on
-the host.
+on a card the port replays the step from captured CUDA graphs
+(``utils/graphs.py``), on the CPU it runs a Python loop; both keep every
+carried scalar (median, h^2, clip norm, Adam's count and learning rate) on
+the device and never read one on the host.
 
 Every option of the JAX sampler runs: the reference path
 (``step_impl='xla'``, every ``median``: 'exact', 'subsample', 'bisect',
@@ -67,6 +68,8 @@ from .ops.median import (
 )
 from .parallel import collectives as coll
 from .parallel.mesh import Mesh2D, ParticleMesh
+from .utils import graphs
+from .utils.graphs import tensor_leaves, tree_map
 from .utils.hostio import host_array
 from .utils.ravel import (
     init_particles,
@@ -417,7 +420,18 @@ def make_fused_warm_step_fn(log_p, unravel_fn, gd, max_phi_norm=10.0,
     Returns (step_fn, init_med) with make_warm_step_fn's carry."""
     grad_all = _make_grad_all(log_p, unravel_fn, remat=remat)
 
-    def step_fn(carry, batch):
+    def operands(batch):
+        """The model stage's operands on ``batch``: (the tail's keyword,
+        the model's const)."""
+        if quadratic_form is not None:
+            A_eff, b_eff, const = quadratic_form(batch)
+            return {"glm": (A_eff, b_eff)}, const
+        m = inkernel_model(batch)
+        return {"model": m}, m.const
+
+    def step_fn(carry, batch, ops=None):
+        """``ops``: ``operands(batch)`` when the caller built them (``run``
+        builds them once per call), else they are built here."""
         state, med_prev = carry
         theta = state.particles
         tail = functools.partial(
@@ -425,12 +439,7 @@ def make_fused_warm_step_fn(log_p, unravel_fn, gd, max_phi_norm=10.0,
             opt_state=state.opt_state, gd=gd, max_phi_norm=max_phi_norm,
             warm_passes=warm_passes)
         if quadratic_form is not None or inkernel_model is not None:
-            if quadratic_form is not None:
-                A_eff, b_eff, const = quadratic_form(batch)
-                kernel_kw = {"glm": (A_eff, b_eff)}
-            else:
-                m = inkernel_model(batch)
-                const, kernel_kw = m.const, {"model": m}
+            kernel_kw, const = operands(batch) if ops is None else ops
             new_theta, new_opt, (med, norm, h2, logp_m) = tail(
                 theta, None, None, None, gram_in_kernel=True,
                 theta_sub=subsample_rows(theta, median_max_rows),
@@ -452,6 +461,8 @@ def make_fused_warm_step_fn(log_p, unravel_fn, gd, max_phi_norm=10.0,
                "median": med}
         return (new_state, med), aux
 
+    if quadratic_form is not None or inkernel_model is not None:
+        step_fn.operands = operands
     return step_fn, _make_warm_median_fns(median_max_rows, median_passes,
                                           warm_passes, "fused")[1]
 
@@ -500,7 +511,7 @@ def _shape(x):
 def _probe_device(probe_batch):
     """Where the probe's particles go: the probe batch's device (its first
     tensor), else the default device of the port (the current card)."""
-    leaves = _tensor_leaves(probe_batch)
+    leaves = tensor_leaves(probe_batch)
     if leaves:
         return leaves[0].device
     return _device.resolve_device(None, "throughput_config(probe_batch=)")
@@ -966,9 +977,9 @@ class SVGDSampler:
         (``parallel/sharded2d.py``), and the gathers above cover both
         axes.
     pallas_block, donate, pallas_interpret : accepted so JAX configs carry
-        over and ignored: the CUDA tile's sizes are its own, PyTorch runs
-        eagerly with no buffers to donate, and the kernels have no
-        interpret mode.
+        over and ignored: the CUDA tile's sizes are its own, a call hands
+        back fresh state tensors (the graphs' buffers are their own), and
+        the kernels have no interpret mode.
     binned_bins, binned_block_rows : median='binned''s bins a level and
         row block (``ops.median.binned_median``); on the ring mesh step
         only the bins apply (``ring_binned_median``), as in the JAX
@@ -1046,6 +1057,11 @@ class SVGDSampler:
                                 comm, median_collectives)
             _check_mesh_axes(mesh, model_axis, particle_axis)
         del pallas_block, donate, pallas_interpret   # see the docstring
+        # On a card the steps replay captured graphs, outside the one rule
+        # of the paths that stay eager (utils/graphs.py).
+        self._eager_reason = graphs.eager_reason(median, mesh)
+        self._graphs = (graphs.StepGraphs() if self.device.type == "cuda"
+                        and self._eager_reason is None else None)
 
         if theta is not None:
             if isinstance(theta, (dict, list, tuple)):
@@ -1227,7 +1243,7 @@ class SVGDSampler:
     # ------------------------------------------------------------------ API
 
     def _check_batch(self, batch):
-        for leaf in _tensor_leaves(batch):
+        for leaf in tensor_leaves(batch):
             if leaf.device != self.device:
                 raise ValueError(
                     f"batch tensor on {leaf.device}, sampler on "
@@ -1237,42 +1253,59 @@ class SVGDSampler:
     def train_on_batch(self, batch):
         """One SVGD step on a batch (dict of tensors). Returns aux
         diagnostics as 0-d device tensors: phi_norm (pre-clip),
-        log_p_mean, h2, median."""
+        log_p_mean, h2, median. On a card it replays a one-step graph of
+        the cold step (the batch copied into its static buffer)."""
         self._check_batch(batch)
-        self.state, aux = self._step_fn(self.state, batch)
-        return aux
+        if self._graphs is None:
+            self.state, aux = self._step_fn(self.state, batch)
+            return aux
+        self.state, aux = self._graphs.steps(
+            "batch", self._step_fn, self.state, 1,
+            graphs.Slices(tree_map(lambda l: l.unsqueeze(0), batch)))
+        return {k: v[0] for k, v in aux.items()}
 
-    def _steps(self, n_steps, batch_at):
-        """``n_steps`` steps, step i on ``batch_at(i)``; aux stacked to a
-        leading [n_steps] axis on the device. The warm path seeds its carry
-        with the cold median once per call, as the JAX sampler's scans do.
-        The loop issues device work only: no scalar is read on the host
+    def _steps(self, mode, n_steps, feed):
+        """``n_steps`` steps, step i on ``feed.args(i)`` (``utils/graphs.py``);
+        aux stacked to a leading [n_steps] axis on the device. The warm path
+        seeds its carry with the cold median once per call, as the JAX
+        sampler's scans do. On a card outside ``graphs.eager_reason`` the
+        steps replay captured graphs (keyed by ``mode``, the entry point),
+        else they run in a Python loop. Neither reads a scalar on the host
         until the caller reads the result. Zero steps leave the state as it
         was and return the four diagnostics with shape (0,), as a JAX scan
         of length 0 does."""
         if n_steps == 0:
             return {k: torch.empty(0, dtype=self.dtype, device=self.device)
                     for k in ("h2", "log_p_mean", "median", "phi_norm")}
-        auxes = []
-        if self._warm_step_fn is not None:
+        warm = self._warm_step_fn is not None
+        if warm:
             med = self._warm_init_med(self.state.particles).to(self.dtype)
-            carry = (self.state, med)
-            for i in range(n_steps):
-                carry, aux = self._warm_step_fn(carry, batch_at(i))
-                auxes.append(aux)
-            self.state = carry[0]
+            step, carry = self._warm_step_fn, (self.state, med)
         else:
-            for i in range(n_steps):
-                self.state, aux = self._step_fn(self.state, batch_at(i))
-                auxes.append(aux)
-        return {k: torch.stack([a[k] for a in auxes]) for k in auxes[0]}
+            step, carry = self._step_fn, self.state
+        if self._graphs is None:
+            carry, aux = graphs.eager_steps(step, carry, n_steps, feed)
+        else:
+            carry, aux = self._graphs.steps(mode, step, carry, n_steps, feed)
+        self.state = carry[0] if warm else carry
+        return aux
+
+    def _eager(self, method, *args, **kwargs):
+        """The entry point ``method`` (e.g. "run") through the eager loop on
+        any device: what the card's checks hold the graphs to."""
+        saved, self._graphs = self._graphs, None
+        try:
+            return getattr(self, method)(*args, **kwargs)
+        finally:
+            self._graphs = saved
 
     def run(self, batch, n_steps):
         """``n_steps`` full-batch SVGD steps. Returns aux with a leading
-        [n_steps] axis (see ``_steps``)."""
+        [n_steps] axis (see ``_steps``). A model stage's operands
+        (step_impl 'fused_glm', 'fused_model') are built once per call."""
         n_steps = _step_count(n_steps)
         self._check_batch(batch)
-        return self._steps(n_steps, lambda i: batch)
+        return self._steps("run", n_steps, graphs.Fixed(batch))
 
     def train_on_batches(self, batches):
         """One SVGD step per slice of the leading [k] axis of every leaf of
@@ -1280,7 +1313,7 @@ class SVGDSampler:
         dataset); counterpart of ``stein_tpu/api.py:1731``. Returns aux
         with a leading [k] axis."""
         self._check_batch(batches)
-        leaves = _tensor_leaves(batches)
+        leaves = tensor_leaves(batches)
         k = leaves[0].shape[0] if leaves and leaves[0].dim() else None
         if k is None or any(l.dim() == 0 or l.shape[0] != k
                             for l in leaves):
@@ -1288,7 +1321,7 @@ class SVGDSampler:
                 "train_on_batches needs tensors with one leading [k] axis, "
                 f"got shapes {[tuple(l.shape) for l in leaves]}"
             )
-        return self._steps(k, lambda i: _tree_map(lambda l: l[i], batches))
+        return self._steps("batches", k, graphs.Slices(batches))
 
     def train_minibatched(self, data, n_steps, n_batch, key):
         """``n_steps`` minibatch SVGD steps on a dataset resident on the
@@ -1305,7 +1338,7 @@ class SVGDSampler:
         Returns aux with a leading [n_steps] axis."""
         n_steps = _step_count(n_steps)
         self._check_batch(data)
-        leaves = _tensor_leaves(data)
+        leaves = tensor_leaves(data)
         if not leaves or any(l.dim() == 0 or l.shape[0] != leaves[0].shape[0]
                              for l in leaves):
             raise ValueError(
@@ -1315,8 +1348,7 @@ class SVGDSampler:
             )
         idx = minibatch_indices(key, n_steps, n_batch, leaves[0].shape[0],
                                 self.device)
-        return self._steps(n_steps, lambda i: _tree_map(
-            lambda l: l.index_select(0, idx[i]), data))
+        return self._steps("minibatched", n_steps, graphs.Rows(data, idx))
 
     def load_state(self, state):
         """Replace the sampler state (e.g. from
@@ -1434,7 +1466,7 @@ class SVGDSampler:
         from .parallel.sharded import shard_state
         from .parallel.sharded2d import shard_state_2d
         full_shape = (self.n_particles, self.n_params)
-        full = _tree_map(
+        full = tree_map(
             lambda l: torch.empty(full_shape if l.dim() else (),
                                   dtype=l.dtype, device=l.device),
             self.state)
@@ -1463,26 +1495,6 @@ def minibatch_indices(key, n_steps, n_batch, n_rows, device=None):
         gen = torch.Generator(device).manual_seed(int(key))
     return torch.randint(0, n_rows, (n_steps, n_batch), generator=gen,
                          device=device, dtype=torch.int64)
-
-
-def _tree_map(fn, tree):
-    """fn on every tensor of a structure of dicts, lists and tuples
-    (named tuples kept); other leaves as they are."""
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*[_tree_map(fn, v) for v in tree])
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree) if isinstance(tree, torch.Tensor) else tree
-
-
-def _tensor_leaves(tree):
-    if isinstance(tree, dict):
-        return [l for v in tree.values() for l in _tensor_leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [l for v in tree for l in _tensor_leaves(v)]
-    return [tree] if isinstance(tree, torch.Tensor) else []
 
 
 # Reference-compatible alias (stein/samplers/__init__.py:1).

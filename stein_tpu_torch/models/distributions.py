@@ -7,6 +7,7 @@ unless the caller turns TF32 on (the precision the JAX models' default
 "high" tier stands for), so the field is checked and changes nothing.
 """
 
+import functools
 import math
 
 import torch
@@ -44,7 +45,21 @@ def gamma_log_prob(x, concentration, rate):
     Matches tf.distributions.Gamma.log_prob:
     alpha*log(beta) - lgamma(alpha) + (alpha-1)*log(x) - beta*x, with
     alpha and beta cast to x's dtype first, as the JAX helper does."""
-    a = torch.as_tensor(concentration, dtype=x.dtype, device=x.device)
-    b = torch.as_tensor(rate, dtype=x.dtype, device=x.device)
+    a = _constant(concentration, x.dtype, x.device)
+    b = _constant(rate, x.dtype, x.device)
     return (a * torch.log(b) - torch.lgamma(a) + (a - 1.0) * torch.log(x)
             - b * x)
+
+
+def _constant(value, dtype, device):
+    """``value`` as a 0-d tensor of ``dtype`` on ``device``; a Python
+    number's is made once there (a host-to-device copy, which a CUDA graph
+    capture refuses) and reused."""
+    if isinstance(value, torch.Tensor):
+        return torch.as_tensor(value, dtype=dtype, device=device)
+    return _number(value, dtype, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _number(value, dtype, device):
+    return torch.tensor(value, dtype=dtype, device=device)

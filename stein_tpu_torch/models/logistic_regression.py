@@ -15,6 +15,7 @@ its gradients and log_p values come from the fused step's logistic stage
 """
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -73,13 +74,13 @@ class LogisticRegressionModel:
         y_row = batch["y"].to(f32).reshape(1, -1)
         n_obs, d = X.shape[0], self.n_feats
         la_col, w_cols, p = self._ravel_layout()
-        w_cols = w_cols.to(X.device)
+        w_cols = _index_on(tuple(w_cols.tolist()), X.device)
         X_pad = torch.zeros(n_obs, p, dtype=f32, device=X.device)
-        X_pad[:, w_cols] = X
+        X_pad.index_copy_(1, w_cols, X)
         w_mask = torch.zeros(1, p, dtype=f32, device=X.device)
-        w_mask[0, w_cols] = 1.0
+        w_mask.index_fill_(1, w_cols, 1.0)
         la_onehot = torch.zeros(1, p, dtype=f32, device=X.device)
-        la_onehot[0, la_col] = 1.0
+        la_onehot[:, la_col].fill_(1.0)
         # The weight prior's -d/2 log(2 pi) and the Gamma(1, 0.01) prior's
         # 1 * log(0.01).
         const = -0.5 * d * math.log(2.0 * math.pi) + math.log(0.01)
@@ -104,3 +105,10 @@ class LogisticRegressionModel:
         alpha_prior = gamma_log_prob(alpha, 1.0, 0.01)
         scale = self.n_train / self.n_batch
         return log_l * scale + w_prior + alpha_prior
+
+
+@functools.lru_cache(maxsize=None)
+def _index_on(cols, device):
+    """Column indices as an int64 tensor on ``device``, copied there once
+    (a host-to-device copy, which a CUDA graph capture refuses)."""
+    return torch.tensor(cols, dtype=torch.int64, device=device)

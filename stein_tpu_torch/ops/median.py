@@ -400,9 +400,10 @@ def sharded_warm_from_grid(D, med_prev, cnts_local, hi_bound, mesh, total,
     valid = (c[:, 0] < k) & (c[:, g1] >= k)
     valid = torch.cat([valid[:nb] & (med_prev > 0),
                        torch.ones(1, dtype=torch.bool, device=D.device)])
-    pick = torch.argmax(valid.to(torch.int32))
-    lo0 = lo[pick]
-    hi0 = lo0 + w[pick]
+    # A one-element index: indexing by a 0-d tensor reads it on the host.
+    pick = torch.argmax(valid.to(torch.int32)).reshape(1)
+    lo0 = lo.index_select(0, pick).reshape(())
+    hi0 = lo0 + w.index_select(0, pick).reshape(())
     w2 = (hi0 - lo0) / g2
     steps = grid_steps(g2, D.device, lo0.dtype)[1:g2]
     cnts2 = coll.psum(count_le(D, lo0 + steps * w2, cdt), mesh)

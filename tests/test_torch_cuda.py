@@ -989,3 +989,202 @@ def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
     assert b.state.particles.device == dev and int(b.state.step) == 5
     b.run(batch, 5)
     assert np.array_equal(a.samples, b.samples)
+
+
+# The steps replayed from CUDA graphs (utils/graphs.py) against the eager
+# loop (SVGDSampler._eager) from the same state: bitwise, with the same
+# launch counts, through every entry point (cuda_graph_ranks.compare). The
+# kernels are the same and their atomics integer or order-free, so a path
+# that is not bitwise names the op that is not.
+
+def _graph_paths(dev):
+    """{name: (make_sampler, batch, data)}: every captured single-card
+    path at its main path's widths (large-n at n=4096)."""
+    from stein_tpu_torch.kernels import InverseMultiquadricKernel
+
+    rng = np.random.default_rng(0)
+    f32 = torch.float32
+
+    def t(a):
+        return torch.tensor(a, dtype=f32, device=dev)
+
+    X = rng.normal(size=(1000, 128))
+    lr = {"X": t(X), "y": t(X @ rng.normal(size=(128, 1)))}
+    lin = LinearRegressionModel(128)
+    nn = BayesianNNModel(1, 100, 20, 20, prior_beta=10.0)
+    Xn = rng.normal(size=(20, 1))
+    nn_batch = {"X": t(Xn), "y": t(np.sin(Xn))}
+    logm = LogisticRegressionModel(54, 581012, 50)
+    Xl = rng.normal(size=(2000, 54))
+    log_data = {"X": t(Xl), "y": t((Xl.sum(1, keepdims=True) > 0) * 1.0)}
+
+    def lin_make(n, p, **cfg):
+        m = LinearRegressionModel(p)
+        theta = rng.normal(size=(n, p)) * 0.1
+        return lambda: SVGDSampler(n, m.log_p, m.template(), Adam(1e-1),
+                                   theta=theta, device="cuda", **cfg)
+
+    def nn_make(n, **over):
+        cfg = dict(throughput_config(n, 303, model=nn), **over)
+        theta = rng.normal(size=(n, 303)) * 0.1
+        return lambda: SVGDSampler(n, nn.log_p, nn.template(), Adam(1e-1),
+                                   theta=theta, device="cuda", **cfg)
+    theta_l = rng.normal(size=(1000, 55)) * 0.1
+    big = LinearRegressionModel(128)
+    return {
+        "fused_gram": (lin_make(1000, 128, **throughput_config(1000, 128)),
+                       lr, lr),
+        "fused_glm": (lin_make(1000, 128, **throughput_config(
+            1000, 128, model=lin)), lin.sufficient_batch(lr), None),
+        "fused_model": (lambda: SVGDSampler(
+            1000, logm.log_p, logm.template(), Adam(1e-1), theta=theta_l,
+            device="cuda", **throughput_config(1000, 55, model=logm)),
+            {k: v[:50] for k, v in log_data.items()}, log_data),
+        "fused": (lin_make(1000, 128, **dict(throughput_config(1000, 128),
+                                             step_impl="fused")), lr, lr),
+        "epilogue": (lin_make(4096, 128, **dict(throughput_config(4096, 128),
+                                                step_impl="epilogue")),
+                     lr, lr),
+        "large-n": (lin_make(4096, 128, **throughput_config(4096, 128)),
+                    lr, lr),
+        "nn": (nn_make(1000), nn_batch, nn_batch),
+        "nn-bf16": (nn_make(1000, pallas_precision="bf16"), nn_batch,
+                    nn_batch),
+        "nn-large": (nn_make(3000), nn_batch, nn_batch),
+        "nn-remat": (nn_make(1000, custom_grads=None, remat=True), nn_batch,
+                     nn_batch),
+        "xla-exact": (lin_make(1000, 128), lr, lr),
+        "xla-warm": (lin_make(1000, 128, median="bisect", warm_median=True),
+                     lr, lr),
+        "subsample": (lin_make(4096, 64, median="subsample",
+                               kernel_impl="pallas", median_max_rows=128),
+                      {"X": lr["X"][:, :64], "y": lr["y"]}, None),
+        "imq": (lin_make(1000, 128, kernel=InverseMultiquadricKernel()),
+                lr, lr),
+        "big-glm": (lambda: SVGDSampler(
+            50, big.log_p, big.template(), Adagrad(0.1),
+            theta=rng.normal(size=(50, 128)), device="cuda",
+            **throughput_config(50, 128, model=big)),
+            big.sufficient_batch(lr), None),
+    }
+
+
+@pytest.mark.parametrize("path", [
+    "fused_gram", "fused_glm", "fused_model", "fused", "epilogue",
+    "large-n", "nn", "nn-bf16", "nn-large", "nn-remat", "xla-exact",
+    "xla-warm", "subsample", "imq", "big-glm"])
+def test_graphs_equal_the_eager_loop(dev, path):
+    from cuda_graph_ranks import compare
+
+    make, batch, data = _graph_paths(dev)[path]
+    compare(path, make(), batch, data)
+
+
+@pytest.mark.parametrize("path", ["rounds", "grid", "ring", "glm", "nn",
+                                  "2d", "2d-grid", "2d-nn"])
+def test_mesh_graphs_equal_the_eager_loop(dev, path):
+    """The 1-D and 2-D mesh steps on a one-process NCCL group: the graphs
+    capture the collectives (all_reduce, all_gather_into_tensor)."""
+    import torch.distributed as dist
+
+    from stein_tpu_torch.parallel import (
+        mesh_2d,
+        particle_mesh,
+        setup_distributed,
+    )
+
+    setup_distributed("nccl", store=dist.HashStore(), world_size=1, rank=0,
+                      device_id=dev)
+    try:
+        rng = np.random.default_rng(0)
+        X = rng.normal(size=(1000, 128))
+        batch = {"X": torch.tensor(X, dtype=torch.float32, device=dev),
+                 "y": torch.tensor(X @ rng.normal(size=(128, 1)),
+                                   dtype=torch.float32, device=dev)}
+        model, p = LinearRegressionModel(128), 128
+        if path.startswith("2d"):
+            mesh = mesh_2d(1, 1)
+            kw = dict(model_axis="model")
+        else:
+            mesh = particle_mesh()
+            kw = {}
+        if path.endswith("nn"):
+            model, p = BayesianNNModel(1, 100, 20, 20, prior_beta=10.0), 303
+            Xn = rng.normal(size=(20, 1))
+            batch = {"X": torch.tensor(Xn, dtype=torch.float32, device=dev),
+                     "y": torch.tensor(np.sin(Xn), dtype=torch.float32,
+                                       device=dev)}
+        cfg = throughput_config(1000, p, mesh=mesh, model=(
+            model if path in ("glm", "nn") else None), **kw)
+        if path in ("grid", "2d-grid"):
+            cfg["median_collectives"] = "grid"
+        if path == "ring":
+            cfg.update(comm="ring", median_collectives="grid")
+        if path == "glm":
+            batch = model.sufficient_batch(batch)
+        s = SVGDSampler(1000, model.log_p, model.template(), Adam(1e-1),
+                        theta=rng.normal(size=(1000, p)) * 0.1,
+                        device="cuda", **cfg)
+        from cuda_graph_ranks import compare
+        compare(path, s, batch, None if path == "glm" else batch)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_binned_median_stays_eager(dev):
+    """median='binned' is the eager rule's: no graphs on the card."""
+    model = LinearRegressionModel(16)
+    s = SVGDSampler(1000, model.log_p, model.template(), Adam(1e-1),
+                    device="cuda", median="binned", kernel_impl="pallas")
+    assert s._graphs is None
+
+
+def test_mesh_graphs_across_cards(dev, tmp_path):
+    """tests/cuda_graph_ranks.py on 2 or 4 cards, one NCCL rank a card:
+    the mesh steps' graphs (collectives, the ring's P2P sends) against the
+    eager loop on every rank, bitwise. One card skips. The kernel library
+    is built here first; each rank writes its own log, and all ranks are
+    killed after RANKS_TIMEOUT_S."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    import time
+
+    from stein_tpu_torch import _cuda
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs 2 or more cards (one NCCL rank a card)")
+    _cuda.library()
+    world = 4 if cards >= 4 else 2
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    runner = os.path.join(os.path.dirname(__file__), "cuda_graph_ranks.py")
+    logs = [tmp_path / f"rank{r}.log" for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, runner, str(r), str(world),
+                               str(port)], stdout=open(logs[r], "w"),
+                              stderr=subprocess.STDOUT)
+             for r in range(world)]
+    t0 = time.time()
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.time() - t0 > RANKS_TIMEOUT_S:
+                break
+            time.sleep(1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    outs = [log.read_text() for log in logs]
+    for r, out in enumerate(outs):
+        print(f"--- rank {r} ({procs[r].returncode}):\n{out[-4000:]}")
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {r} failed or timed out"
+    assert outs[0].count("bitwise equal") >= 7
+
+
+# tests/cuda_graph_ranks.py takes ~1 minute on 4 cards.
+RANKS_TIMEOUT_S = 240
