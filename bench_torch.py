@@ -62,6 +62,7 @@ from stein_tpu_torch.parallel import (  # noqa: E402
     particle_mesh,
     setup_distributed,
 )
+from stein_tpu_torch.utils import graphs  # noqa: E402
 from stein_tpu_torch.utils.cache import enable_compilation_cache  # noqa: E402
 
 N1, N2 = 1000, 10240
@@ -466,6 +467,7 @@ class Meshes:
 
     def close(self):
         if self._meshes is not None:
+            graphs.release()
             dist.destroy_process_group()
             self._meshes = None
 

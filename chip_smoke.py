@@ -128,7 +128,11 @@ results, and times the steps and the kernels. Phases:
               Before [bench], [graph-tests] runs tests/test_torch_cuda.py's
               graph cases in a subprocess (every single-card path and
               one-process mesh path, each entry point, graph against
-              eager, bitwise): all 24 must pass.
+              eager, bitwise): all 24 must pass. [teardown]: in a
+              subprocess (60 s limit) a one-process NCCL mesh captures a
+              run, then frees its graphs (graphs.release) and destroys the
+              group; in another it exits with neither (the graphs freed
+              from atexit): both exit 0.
 
 With --split it stops after the build and prints only [split]: the device
 time of the median kernel's Gram stage apart from its search at each
@@ -2317,6 +2321,76 @@ def run_graph_tests(torch):
              "passed, none failed or skipped")
 
 
+TEARDOWN_TIMEOUT_S = 60
+
+
+def teardown_child(mode):
+    """``chip_smoke.py --teardown MODE`` (run by [teardown]): a one-process
+    NCCL group captures a mesh run (the sampler's own graphs, fused_shard at
+    [mesh]'s widths), then ends: 'destroy' frees the graphs
+    (``graphs.release``) and destroys the group, 'exit' leaves both to the
+    interpreter's exit (``graphs.release`` runs from atexit)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from stein_tpu_torch import Adam, SVGDSampler, throughput_config
+    from stein_tpu_torch.models import LinearRegressionModel
+    from stein_tpu_torch.parallel import particle_mesh, setup_distributed
+    from stein_tpu_torch.utils import graphs
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    setup_distributed("nccl", store=dist.HashStore(), world_size=1, rank=0,
+                      device_id=dev)
+    X, y, theta0 = make_data()
+    model = LinearRegressionModel(P)
+    batch = {"X": torch.tensor(X, dtype=torch.float32, device=dev),
+             "y": torch.tensor(y, dtype=torch.float32, device=dev)}
+    s = SVGDSampler(N, model.log_p, model.template(), Adam(0.1),
+                    theta=theta0, device="cuda",
+                    **throughput_config(N, P, mesh=particle_mesh()))
+    aux = s.run(batch, 2 * graphs.CHUNK)
+    torch.cuda.synchronize()
+    if s._graphs is None or not s._graphs.graphs or \
+            not torch.isfinite(aux["phi_norm"]).all():
+        fail(f"[teardown] {mode}: the mesh run captured no graph")
+    captured = len(s._graphs.graphs)
+    if mode == "destroy":
+        graphs.release()
+        if s._graphs.graphs:
+            fail("[teardown] graphs.release left a graph alive")
+        dist.destroy_process_group()
+    print(f"TEARDOWN-OK {mode} ({captured} graphs)", flush=True)
+    return 0
+
+
+def run_teardown():
+    """[teardown]: ``teardown_child`` in a subprocess, 'destroy' then
+    'exit': each must exit 0 within TEARDOWN_TIMEOUT_S."""
+    for mode in ("destroy", "exit"):
+        t0 = time.perf_counter()
+        try:
+            res = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--teardown",
+                 mode], cwd=HERE, capture_output=True, text=True,
+                timeout=TEARDOWN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"[teardown] {mode}: the process did not exit within "
+                 f"{TEARDOWN_TIMEOUT_S} s")
+        ok = res.returncode == 0 and "TEARDOWN-OK" in res.stdout
+        how = ("graphs.release, destroy_process_group" if mode == "destroy"
+               else "the interpreter's exit alone")
+        log(f"[teardown] one-process NCCL mesh, graphs captured, then "
+            f"{how}: exit {res.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s "
+            f"({res.stdout.strip().splitlines()[-1:]})")
+        if not ok:
+            for line in (res.stdout + res.stderr).splitlines()[-40:]:
+                log(f"[teardown]   | {line}")
+            fail(f"[teardown] {mode}: exit {res.returncode}")
+
+
 def run_bench(torch):
     """[bench]: bench_torch.py in a subprocess at its default budget; its
     JSON line must parse and hold every key of bench.py's line, each
@@ -3508,6 +3582,7 @@ def main():
     path_counts.update(run_examples(torch, counters, gpu))
     run_fidelity(torch)
     run_graph_tests(torch)
+    run_teardown()
     run_bench(torch)
 
     # --------------------------------------------------------- 5. timing
@@ -4062,16 +4137,21 @@ def main():
 
 
 def run():
-    """main(), then the process group's end, so that the exit code is the
-    script's own."""
+    """main(), then the process group's end (its graphs freed first), so
+    that the exit code is the script's own."""
     try:
         return main()
     finally:
         if "torch" in sys.modules:
             import torch.distributed as dist
             if dist.is_available() and dist.is_initialized():
+                from stein_tpu_torch.utils import graphs
+
+                graphs.release()
                 dist.destroy_process_group()
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--teardown"]:
+        sys.exit(teardown_child(sys.argv[2]))
     sys.exit(run())

@@ -52,11 +52,14 @@ def mesh_context(enabled, device):
     """The 1-D particle mesh of --mesh (None without it): the group of the
     torchrun environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT) when
     it is set, else a one-process group; NCCL for a card, gloo for the
-    CPU. A group this opens is closed on exit."""
+    CPU. A group this opens is closed on exit, after the samplers' graphs
+    are freed (a graph that captured an NCCL collective holds its
+    communicator, whose destruction waits for it)."""
     if not enabled:
         yield None
         return
     from stein_tpu_torch.parallel import particle_mesh, setup_distributed
+    from stein_tpu_torch.utils import graphs
 
     created = not dist.is_initialized()
     if created:
@@ -73,4 +76,5 @@ def mesh_context(enabled, device):
         yield particle_mesh()
     finally:
         if created:
+            graphs.release()
             dist.destroy_process_group()

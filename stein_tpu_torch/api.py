@@ -1060,7 +1060,8 @@ class SVGDSampler:
         # On a card the steps replay captured graphs, outside the one rule
         # of the paths that stay eager (utils/graphs.py).
         self._eager_reason = graphs.eager_reason(median, mesh)
-        self._graphs = (graphs.StepGraphs() if self.device.type == "cuda"
+        self._graphs = (graphs.StepGraphs(mesh=mesh)
+                        if self.device.type == "cuda"
                         and self._eager_reason is None else None)
 
         if theta is not None:

@@ -30,16 +30,36 @@ were before the warm-up, and adds the delta at every replay, so a call
 counts what the eager loop counts.
 
 The capture itself is one injected function, ``capture(warm, body) ->
-replay`` (``cuda_capture`` on a card), so the bookkeeping runs on the CPU
+graph`` with ``graph.replay()`` and ``graph.reset()`` (``cuda_capture`` on
+a card: a ``torch.cuda.CUDAGraph``), so the bookkeeping runs on the CPU
 under a recorder that replays by calling ``body``.
+
+On a mesh of more than one rank the ranks capture together: every call
+first sums each graph's "capture needed" flag over the mesh (one small
+collective, outside any graph), and a capture that fails on one rank
+raises on every rank. A rank that captured alone would run a warm-up
+step's collectives that the others never run, and the ranks would wait on
+each other for ever.
+
+A graph that captured an NCCL collective keeps a reference on the
+communicator, and the communicator's finalize in
+``dist.destroy_process_group()`` waits until every such graph is
+destroyed (on 4 H100s it waited for ever): a process that destroys its
+group calls ``release`` first, which frees every live sampler's graphs.
+It also runs from ``atexit`` once a mesh has captured, so no graph
+outlives its communicator when a process exits without destroying the
+group (the group's destructor then aborts the communicators).
 
 Which paths stay eager is one rule, ``eager_reason``, decided from the
 sampler's configuration when it is built; nothing catches a failed capture
 or replay to run the eager loop instead.
 """
 
+import atexit
 import dataclasses
+import functools
 import math
+import weakref
 
 import torch
 
@@ -106,6 +126,14 @@ def _slice_buffer(leaf, steps):
                                dtype=leaf.dtype, device=leaf.device)
 
 
+def mesh_ranks(mesh):
+    """The number of ranks of a 1-D or 2-D mesh (1 without one)."""
+    if mesh is None:
+        return 1
+    return (mesh.size if hasattr(mesh, "size")
+            else math.prod(mesh.shape.values()))
+
+
 def eager_reason(median, mesh):
     """THE rule of the paths a card runs eagerly, from the sampler's
     configuration: the reason, or None when the steps are captured.
@@ -114,21 +142,16 @@ def eager_reason(median, mesh):
       the host (``ops/median.py:167``), which a capture refuses (ROADMAP
       S14: a count kernel with shared-memory bins);
     - a mesh whose group is not NCCL (gloo's collectives run on the host,
-      outside the card's stream);
-    - a mesh of more than one rank: its graphs equal the eager loop
-      bitwise on 4 cards (``tests/cuda_graph_ranks.py``), but those ranks
-      did not exit after their checks, with the graphs alive at the process
-      group's teardown (ROADMAP S16)."""
+      outside the card's stream).
+
+    An NCCL mesh of any number of ranks is captured (``StepGraphs``: the
+    ranks decide together when to capture; ``release`` frees the graphs
+    before the communicators go)."""
     if median == "binned":
         return ("median='binned': torch.bincount reads its input's range "
                 "on the host")
     if mesh is not None and mesh.device_type != "cuda":
         return "a gloo mesh: its collectives run on the host"
-    ranks = (mesh.size if hasattr(mesh, "size")
-             else math.prod(mesh.shape.values())) if mesh is not None else 1
-    if ranks > 1:
-        return ("a mesh of more than one rank: its ranks did not exit after "
-                "their graphs (the process group's teardown)")
     return None
 
 
@@ -166,8 +189,8 @@ def set_counts(counts):
 
 def cuda_capture(warm, body):
     """``warm()`` then a capture of ``body()`` on one side stream; returns
-    the graph's replay. The capture's errors are thread-local, so the
-    process group's watchdog thread does not void it."""
+    the ``torch.cuda.CUDAGraph``. The capture's errors are thread-local, so
+    the process group's watchdog thread does not void it."""
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
@@ -177,7 +200,34 @@ def cuda_capture(warm, body):
                           capture_error_mode="thread_local"):
         body()
     torch.cuda.current_stream().wait_stream(stream)
-    return graph.replay
+    return graph
+
+
+# Every StepGraphs of the process, held weakly (a sampler's lifetime is
+# its caller's), for ``release``.
+_LIVE = weakref.WeakSet()
+
+
+def release():
+    """Free the graphs of every live sampler, after the card's queued work.
+
+    A graph that captured an NCCL collective holds the communicator, whose
+    finalize in ``dist.destroy_process_group()`` waits until the graph is
+    destroyed. Call this before destroying a mesh's process group; it runs
+    from ``atexit`` once a mesh has captured. A sampler stays usable: its
+    next call captures again."""
+    live = [g for g in list(_LIVE) if g.graphs]
+    if live and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    for g in live:
+        g.free()
+
+
+@functools.cache
+def _release_at_exit():
+    """Registered once, at the first capture on a mesh: atexit runs its
+    hooks last in, first out, so this runs before torch's own teardown."""
+    atexit.register(release)
 
 
 class _Feed:
@@ -293,26 +343,39 @@ class _Graph:
     carry: object      # the static carry
     buffers: object    # the feed's static buffers
     aux: dict          # the static [steps] aux
-    replay: object
+    graph: object      # the capture's graph: replay(), reset()
     delta: list        # ((wrapper, attribute), launches) of one replay
 
 
 class StepGraphs:
     """A sampler's captured graphs, one per (entry point, chunk length);
     a graph whose key (the carry's and the feed's layout) no longer
-    matches is captured again, so a stale address is never replayed."""
+    matches is captured again, so a stale address is never replayed. On a
+    ``mesh`` of more than one rank, a graph is captured again on every
+    rank when it is stale on any."""
 
-    def __init__(self, capture=cuda_capture):
+    def __init__(self, capture=cuda_capture, mesh=None):
         self.capture = capture
+        self.mesh = mesh
         self.graphs = {}
         self.captures = 0
+        _LIVE.add(self)
 
-    def _graph(self, mode, steps, step, carry, feed):
-        key = (_layout(carry, False), feed.key())
-        g = self.graphs.get((mode, steps))
-        if g is not None and g.key == key:
-            return g
+    def _any_rank(self, flags):
+        """Each flag or'd over the mesh's ranks: one collective, outside
+        any graph (as given on one rank)."""
+        if mesh_ranks(self.mesh) == 1:
+            return list(flags)
+        from ..parallel import collectives
+
+        flags = torch.tensor(flags, dtype=torch.int32,
+                             device=self.mesh.device)
+        return [bool(f) for f in collectives.psum(flags, self.mesh).tolist()]
+
+    def _capture(self, mode, steps, step, carry, feed, key):
         self.graphs.pop((mode, steps), None)
+        if self.mesh is not None:
+            _release_at_exit()
         static = tree_map(torch.clone, carry)
         at, buffers = feed.static(steps)
         aux = {}
@@ -335,16 +398,32 @@ class StepGraphs:
                 torch.stack([a[k] for a in auxes], out=buf)
             _copy_into(static, c)
 
-        replay = self.capture(warm, body)
+        failed = None
+        try:
+            graph = self.capture(warm, body)
+        except Exception as err:   # told to the other ranks, then raised
+            failed = err
+        if self._any_rank([failed is not None])[0]:
+            set_counts(before)
+            if failed is not None:
+                raise failed
+            raise RuntimeError(f"the capture of the {mode!r} graph failed "
+                               "on another rank of the mesh")
         after = read_counts()
         set_counts(before)
         registry = launch_counters()
-        g = _Graph(key, static, buffers, aux, replay,
+        g = _Graph(key, static, buffers, aux, graph,
                    [(registry[k], after[k] - counts[k]) for k in after
                     if after[k] != counts[k]])
         self.graphs[(mode, steps)] = g
         self.captures += 1
         return g
+
+    def free(self):
+        """Destroy every graph (the next call captures again)."""
+        for g in self.graphs.values():
+            g.graph.reset()
+        self.graphs.clear()
 
     def steps(self, mode, step, carry, k, feed):
         """k steps of ``step`` from ``carry`` on ``feed``: CHUNK-step
@@ -353,10 +432,15 @@ class StepGraphs:
         feed.prepare(step)
         out, start = None, 0
         full, rest = divmod(k, CHUNK)
-        for steps, count in ((CHUNK, full), (1, rest)):
-            if count == 0:
-                continue
-            g = self._graph(mode, steps, step, carry, feed)
+        plan = [(steps, count) for steps, count in ((CHUNK, full), (1, rest))
+                if count]
+        layout = (_layout(carry, False), feed.key())
+        stale = self._any_rank([
+            getattr(self.graphs.get((mode, steps)), "key", None) != layout
+            for steps, _ in plan])
+        for (steps, count), new in zip(plan, stale):
+            g = (self._capture(mode, steps, step, carry, feed, layout) if new
+                 else self.graphs[(mode, steps)])
             _copy_into(g.carry, carry)
             feed.load(g.buffers)
             if out is None:
@@ -365,7 +449,7 @@ class StepGraphs:
                        for key, b in g.aux.items()}
             for _ in range(count):
                 feed.fill(g.buffers, start, steps)
-                g.replay()
+                g.graph.replay()
                 for (wrapper, attr), d in g.delta:
                     setattr(wrapper, attr, getattr(wrapper, attr) + d)
                 for key, b in g.aux.items():

@@ -1092,6 +1092,7 @@ def test_mesh_graphs_equal_the_eager_loop(dev, path):
         particle_mesh,
         setup_distributed,
     )
+    from stein_tpu_torch.utils import graphs
 
     setup_distributed("nccl", store=dist.HashStore(), world_size=1, rank=0,
                       device_id=dev)
@@ -1128,6 +1129,7 @@ def test_mesh_graphs_equal_the_eager_loop(dev, path):
         from cuda_graph_ranks import compare
         compare(path, s, batch, None if path == "glm" else batch)
     finally:
+        graphs.release()
         dist.destroy_process_group()
 
 
@@ -1139,52 +1141,21 @@ def test_binned_median_stays_eager(dev):
     assert s._graphs is None
 
 
-def test_mesh_graphs_across_cards(dev, tmp_path):
-    """tests/cuda_graph_ranks.py on 2 or 4 cards, one NCCL rank a card:
-    the mesh steps' graphs (collectives, the ring's P2P sends) against the
-    eager loop on every rank, bitwise. One card skips. The kernel library
-    is built here first; each rank writes its own log, and all ranks are
-    killed after RANKS_TIMEOUT_S."""
-    import os
-    import socket
-    import subprocess
-    import sys
-    import time
-
-    from stein_tpu_torch import _cuda
+def test_mesh_graphs_across_cards(dev):
+    """tests/cuda_mesh_cards.py on 2 or 4 cards, one NCCL rank a card: every
+    mesh path's graphs, the sampler's own choice, against its eager loop
+    (collectives and the ring's P2P sends inside the graphs), the ranks in
+    bitwise agreement, the gathered samples against one card, each kernel
+    at its rank shapes and the timings; then both teardowns (the graphs
+    released and the group destroyed; neither, at the interpreter's exit)
+    and the two torchrun CLIs. Every process must exit 0 within its limit,
+    on the normal teardown; one past it is killed and the test fails. Each
+    process's log is written under build/mesh_cards/ as it runs. One card
+    skips."""
+    import cuda_mesh_cards
 
     cards = torch.cuda.device_count()
     if cards < 2:
         pytest.skip("needs 2 or more cards (one NCCL rank a card)")
-    _cuda.library()
     world = 4 if cards >= 4 else 2
-    s = socket.socket()
-    s.bind(("localhost", 0))
-    port = s.getsockname()[1]
-    s.close()
-    runner = os.path.join(os.path.dirname(__file__), "cuda_graph_ranks.py")
-    logs = [tmp_path / f"rank{r}.log" for r in range(world)]
-    procs = [subprocess.Popen([sys.executable, runner, str(r), str(world),
-                               str(port)], stdout=open(logs[r], "w"),
-                              stderr=subprocess.STDOUT)
-             for r in range(world)]
-    t0 = time.time()
-    try:
-        while any(p.poll() is None for p in procs):
-            if time.time() - t0 > RANKS_TIMEOUT_S:
-                break
-            time.sleep(1)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    outs = [log.read_text() for log in logs]
-    for r, out in enumerate(outs):
-        print(f"--- rank {r} ({procs[r].returncode}):\n{out[-4000:]}")
-    for r, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {r} failed or timed out"
-    assert outs[0].count("bitwise equal") >= 7
-
-
-# tests/cuda_graph_ranks.py takes ~1 minute on 4 cards.
-RANKS_TIMEOUT_S = 240
+    assert cuda_mesh_cards.main(["--world", str(world)]) == 0

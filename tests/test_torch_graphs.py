@@ -304,9 +304,9 @@ def test_graphs_match_jax_run():
 
 
 def test_eager_rule():
-    """The eager rule names exactly median='binned', a mesh that is not
-    NCCL and a mesh of more than one rank; every other configuration (a
-    one-rank NCCL mesh, 1-D or 2-D, included) is captured."""
+    """The eager rule names exactly median='binned' and a mesh that is not
+    NCCL; every other configuration, an NCCL mesh of one rank or of many
+    (1-D or 2-D), is captured."""
     from stein_tpu_torch.parallel.mesh import Mesh2D, ParticleMesh
 
     assert "bincount" in graphs.eager_reason("binned", None)
@@ -318,11 +318,13 @@ def test_eager_rule():
 
     def nccl(size, name="particles"):
         return ParticleMesh(None, name, size, 0, "cuda")
-    for one in (nccl(1), Mesh2D(nccl(1), nccl(1, "model"))):
-        assert graphs.eager_reason("bisect", one) is None
-    for many in (nccl(2), Mesh2D(nccl(1), nccl(2, "model")),
+    for mesh in (nccl(1), Mesh2D(nccl(1), nccl(1, "model")), nccl(2),
+                 Mesh2D(nccl(1), nccl(2, "model")),
                  Mesh2D(nccl(4), nccl(1, "model"))):
-        assert "more than one rank" in graphs.eager_reason("bisect", many)
+        assert graphs.eager_reason("bisect", mesh) is None
+        assert "bincount" in graphs.eager_reason("binned", mesh)
+    assert [graphs.mesh_ranks(m) for m in (
+        None, nccl(4), Mesh2D(nccl(2), nccl(2, "model")))] == [1, 4, 4]
 
 
 def test_cpu_sampler_runs_eagerly():
