@@ -21,8 +21,10 @@ results, and times the steps and the kernels. Phases:
               B1's model and D-given chains against theirs; B8/B9 (with
               the thresholds they form against grid_edges); B11 at
               four shapes, ten calls bitwise equal and so on grids of one
-              and seven blocks; B12 on lattice and path inputs; at the
-              stated tolerances
+              and seven blocks; B12 on lattice and path inputs; the bin
+              count (csrc/bin_count.cu) bitwise against its plain version
+              at the binned paths' blocks, two levels, 4096/2048/1 bins, a
+              lattice, f32, bf16 and f64; at the stated tolerances
   4. main     the bench's p=128 Bayesian linear regression at n=1000
               (B1, B2): launch counts of run(batch, 500), finiteness, the
               first 10 steps against the CPU run, the posterior mean
@@ -84,7 +86,8 @@ results, and times the steps and the kernels. Phases:
               mesh-ring (comm='ring': B9, B3), mesh-glm (quadratic_form:
               B8, B3) and mesh-nn (the NN with custom_grads: B7, B8, B3);
               mesh-binned and mesh-ring-binned (median='binned' with the
-              tile, gathered and around the ring: B3); mesh2d,
+              tile, gathered and around the ring: B3, the bin count);
+              mesh2d,
               mesh2d-grid and mesh2d-nn on a 1x1 2-D mesh through
               throughput_config(model_axis=) (B10 every step): counts, 10
               steps against the CPU gloo run, [mesh2d]'s log_p_mean and
@@ -92,9 +95,10 @@ results, and times the steps and the kernels. Phases:
               own D rows and u
      median-binned, median-subsample  SVGDSampler(median='binned' |
               'subsample', kernel_impl='pallas') at large_particle.py's
-              default size (n=10240, p=64; B3): counts, 4 steps against the
-              plain functions on the card, the binned median against the
-              exact median of the full D and the CPU's, the subsample
+              default size (n=10240, p=64; B3, and the bin count 160 a
+              binned step): counts, 4 steps against the plain functions on
+              the card, the binned median bitwise the plain count's, against
+              the exact median of the full D and the CPU's, the subsample
               median against a full sort of its block, us/step
      meshL    bench_torch.py's large-n mesh rows (n=8192, p=64, fused_shard,
               1024-wide tiles, 64 median rows) on the one-process NCCL
@@ -103,8 +107,8 @@ results, and times the steps and the kernels. Phases:
               the card
      examples every CLI of examples_torch/ on the card at its default
               sizes (regression_neural_network with --prior-beta 10,
-              large_particle also with --median binned at 500 of its 1500
-              iterations, production_run again from its checkpoint): the
+              large_particle also with --median binned, production_run
+              again from its checkpoint): the
               printed acceptance numbers and each CLI's kernel launches
      fidelity tests/test_torch_fidelity.py's card cases in a subprocess
               (the f32 step against the f64 oracle at the JAX suite's
@@ -123,12 +127,14 @@ results, and times the steps and the kernels. Phases:
               state: bitwise, with the same launch counts; wall us/step of
               both in turns, and under the profiler device us/step, busy
               share and kernel launches a step of both; the main path's
-              first call and step at chunk lengths 16, 32 and 64. The plain
-              functions of [timing] and [meshL] run through the eager loop.
-              Before [bench], [graph-tests] runs tests/test_torch_cuda.py's
-              graph cases in a subprocess (every single-card path and
-              one-process mesh path, each entry point, graph against
-              eager, bitwise): all 24 must pass. [teardown]: in a
+              first call and step at chunk lengths 16, 32 and 64; for the
+              three binned paths a chunk's graph's node count, capture and
+              instantiation seconds. The plain functions of [timing] and
+              [meshL] run through the eager loop. Before [bench],
+              [graph-tests] runs tests/test_torch_cuda.py's graph cases in
+              a subprocess (every single-card path and one-process mesh
+              path, the binned ones included, each entry point, graph
+              against eager, bitwise): all 26 must pass. [teardown]: in a
               subprocess (60 s limit) a one-process NCCL mesh captures a
               run, then frees its graphs (graphs.release) and destroys the
               group; in another it exits with neither (the graphs freed
@@ -1978,11 +1984,15 @@ def check_bracket_kernels(dev, torch, theta, nn_theta):
 def plain_kernels():
     """The mesh paths' kernels swapped for their plain versions (on the
     card's tensors) while the block runs: B8, B9, B3 (both of its mesh
-    entry points), B7 and B10."""
+    entry points), B7, B10 and the bin count."""
     from stein_tpu_torch.models import bayesian_nn
     from stein_tpu_torch.ops import fused_median as fm
-    from stein_tpu_torch.ops import svgd_tile
+    from stein_tpu_torch.ops import median, svgd_tile
     from stein_tpu_torch.parallel import sharded_fused
+
+    def bin_count_plain(D, lo, width, n_bins, out=None):
+        counts = median._bin_counts(D, lo, width, n_bins)
+        return counts if out is None else out.add_(counts)
 
     def nn_plain(theta, batch, f, H, consts):
         return bayesian_nn.nn_grads_plain(
@@ -2005,7 +2015,8 @@ def plain_kernels():
              (svgd_tile, "svgd_phi_rect", phi_rect_plain),
              (svgd_tile, "svgd_both_ksum_on_D",
               svgd_tile.svgd_both_ksum_on_D_plain),
-             (bayesian_nn, "nn_grads", nn_plain)]
+             (bayesian_nn, "nn_grads", nn_plain),
+             (median, "bin_count", bin_count_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
         for mod, name, fn in swaps:
@@ -2286,23 +2297,22 @@ def run_fidelity(torch):
              "none failed or skipped")
 
 
-GRAPH_TEST_CASES = 24
+GRAPH_TEST_CASES = 26
 GRAPH_TEST_TIMEOUT_S = 300
 
 
 def run_graph_tests(torch):
     """[graph-tests]: tests/test_torch_cuda.py's graph cases in a
     subprocess (every captured single-card path at its widths and every
-    one-process NCCL mesh path, each entry point against the eager loop,
-    bitwise, with equal counts; median='binned' stays eager). Fails on any
+    one-process NCCL mesh path, the binned ones included, each entry point
+    against the eager loop, bitwise, with equal counts). Fails on any
     failure, error or skip, or on a count other than GRAPH_TEST_CASES."""
     import re
 
     torch.cuda.empty_cache()
     cmd = [sys.executable, "-m", "pytest", "tests/test_torch_cuda.py",
            "-m", "cuda", "-q", "--noconftest", "-p", "no:cacheprovider",
-           "-rs", "-k", "graphs_equal_the_eager_loop or "
-           "binned_median_stays_eager"]
+           "-rs", "-k", "graphs_equal_the_eager_loop"]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
                          timeout=GRAPH_TEST_TIMEOUT_S)
@@ -2430,6 +2440,10 @@ def run_bench(torch):
 # 1000 observations from numpy seed 0 (its data recipe), Adam(1e-2), the
 # streaming tile (B3) for phi.
 MED_N, MED_P, MED_OBS, MED_STEPS = 10240, 64, 1000, 50
+BIN_ROWS = 256        # binned_median's row block
+# The bin-count launches of a binned step: a launch a row block (40 at
+# n=10240), two levels, two middle ranks.
+BIN_PER_STEP = -(-MED_N // BIN_ROWS) * 2 * 2
 MED_ROWS = 128
 
 
@@ -2442,6 +2456,106 @@ def large_particle_data(seed=0):
     theta0 = np.random.default_rng(3).normal(size=(MED_N, MED_P)) * 0.01
     return (X.astype(np.float32), y.astype(np.float32),
             theta0.astype(np.float32))
+
+
+# The bin-count kernel's phase: its shapes on the binned paths.
+BIN_REM_N = 10000     # n with a remainder block: 39 x 256 + 16
+BIN_RING = (250, 1000)
+BIN_PAST_SMEM = 60000   # bins past a block's 227 KB of shared memory
+BIN_REPS = 50
+
+
+def bin_count_cases(dev, torch):
+    """[(label, D, lo, width, n_bins)] of the bin-count phase, each dtype
+    the kernel takes (f32, bf16, f64): large_particle.py's [256, 10240]
+    block at the first level's interval [lo0, hi0] and at a second level's
+    (one first-level bin about the block's median: nearly every entry in
+    an end bin), at 4096, 2048 and 1 bins (and BIN_PAST_SMEM, the
+    kernel's global-atomics path); the n=10000 remainder block
+    [16, 10000]; the ring's [250, 1000] at 2048 bins; a lattice D on the
+    bin edges, below lo and past the last edge, at 4096, 2048 and 1."""
+    from stein_tpu_torch.ops.median import (
+        _binned_range,
+        _row_block_sq_dists,
+        exact_median,
+    )
+
+    theta0 = large_particle_data()[2]
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16, torch.float64):
+        name = str(dtype).replace("torch.", "")
+
+        def blocks(n, rows, bins, levels=("first", "second")):
+            theta = torch.tensor(theta0[:n], device=dev).to(dtype)
+            rsq = torch.sum(theta * theta, dim=1)
+            D = _row_block_sq_dists(theta[-rows:], theta, rsq[-rows:], rsq)
+            lo0, hi0 = _binned_range(torch.max(rsq), dtype)
+            for nb in bins:
+                w0 = (hi0 - lo0) / nb
+                for level in levels:
+                    lo, w = lo0, w0
+                    if level == "second":
+                        b = torch.floor((exact_median(D.double()).to(dtype)
+                                         - lo0) / w0)
+                        lo, w = lo0 + b * w0, w0 / nb
+                    cases.append((f"{name} [{rows}, {n}] {level} level "
+                                  f"{nb} bins", D, lo, w, nb))
+        blocks(MED_N, BIN_ROWS, (4096, 2048))
+        # 1 bin; and past the shared memory's room (global atomics).
+        blocks(MED_N, BIN_ROWS, (1, BIN_PAST_SMEM), ("first",))
+        blocks(BIN_REM_N, BIN_REM_N % BIN_ROWS, (4096,))
+        blocks(BIN_RING[1], BIN_RING[0], (2048,))
+        for nb in (4096, 2048, 1):
+            k = np.arange(-5, nb + 6, dtype=np.float64)
+            lat = np.concatenate([-2.0 + 0.5 * k, -2.0 + 0.5 * k + 0.25,
+                                  [-1e3, -2.5, 1e6]])
+            D = torch.tensor(np.tile(lat, (3, 1)), device=dev).to(dtype)
+            cases.append((f"{name} lattice [3, {lat.size}] {nb} bins", D,
+                          torch.full((), -2.0, dtype=dtype, device=dev),
+                          torch.full((), 0.5, dtype=dtype, device=dev), nb))
+    return cases
+
+
+def check_bin_count(dev, torch):
+    """[kernels] the bin-count kernel against its plain version
+    (``_bin_counts``) at every case of bin_count_cases: the counts bitwise,
+    alone and added to a running histogram, and a second call bitwise.
+    Returns the max abs error (0 or the phase fails) and the timing inputs:
+    the [median-binned] path's block, its first-level interval and bins,
+    its bin indices (for torch.bincount's time) and a second level's
+    interval."""
+    from stein_tpu_torch.ops import median
+
+    t0 = time.perf_counter()
+    cases = bin_count_cases(dev, torch)
+    bad = []
+    for label, D, lo, w, nb in cases:
+        want = median._bin_counts(D, lo, w, nb)
+        got = median.bin_count(D, lo, w, nb)
+        again = median.bin_count(D, lo, w, nb)
+        acc = torch.arange(nb, dtype=torch.float32, device=dev) * 2.0 ** 20
+        summed = median.bin_count(D, lo, w, nb, acc.clone())
+        torch.cuda.synchronize()
+        ends = (want[0] + want[-1]).item() / D.numel() if nb > 1 else 1.0
+        ok = (torch.equal(got, want) and torch.equal(again, got)
+              and torch.equal(summed, acc + want)
+              and got.sum().item() == D.numel())
+        log(f"[kernels] bin_count {label}: counts bitwise the plain "
+            f"version's {torch.equal(got, want)}, with a running histogram "
+            f"{torch.equal(summed, acc + want)}, repeat bitwise "
+            f"{torch.equal(again, got)}; end bins hold {ends:.4f} of "
+            f"{D.numel()} entries")
+        if not ok:
+            bad.append(label)
+    log(f"[kernels] bin_count: {len(cases) - len(bad)} of {len(cases)} "
+        f"cases bitwise ({time.perf_counter() - t0:.1f} s)")
+    if bad:
+        fail(f"bin_count disagrees with its plain version: {bad}")
+    D, lo, w, nb = cases[0][1:]
+    lo2, w2 = cases[1][2:4]   # the same block at a second level
+    q = ((D - lo) / w).reshape(-1)
+    idx = torch.clamp(q, 0.0, nb - 1.0).to(torch.int32)
+    return 0.0, (D, lo, w, nb, idx, lo2, w2)
 
 
 def run_median_paths(dev, torch, counters, gpu):
@@ -2461,17 +2575,22 @@ def run_median_paths(dev, torch, counters, gpu):
     )
     from stein_tpu_torch.ops.rbf import pairwise_sq_dists
 
+    def binned_plain(t):
+        with plain_kernels():
+            return binned_median(t)
+
     X, y, theta0 = large_particle_data()
     model = LinearRegressionModel(MED_P)
     batch = {"X": torch.tensor(X, device=dev), "y": torch.tensor(y,
                                                                  device=dev)}
     counts, timed = {}, {}
-    for label, cfg, median_fn in (
-            ("median-binned", dict(median="binned"),
-             lambda t: binned_median(t)),
+    for label, cfg, median_fn, want in (
+            ("median-binned", dict(median="binned"), binned_plain,
+             dict(B3=MED_STEPS, bin_count=BIN_PER_STEP * MED_STEPS)),
             ("median-subsample", dict(median="subsample",
                                       median_max_rows=MED_ROWS),
-             lambda t: subsampled_sq_dist_median(t, MED_ROWS))):
+             lambda t: subsampled_sq_dist_median(t, MED_ROWS),
+             dict(B3=MED_STEPS))):
         def make(cfg=cfg):
             return SVGDSampler(MED_N, model.log_p, model.template(),
                                Adam(1e-2), theta=theta0, device="cuda",
@@ -2483,7 +2602,7 @@ def run_median_paths(dev, torch, counters, gpu):
         torch.cuda.synchronize()
         log(f"[{label}] run(batch, {MED_STEPS}) in "
             f"{time.perf_counter() - t0:.2f} s (first call)")
-        counts[label] = check_counts(label, counters, dict(B3=MED_STEPS))
+        counts[label] = check_counts(label, counters, want)
         check_finite(label, s, aux, MED_STEPS)
         log(f"[{label}] last step: " + ", ".join(
             f"{k}={v[-1].item():.6g}" for k, v in aux.items()))
@@ -2495,10 +2614,18 @@ def run_median_paths(dev, torch, counters, gpu):
         med = median_fn(theta).item()
         med_cpu = median_fn(theta.cpu()).item()
         if label == "median-binned":
-            # Against the exact median of the full [n, n] D (420 MB) within
-            # the histogram's bound, range / n_bins^2 / 2, plus the f32
-            # Gram's rounding of an entry, (p + 2) eps hi0; against the
-            # CPU's binned_median of the same theta within one final bin.
+            # The kernel's binned median bitwise the plain count's (the
+            # same counts); against the exact median of the full [n, n] D
+            # (420 MB) within the histogram's bound, range / n_bins^2 / 2,
+            # plus the f32 Gram's rounding of an entry, (p + 2) eps hi0;
+            # against the CPU's binned_median of the same theta within one
+            # final bin.
+            med_kernel = binned_median(theta).item()
+            log(f"[{label}] binned median with the bin-count kernel "
+                f"{med_kernel!r}, with the plain count {med!r}")
+            if med_kernel != med:
+                fail(f"[{label}] the kernel's binned median is not the "
+                     "plain count's")
             D = pairwise_sq_dists(theta)
             exact = exact_median(D).item()
             del D
@@ -2546,11 +2673,13 @@ def run_mesh_medians_2d(sampler_for, mesh2, run_path, X, y, theta0, batch,
     from stein_tpu_torch.models import LinearRegressionModel
 
     lin = LinearRegressionModel(P)
-    for label, comm in (("mesh-binned", "all_gather"),
-                        ("mesh-ring-binned", "ring")):
+    # bin_count a step: 4 row blocks of 256 (gathered) or one rotation
+    # (the ring of one rank), two levels, two middle ranks.
+    for label, comm, blocks in (("mesh-binned", "all_gather", 4),
+                                ("mesh-ring-binned", "ring", 1)):
         cfg = dict(median="binned", kernel_impl="pallas", comm=comm)
         run_path(label, sampler_for(N, lin, theta0, cfg), batch,
-                 dict(B3=MESH_STEPS))
+                 dict(B3=MESH_STEPS, bin_count=4 * blocks * MESH_STEPS))
 
     cfg = throughput_config(N, P, mesh=mesh2, model_axis="model")
     log(f"[mesh2d] throughput_config({N}, {P}, mesh=, model_axis='model') "
@@ -2652,9 +2781,7 @@ EXAMPLES = (
     ("production_run", ["--ckpt", "{ckpt}"]),
     ("production_run", ["--ckpt", "{ckpt}", "--n-iters", "3500"]),
     ("large_particle", []),
-    # 500 of the default 1500 iterations: the binned histogram takes ~0.1 s
-    # a step (PERF.md section 5), and the whole run 149 s (PR 12).
-    ("large_particle", ["--median", "binned", "--n-iters", "500"]),
+    ("large_particle", ["--median", "binned"]),
 )
 
 
@@ -2861,6 +2988,59 @@ def graph_chunks(make, batch, torch, gpu):
                 f"run(batch, {8 * c})")
     finally:
         graphs.CHUNK = saved
+
+
+def graph_size(label, s, batch, torch, gpu):
+    """A chunk's graph of sampler ``s``'s run, captured once more with
+    the CUDA graph kept: its node count (libcuda's cuGraphGetNodes),
+    the capture's seconds (the warm-up step outside it) and the
+    instantiation's. The sampler's own graphs are put back."""
+    import ctypes
+
+    from stein_tpu_torch.utils import graphs
+
+    out = {}
+
+    def capture(warm, body):
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            warm()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, stream=stream,
+                              capture_error_mode="thread_local"):
+            body()
+        out["capture_s"] = time.perf_counter() - t0
+        nodes = ctypes.c_size_t(0)
+        try:   # a count libcuda reads; none where it cannot
+            err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+                ctypes.c_void_p(graph.raw_cuda_graph()), None,
+                ctypes.byref(nodes))
+        except (OSError, TypeError, AttributeError) as e:
+            log(f"[graph] {label}: node count not read ({e!r})")
+            err = -1
+        out["nodes"] = nodes.value if err == 0 else None
+        t0 = time.perf_counter()
+        graph.instantiate()
+        torch.cuda.synchronize()
+        out["instantiate_s"] = time.perf_counter() - t0
+        torch.cuda.current_stream().wait_stream(stream)
+        return graph
+
+    saved = s._graphs
+    s._graphs = graphs.StepGraphs(capture=capture, mesh=s.mesh)
+    try:
+        s.run(batch, graphs.CHUNK)
+        torch.cuda.synchronize()
+    finally:
+        s._graphs.free()
+        s._graphs = saved
+    log(f"[graph] {gpu}: {label}: a {graphs.CHUNK}-step graph holds "
+        f"{out['nodes']} nodes; capture {out['capture_s']:.3f} s, "
+        f"instantiate {out['instantiate_s']:.3f} s")
+    return {f"chunk_{k}": v for k, v in out.items()}
 
 
 def run_graph_phase(paths, torch, gpu):
@@ -3487,6 +3667,7 @@ def main():
                                                      nn_theta)
     entry_errs, entry_in = check_sym_pblock_kernels(dev, torch, nn_model,
                                                     nn_batch, nn_theta)
+    bin_err, bin_in = check_bin_count(dev, torch)
 
     # ------------------------------------------------------ 4. main path
     # Every wrapper's launch count, the registry utils/graphs.py keeps.
@@ -3898,6 +4079,29 @@ def main():
             *bracket_in["B9"], g1=8),
         lambda: fused_median.fused_bracket_grid_pass(*bracket_in["B9"], g1=8),
         50, torch)
+    # The bin count at [median-binned]'s block (first level, 4096 bins):
+    # the kernel by device time (events where device_us cannot read it);
+    # its plain version and torch.bincount of the same block's bin indices
+    # by events (both read back to the host, so the calls do not queue).
+    from stein_tpu_torch.ops import median as median_ops
+    D_b, lo_b, w_b, nb_b, idx_b, lo2, w2 = bin_in
+    bin_ms, bin_plain = in_turns(
+        lambda: median_ops._bin_counts(D_b, lo_b, w_b, nb_b),
+        lambda: median_ops.bin_count(D_b, lo_b, w_b, nb_b), BIN_REPS, torch)
+    bin_lib = cuda_ms(lambda: torch.bincount(idx_b, minlength=nb_b),
+                      BIN_REPS, torch)
+    bin_dev = device_us(lambda: median_ops.bin_count(D_b, lo_b, w_b, nb_b),
+                        BIN_REPS, torch)
+    bin_dev2 = device_us(lambda: median_ops.bin_count(D_b, lo2, w2, nb_b),
+                         BIN_REPS, torch)
+    bin_by = "events" if bin_dev is None else "device"
+    if bin_dev is not None:
+        bin_ms = bin_dev / 1e3
+    log(f"[timing] {gpu}: bin_count [{D_b.shape[0]}, {D_b.shape[1]}] f32, "
+        f"{nb_b} bins: device {bin_dev} us (first level), {bin_dev2} us (a "
+        f"second level's interval: the end bins); by events kernel "
+        f"{bin_ms * 1e3:.2f} us, plain {bin_plain * 1e3:.2f} us, "
+        f"torch.bincount of the bin indices {bin_lib * 1e3:.2f} us")
     # One-process NCCL collectives: wall µs per call on the host clock
     # (the step's host cost), the device's share is in [profile].
     from stein_tpu_torch.parallel import collectives as coll
@@ -3953,8 +4157,7 @@ def main():
     profile_split("main-nn-large", nn_large, nn_batch, one, torch, gpu)
     profile_split("large-n", big, lr_batch, one, torch, gpu)
     for label, (s_, b_) in mesh_timed.items():
-        profile_split(label, s_, b_, one if "binned" in label else two,
-                      torch, gpu)
+        profile_split(label, s_, b_, two, torch, gpu)
     for label, (s_, b_, _) in tail_timed.items():
         profile_split(label, s_, b_,
                       one if label == "large-n-epilogue" else two, torch,
@@ -3963,8 +4166,7 @@ def main():
     profile_split("covertype-e2e", cov_loop, None, two, torch, gpu)
     profile_split("large-n-sym", sym_loops["B11"], None, 10, torch, gpu)
     for label, (s_, b_) in med_timed.items():
-        profile_split(label, s_, b_, 10 if "binned" in label else one,
-                      torch, gpu)
+        profile_split(label, s_, b_, one, torch, gpu)
 
     # [graph]: every sampler path replayed from graphs against the eager
     # loop; the chunk length's capture time and step on [main].
@@ -3995,6 +4197,9 @@ def main():
         g_paths[label] = (s_, by_run(s_, b_), c2)
     t_graph = time.perf_counter()
     graph_summary = run_graph_phase(g_paths, torch, gpu)
+    for label in ("median-binned", "mesh-binned", "mesh-ring-binned"):
+        s_, b_ = {**med_timed, **mesh_timed}[label]
+        graph_summary[label].update(graph_size(label, s_, b_, torch, gpu))
     log(f"[graph] phase {time.perf_counter() - t_graph:.1f} s")
 
     total = {k: sum(c[k] for c in path_counts.values()) for k in counters}
@@ -4115,6 +4320,16 @@ def main():
         # tensor cores, the exponentials and the warm search's compares
         # over all n^2 entries; bytes: theta, grads and Adam's two moments
         # in, theta and the moments out.
+        # The bin count: one read of the [256, 10240] f32 block, the
+        # running histogram read and written; four operations an entry
+        # (the subtraction, the division, two compares) on the CUDA cores.
+        # No Pallas site: the JAX package's count is XLA's scatter-add.
+        row("bin_count, median='binned''s count", "bin_count",
+            "bin_count.cu",
+            "stein_tpu/ops/median.py:265 (XLA scatter-add; no Pallas "
+            "kernel)", bin_err, bin_ms, bin_plain,
+            D_b.element_size() * D_b.numel() + 2 * 4 * nb_b,
+            4 * D_b.numel(), bin_lib, ms_by=bin_by),
         row("fused_warm_step_pblock", "B12", "stein_kernels.cu",
             "stein_tpu/ops/pallas_step.py:619", entry_errs["B12"],
             *row_ms["B12"][:2], 4 * 7 * nn_n * nn_p,

@@ -97,6 +97,11 @@ _SIGNATURES = {
          _P, _P, _P),                       # scratch, phi, stream
         _I),
     "stein_logistic_grad_smem": ((_I, _I), _I),
+    "stein_bin_count": (
+        (_P, ctypes.c_longlong, _I, _P, _P, _I,   # D, numel, dtype, lo,
+                                                  # width, n_bins
+         _P, _P, _P, _P),                         # acc, out, scratch, stream
+        _I),
     "stein_glm_grads": (
         (_P, _I, _I, _P, _P, _P, _P, _P),   # theta, n, p, A, b, grads, logp
         _I),

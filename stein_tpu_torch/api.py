@@ -1059,7 +1059,7 @@ class SVGDSampler:
         del pallas_block, donate, pallas_interpret   # see the docstring
         # On a card the steps replay captured graphs, outside the one rule
         # of the paths that stay eager (utils/graphs.py).
-        self._eager_reason = graphs.eager_reason(median, mesh)
+        self._eager_reason = graphs.eager_reason(mesh)
         self._graphs = (graphs.StepGraphs(mesh=mesh)
                         if self.device.type == "cuda"
                         and self._eager_reason is None else None)

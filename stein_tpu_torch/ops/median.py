@@ -5,7 +5,9 @@ the exact median of all n^2 entries of the pairwise squared-distance matrix
 D (stein/utilities/compute_median.py:4-16). ``subsampled_sq_dist_median``
 is the exact median of a strided row block; the sort-free searches count
 ``|{D <= t}|`` on such a block; ``binned_median`` refines a histogram of
-all n^2 entries, streamed in row blocks of D, level by level.
+all n^2 entries, streamed in row blocks of D, level by level; its count
+is ``bin_count``, a kernel on a card (``csrc/bin_count.cu``) and
+``_bin_counts`` on the CPU.
 
 Every search is the JAX search's scalar expression tree in f32 0-d tensors
 (integer counts, order-free min/max), so on the same D block it returns
@@ -137,37 +139,82 @@ def subsampled_sq_dist_median(theta, max_rows=512):
     return exact_median(row_subsample_block(theta, max_rows))
 
 
-# Spare bins past the histogram: bincount's atomics for the end bins'
-# entries go round-robin over them instead of onto two counters.
-_SPARE_BINS = 1024
-
-
-@functools.lru_cache(maxsize=8)
-def _spare_index(numel, n_bins, device):
-    return n_bins + torch.arange(numel, device=device,
-                                 dtype=torch.int32) % _SPARE_BINS
-
-
 def _bin_counts(D, lo, width, n_bins):
     """The f32 histogram of the entries of D over n_bins bins of ``width``
     from ``lo``, out-of-range entries in the end bins: JAX's
     clip(((D - lo) / width).astype(int32), 0, n_bins - 1), whose end bins
-    are q < 1 and q >= n_bins - 1 for q = (D - lo) / width. XLA saturates
-    an out-of-range float on conversion, where torch's is undefined, so
-    only the interior quotients are converted. Past the first level nearly
-    every entry falls outside the interval, into the end bins: those two
-    are counted by reductions, and their entries' bincount atomics spread
-    over spare bins. The counts are exact integers, converted to f32 as
-    JAX's int32 block counts are."""
+    are q < 1 and q >= n_bins - 1 for q = (D - lo) / width (compared
+    exactly: a bf16 q in f32, where torch would round n_bins - 1 to bf16;
+    NaN in bin 0, as XLA converts it). XLA saturates an out-of-range float
+    on conversion, where torch's is undefined, so only the interior
+    quotients are converted. The counts are exact integers, converted to
+    f32 as JAX's int32 block counts are. ``bin_count``'s plain version."""
     q = ((D - lo) / width).reshape(-1)
-    first, last = q < min(1.0, n_bins - 1.0), q >= n_bins - 1
+    if q.dtype != torch.float64:
+        q = q.float()
     inner = torch.clamp(q, 1.0, max(n_bins - 1.0, 1.0)).to(torch.int32)
-    idx = torch.where(first | last, _spare_index(q.numel(), n_bins,
-                                                 q.device), inner)
-    counts = torch.bincount(idx, minlength=n_bins + _SPARE_BINS)[:n_bins]
-    counts[0] = first.sum()
-    counts[n_bins - 1] += last.sum()
-    return counts.to(torch.float32)
+    idx = torch.where(q >= n_bins - 1, n_bins - 1,
+                      torch.where(q >= min(1.0, n_bins - 1.0), inner, 0))
+    return torch.bincount(idx, minlength=n_bins).to(torch.float32)
+
+
+# bin_count's dtypes, by the kernel's code.
+_BIN_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
+
+
+@functools.lru_cache(maxsize=None)
+def _bin_scratch(n_bins, device):
+    """bin_count's int32 scratch on ``device``: n_bins counts and the last
+    block's ticket, zero between launches (each launch leaves it so)."""
+    return torch.zeros(n_bins + 1, dtype=torch.int32, device=device)
+
+
+def bin_count(D, lo, width, n_bins, out=None):
+    """``_bin_counts(D, lo, width, n_bins)``, added in place to the f32
+    [n_bins] histogram ``out`` when one is given (the sum of the blocks, in
+    their order), and returned. A CUDA tensor launches the bin-count kernel
+    (``csrc/bin_count.cu``: one read of D, ``lo`` and ``width`` read on the
+    card, the counts bitwise the plain version's); a CPU tensor runs the
+    plain version. D is f32, bf16 or f64, and the 0-d ``lo`` and ``width``
+    have its dtype. Launches on one stream run in order, as they share a
+    scratch."""
+    if D.device.type == "cpu":
+        counts = _bin_counts(D, lo, width, n_bins)
+        return counts if out is None else out.add_(counts)
+    if D.device.type != "cuda":
+        raise ValueError(f"bin_count: no kernel for {D.device}")
+    if D.dtype not in _BIN_DTYPES or lo.dtype != D.dtype \
+            or width.dtype != D.dtype:
+        raise TypeError(f"bin_count takes D, lo and width of one dtype of "
+                        f"{list(_BIN_DTYPES)} (got {D.dtype}, {lo.dtype}, "
+                        f"{width.dtype})")
+    if lo.dim() or width.dim() or lo.device != D.device \
+            or width.device != D.device or n_bins < 1:
+        raise ValueError("bin_count: lo and width are 0-d tensors on D's "
+                         f"device, n_bins >= 1 (got n_bins={n_bins})")
+    if out is not None and (out.dtype != torch.float32
+                            or tuple(out.shape) != (n_bins,)
+                            or out.device != D.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"bin_count: out must be a contiguous f32 "
+                         f"[{n_bins}] tensor on {D.device}")
+    from .. import _cuda
+
+    D = D.contiguous()
+    acc = out
+    if out is None:
+        out = torch.empty(n_bins, dtype=torch.float32, device=D.device)
+    err = _cuda.library().lib.stein_bin_count(
+        D.data_ptr(), D.numel(), _BIN_DTYPES[D.dtype], lo.data_ptr(),
+        width.data_ptr(), n_bins, None if acc is None else acc.data_ptr(),
+        out.data_ptr(), _bin_scratch(n_bins, D.device).data_ptr(),
+        torch.cuda.current_stream(D.device).cuda_stream)
+    _cuda.check(err, "bin_count launch")
+    bin_count.launches += 1
+    return out
+
+
+bin_count.launches = 0
 
 
 def _block_histogram(theta, rowsq, theta_cols, colsq, lo, hi, n_bins,
@@ -176,14 +223,14 @@ def _block_histogram(theta, rowsq, theta_cols, colsq, lo, hi, n_bins,
     ``theta_cols``'s rows over [lo, hi], streaming row blocks of D (never
     materialised): per-block exact counts, summed across blocks in f32 in
     block order, the remainder rows (n not divisible by block_rows) last,
-    as the JAX scan sums them. A direct f32 count would saturate once a
-    bin passes 2^24."""
+    as the JAX scan sums them (``bin_count``, one launch a block on a
+    card). A direct f32 count would saturate once a bin passes 2^24."""
     width = (hi - lo) / n_bins
-    counts = torch.zeros(n_bins, dtype=torch.float32, device=theta.device)
+    counts = None
     for start in range(0, theta.shape[0], block_rows):
         D = _row_block_sq_dists(theta[start:start + block_rows], theta_cols,
                                 rowsq[start:start + block_rows], colsq)
-        counts = counts + _bin_counts(D, lo, width, n_bins)
+        counts = bin_count(D, lo, width, n_bins, counts)
     return counts
 
 
@@ -216,8 +263,9 @@ def _binned_range(max_rsq, dtype):
     """[lo0, hi0] bounding every entry of D: |a - b|^2 <= 4 max |x|^2, and
     lo0 just below 0 for fp-negative distances."""
     hi0 = 4.0 * max_rsq + 1e-12
-    return torch.tensor(-1e-6, dtype=dtype,
-                        device=max_rsq.device) * (1.0 + hi0), hi0
+    # A fill, not a copy from the host: a capture takes it.
+    return torch.full((), -1e-6, dtype=dtype,
+                      device=max_rsq.device) * (1.0 + hi0), hi0
 
 
 def binned_median(theta, n_bins=4096, n_levels=2, block_rows=256,
@@ -555,12 +603,11 @@ def ring_binned_median(theta_loc, mesh, n_bins=2048, n_levels=2):
 
     def hist(lo, hi):
         width = (hi - lo) / n_bins
-        counts = torch.zeros(n_bins, dtype=torch.float32,
-                             device=theta_loc.device)
+        counts = None
         blk, blk_rsq = theta_loc, rsq_loc
         for r in range(mesh.size):
             D = _row_block_sq_dists(theta_loc, blk, rsq_loc, blk_rsq)
-            counts = counts + _bin_counts(D, lo, width, n_bins)
+            counts = bin_count(D, lo, width, n_bins, counts)
             if r + 1 < mesh.size:
                 blk = coll.ppermute_ring(blk, mesh)
                 blk_rsq = coll.ppermute_ring(blk_rsq, mesh)

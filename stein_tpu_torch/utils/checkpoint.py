@@ -1,8 +1,7 @@
 """Checkpoint / resume of the full sampler state.
 
 PyTorch counterpart of ``stein_tpu/utils/checkpoint.py``, in the same file
-format, so that a checkpoint written by either package restores into the
-other: a flat ``.npz`` with the leaves ``leaf_0..leaf_k`` (the state's
+format: a flat ``.npz`` with the leaves ``leaf_0..leaf_k`` (the state's
 leaves in the JAX package's flattening order: named-tuple fields in order,
 dict keys sorted) and a ``__meta__`` record ``[version, signature]``. The
 signature is the per-leaf key paths joined by ``|``, spelled as
@@ -10,6 +9,14 @@ signature is the per-leaf key paths joined by ``|``, spelled as
 restore rejects a checkpoint whose signature disagrees with the template,
 since same-shaped leaves that swapped places would otherwise restore
 silently wrong.
+
+A checkpoint written by either package restores into the port. The JAX
+package writes a bfloat16 leaf through ml_dtypes, which npz stores as raw
+2-byte records (``|V2``): the port reads those back as bf16 bits. The port
+writes bfloat16 as float32 (numpy has no bfloat16), which the JAX package
+restores exactly; the JAX package cannot restore its own bf16 file
+(``arr.astype(like.dtype)`` at ``stein_tpu/utils/checkpoint.py:110`` finds
+no cast from ``|V2``), a fault of the reference left as it is.
 
 On a particle mesh every leaf of one or more dimensions is a block of rows
 (the sampler's state); ``save_checkpoint(..., mesh=)`` all-gathers those
@@ -151,6 +158,20 @@ def restore_checkpoint(path, like_state):
                     f"leaf {i}: checkpoint shape {arr.shape} != template "
                     f"shape {tuple(like.shape)}"
                 )
-            restored.append(torch.from_numpy(np.array(arr)).to(
+            restored.append(_leaf_tensor(i, arr, like).to(
                 device=like.device, dtype=like.dtype))
     return _unflatten(like_state, restored)
+
+
+def _leaf_tensor(i, arr, like):
+    """Leaf ``i`` of a checkpoint as a CPU tensor. A raw 2-byte record
+    (``|V2``, the JAX package's bfloat16 through ml_dtypes) is read as
+    bf16 bits when its template is bfloat16; any other raw record raises."""
+    if arr.dtype.kind != "V":
+        return torch.from_numpy(np.array(arr))
+    if arr.dtype.itemsize != 2 or like.dtype != torch.bfloat16:
+        raise ValueError(
+            f"leaf {i}: raw {arr.dtype.str} records restore only into a "
+            f"bfloat16 template leaf as bf16 bits (template {like.dtype})")
+    return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(
+        torch.bfloat16)

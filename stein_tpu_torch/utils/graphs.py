@@ -51,8 +51,10 @@ outlives its communicator when a process exits without destroying the
 group (the group's destructor then aborts the communicators).
 
 Which paths stay eager is one rule, ``eager_reason``, decided from the
-sampler's configuration when it is built; nothing catches a failed capture
-or replay to run the eager loop instead.
+sampler's configuration when it is built: only a gloo mesh, whose
+collectives run on the host. Every median, ``median='binned'`` included
+(its count is a kernel that reads nothing on the host), is captured.
+Nothing catches a failed capture or replay to run the eager loop instead.
 """
 
 import atexit
@@ -134,22 +136,17 @@ def mesh_ranks(mesh):
             else math.prod(mesh.shape.values()))
 
 
-def eager_reason(median, mesh):
+def eager_reason(mesh):
     """THE rule of the paths a card runs eagerly, from the sampler's
-    configuration: the reason, or None when the steps are captured.
+    configuration: the reason, or None when the steps are captured. One
+    clause: a mesh whose group is not NCCL (gloo's collectives run on the
+    host, outside the card's stream).
 
-    - median='binned': ``torch.bincount`` reads its input's range back to
-      the host (``ops/median.py:167``), which a capture refuses (ROADMAP
-      S14: a count kernel with shared-memory bins);
-    - a mesh whose group is not NCCL (gloo's collectives run on the host,
-      outside the card's stream).
-
-    An NCCL mesh of any number of ranks is captured (``StepGraphs``: the
-    ranks decide together when to capture; ``release`` frees the graphs
-    before the communicators go)."""
-    if median == "binned":
-        return ("median='binned': torch.bincount reads its input's range "
-                "on the host")
+    Every median is captured: ``median='binned'`` counts with the
+    bin-count kernel (``ops/median.py:bin_count``), which reads nothing on
+    the host. An NCCL mesh of any number of ranks is captured
+    (``StepGraphs``: the ranks decide together when to capture; ``release``
+    frees the graphs before the communicators go)."""
     if mesh is not None and mesh.device_type != "cuda":
         return "a gloo mesh: its collectives run on the host"
     return None
@@ -159,7 +156,7 @@ def launch_counters():
     """Every kernel wrapper's launch count by the kernel's name: (wrapper,
     attribute). Each wrapper adds one where it launches its kernel."""
     from ..models import bayesian_nn
-    from ..ops import fused_median, fused_step, model_grad, svgd_tile
+    from ..ops import fused_median, fused_step, median, model_grad, svgd_tile
 
     return {"B1": (fused_step.fused_warm_step_tail, "launches"),
             "B2": (fused_median.fused_warm_median_rows, "launches"),
@@ -175,6 +172,7 @@ def launch_counters():
             "B11": (svgd_tile.svgd_phi_sym, "launches"),
             "B12": (fused_step.fused_warm_step_pblock, "launches"),
             "glm": (model_grad.glm_grads, "launches"),
+            "bin_count": (median.bin_count, "launches"),
             "logistic": (model_grad.logistic_grads, "launches")}
 
 

@@ -10,8 +10,9 @@ Every rank builds the same samplers through the entry points a user calls
 (``particle_mesh`` / ``mesh_2d``, ``SVGDSampler(mesh=,
 **throughput_config(...))``) and checks each path (PATHS: fused_shard with
 'rounds', 'grid', comm='ring', quadratic_form and the Bayesian NN's
-custom_grads; the warm xla step on the ring; the 2-D mesh at every layout
-of the world; bench_torch's meshL rows at n=8192, p=64):
+custom_grads; the warm xla step on the ring; median='binned' with the tile,
+gathered and around the ring; the 2-D mesh at every layout of the world;
+bench_torch's meshL rows at n=8192, p=64):
 
 - (i) run, train_on_batch, train_on_batches and train_minibatched through
   the sampler's own graphs (on a card it must have chosen them) against
@@ -160,12 +161,18 @@ def compare(label, s, batch, data, rank=0):
 #   fused_gram class's verdict is printed beside it.
 SHARD_CLASS = ("tests/test_sharded.py:628's", 1e-6, 1e-4, 5e-5, 1e-7, 10)
 GRAM_CLASS = ("the fused_gram", 5e-3, 1e-4, 2e-4, 1e-6, 10)
+# The binned paths: the cold step with B3's tile, whose D is formed in the
+# kernel (ROADMAP C: the fused_gram class), the cold mesh step's class of
+# the xla step (rtol 1e-5 / atol 1e-6) printed beside it.
+BINNED_CLASS = ("the fused_gram (B3's tile)", 5e-3, 1e-4, 2e-4, 1e-6, 10)
+COLD_CLASS = ("the cold mesh step's", 1e-5, 1e-5, 1e-5, 1e-6, 10)
 WARM_CLASS = ("the warm bisect", 5e-3, 1e-4, 2e-4, 1e-6, 10)
 CLASS_2D = ("the fused_gram", 5e-3, 1e-4, 2e-4, 1e-6, 5)
 MESHL_CLASS = ("tests_tpu/test_tpu_fidelity.py:776's", 2e-2, 2e-2, 2e-2,
                1e-4, 10)
 # The stricter class whose verdict (iii) prints beside a path's own.
-BESIDE = {GRAM_CLASS: SHARD_CLASS, MESHL_CLASS: GRAM_CLASS}
+BESIDE = {GRAM_CLASS: SHARD_CLASS, MESHL_CLASS: GRAM_CLASS,
+          BINNED_CLASS: COLD_CLASS}
 # The n=1000 paths' median rows for (iii) (see the module docstring).
 SAME_ROWS = 200
 # chip_smoke.py's [kernels] bounds: B3 and B8/B9's D normalised, B10
@@ -222,6 +229,8 @@ def paths(world, n, dev):
         "fused_shard quadratic_form": (lin, lin_batch, {"model": lin}),
         "fused_shard custom_grads": (nn, nn_batch, {"model": nn}),
         "warm xla ring": (lin, lin_batch, {"xla_ring": True}),
+        "binned gathered": (lin, lin_batch, {"binned": "all_gather"}),
+        "binned ring": (lin, lin_batch, {"binned": "ring"}),
     }
     for dp in range(1, world + 1):
         if world % dp == 0:
@@ -278,6 +287,10 @@ def build(model, batch, opt, meshes, n, dev):
         mesh, solo = meshes.world, meshes.solo
         cfg = dict(median="bisect", warm_median=True, comm="ring")
         klass = WARM_CLASS
+    elif "binned" in opt:
+        mesh, solo = meshes.world, meshes.solo
+        cfg = dict(median="binned", kernel_impl="pallas", comm=opt["binned"])
+        klass = BINNED_CLASS
     else:
         mesh, solo = meshes.world, meshes.solo
         cfg = st.throughput_config(n, p, mesh=mesh, model=opt.get("model"))
@@ -443,6 +456,35 @@ def b3_case(rows, cols, grads):
     return err <= B3_BOUND and torch.equal(got, again), err
 
 
+def binned_kernels(blk, mesh, cfg, gen):
+    """(iv) of a binned path: B3's tile on this rank's rows against the
+    gathered columns (gathered) or against its own block (a ring
+    rotation's tile), and the bin count of this rank's D block (its rows
+    against every column, or against its own block) at the first level's
+    interval and at a second level's, bitwise its plain version and
+    repeat bitwise. Returns (ok, the line)."""
+    from stein_tpu_torch.ops import median
+
+    ring = cfg.get("comm") == "ring"
+    cols = blk if ring else coll.all_gather(blk, mesh)
+    grads = torch.randn(cols.shape, generator=gen, device=blk.device)
+    ok, err = b3_case(blk, cols, grads)
+    rsq, csq = torch.sum(blk * blk, dim=1), torch.sum(cols * cols, dim=1)
+    D = median._row_block_sq_dists(blk, cols, rsq, csq)
+    n_bins = 2048 if ring else 4096
+    lo, hi = median._binned_range(coll.pmax(torch.max(rsq), mesh), blk.dtype)
+    w = (hi - lo) / n_bins
+    b = torch.floor((median.exact_median(D) - lo) / w)
+    for lo_, w_ in ((lo, w), (lo + b * w, w / n_bins)):
+        want = median._bin_counts(D, lo_, w_, n_bins)
+        got = median.bin_count(D, lo_, w_, n_bins)
+        again = median.bin_count(D, lo_, w_, n_bins)
+        ok &= torch.equal(got, want) and torch.equal(again, got)
+    return ok, (f"B3 [{blk.shape[0]}, {cols.shape[0]}] p={blk.shape[1]}: "
+                f"normalised error {err:.3e}; bin_count [{D.shape[0]}, "
+                f"{D.shape[1]}] at {n_bins} bins, two levels, bitwise")
+
+
 def kernels_at_rank_shapes(label, s, model, batch, cfg, world):
     """(iv): each kernel of the path once at this rank's shapes against its
     plain version; every rank must pass. Prints rank 0's shapes."""
@@ -498,6 +540,10 @@ def kernels_at_rank_shapes(label, s, model, batch, cfg, world):
             ok &= good
             lines.append(f"B7 [{blk.shape[0]}, {blk.shape[1]}]: grads max "
                          f"abs {g_err:.3e}")
+    elif cfg.get("median") == "binned":
+        good, line = binned_kernels(blk, mesh, cfg, gen)
+        ok &= good
+        lines.append(line)
     else:
         lines.append("no kernel (the xla step)")
     flags = coll.all_gather(torch.tensor([int(ok)], dtype=torch.int32,
@@ -636,7 +682,7 @@ def check_path(label, spec, meshes, n, dev, cpu, timing_on):
         lambda: ranks_agree(label, s.run(path.batch, graphs.CHUNK + 3),
                             meshes.world),
         lambda: one_card(label, path, rows)]
-    if path.klass is GRAM_CLASS:
+    if path.klass in (GRAM_CLASS, BINNED_CLASS):
         checks.append(lambda: gradient_blocks(label, s, model, path.batch,
                                               meshes.world))
     if not cpu:

@@ -37,6 +37,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+if ROOT not in sys.path:   # run as a script from tests/
+    sys.path.insert(0, ROOT)
 RUNNER = os.path.join(HERE, "cuda_graph_ranks.py")
 EXAMPLES = os.path.join(ROOT, "examples_torch")
 # Limits in seconds: the runner's paths (104 s on 4 H100s with 64-step

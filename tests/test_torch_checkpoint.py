@@ -486,3 +486,72 @@ def test_hostio_and_profiling(tmp_path, mesh1):
     path = tmp_path / "trace" / "trace.json"
     assert path.exists() and "svgd_step" in path.read_text()
     assert any(e.key == "svgd_step" for e in prof.key_averages())
+
+
+def _bf16_pair(theta0):
+    """A bf16 Adam sampler of each package from the same theta0."""
+    t = st.SVGDSampler(theta0.shape[0], TLR(3).log_p,
+                       TLR(3).template(torch.bfloat16),
+                       st.Adam(learning_rate=1e-1, decay=0.99), theta=theta0,
+                       dtype=torch.bfloat16, device="cpu")
+    j = sj.SVGDSampler(theta0.shape[0], JLR(3).log_p,
+                       JLR(3).template(jnp.bfloat16),
+                       sj.Adam(learning_rate=1e-1, decay=0.99),
+                       theta=jnp.asarray(theta0, jnp.bfloat16),
+                       dtype=jnp.bfloat16)
+    return t, j
+
+
+def _bits(leaf):
+    """A leaf's bits as a numpy array: bf16 as int16, the rest as is."""
+    if isinstance(leaf, torch.Tensor):
+        return (leaf.view(torch.int16) if leaf.dtype == torch.bfloat16
+                else leaf).numpy()
+    leaf = np.asarray(leaf)   # ml_dtypes' bfloat16: 2 bytes an entry
+    return leaf.view(np.int16) if leaf.dtype.itemsize == 2 else leaf
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_bf16_checkpoint_crosses_packages(tmp_path, direction):
+    """C7: a bf16 state written by the JAX package (its bf16 leaves stored
+    as raw |V2 records) restores into the port bitwise: particles, Adam's
+    mu and nu, and the scalars. The port writes bf16 as float32, which the
+    JAX package restores exactly."""
+    X, y, theta0 = _data(seed=2, dtype=np.float32)
+    t, j = _bf16_pair(theta0)
+    ckpt = tmp_path / "bf16.npz"
+    if direction == "jax_to_port":
+        j.run({"X": jnp.asarray(X, jnp.bfloat16),
+               "y": jnp.asarray(y, jnp.bfloat16)}, 3)
+        jc.save_checkpoint(str(ckpt), j.state)
+        with np.load(ckpt) as f:
+            assert f["leaf_0"].dtype.str == "|V2"
+        t.restore(ckpt)
+    else:
+        t.run({"X": torch.from_numpy(X).bfloat16(),
+               "y": torch.from_numpy(y).bfloat16()}, 3)
+        t.save(ckpt)
+        with np.load(ckpt) as f:
+            assert f["leaf_0"].dtype == np.float32
+        j.restore(str(ckpt))
+    t_leaves = [leaf for _, leaf in tc._flatten_with_path(t.state)]
+    j_leaves = jax.tree_util.tree_leaves(j.state)
+    assert t.state.particles.dtype == torch.bfloat16
+    assert t.state.opt_state.mu.dtype == t.state.opt_state.nu.dtype \
+        == torch.bfloat16
+    assert len(t_leaves) == len(j_leaves) == 6
+    for a, b in zip(t_leaves, j_leaves):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+    assert int(t.state.step) == int(j.state.step) == 3
+
+
+def test_raw_leaf_into_another_dtype_raises(tmp_path):
+    """C7: a raw |V2 leaf restores only into a bf16 template leaf; into a
+    float32 template it raises a ValueError that names the leaf."""
+    X, y, theta0 = _data(seed=2, dtype=np.float32)
+    _, j = _bf16_pair(theta0)
+    ckpt = tmp_path / "bf16.npz"
+    jc.save_checkpoint(str(ckpt), j.state)
+    t32 = _port(theta0)
+    with pytest.raises(ValueError, match="leaf 0: raw \\|V2"):
+        t32.restore(ckpt)

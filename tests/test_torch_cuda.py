@@ -1059,6 +1059,10 @@ def _graph_paths(dev):
         "subsample": (lin_make(4096, 64, median="subsample",
                                kernel_impl="pallas", median_max_rows=128),
                       {"X": lr["X"][:, :64], "y": lr["y"]}, None),
+        # 4000 = 15 row blocks of 256 and a remainder of 160.
+        "binned": (lin_make(4000, 64, median="binned", kernel_impl="pallas"),
+                   {"X": lr["X"][:, :64], "y": lr["y"]},
+                   {"X": lr["X"][:, :64], "y": lr["y"]}),
         "imq": (lin_make(1000, 128, kernel=InverseMultiquadricKernel()),
                 lr, lr),
         "big-glm": (lambda: SVGDSampler(
@@ -1072,7 +1076,7 @@ def _graph_paths(dev):
 @pytest.mark.parametrize("path", [
     "fused_gram", "fused_glm", "fused_model", "fused", "epilogue",
     "large-n", "nn", "nn-bf16", "nn-large", "nn-remat", "xla-exact",
-    "xla-warm", "subsample", "imq", "big-glm"])
+    "xla-warm", "subsample", "binned", "imq", "big-glm"])
 def test_graphs_equal_the_eager_loop(dev, path):
     from cuda_graph_ranks import compare
 
@@ -1081,10 +1085,13 @@ def test_graphs_equal_the_eager_loop(dev, path):
 
 
 @pytest.mark.parametrize("path", ["rounds", "grid", "ring", "glm", "nn",
-                                  "2d", "2d-grid", "2d-nn"])
+                                  "2d", "2d-grid", "2d-nn", "binned",
+                                  "ring-binned"])
 def test_mesh_graphs_equal_the_eager_loop(dev, path):
     """The 1-D and 2-D mesh steps on a one-process NCCL group: the graphs
-    capture the collectives (all_reduce, all_gather_into_tensor)."""
+    capture the collectives (all_reduce, all_gather_into_tensor); the
+    binned median's histograms, gathered and around the ring, with the
+    bin-count kernel."""
     import torch.distributed as dist
 
     from stein_tpu_torch.parallel import (
@@ -1117,6 +1124,9 @@ def test_mesh_graphs_equal_the_eager_loop(dev, path):
                                        device=dev)}
         cfg = throughput_config(1000, p, mesh=mesh, model=(
             model if path in ("glm", "nn") else None), **kw)
+        if path.endswith("binned"):
+            cfg = dict(mesh=mesh, median="binned", kernel_impl="pallas",
+                       comm="ring" if path == "ring-binned" else "all_gather")
         if path in ("grid", "2d-grid"):
             cfg["median_collectives"] = "grid"
         if path == "ring":
@@ -1133,12 +1143,91 @@ def test_mesh_graphs_equal_the_eager_loop(dev, path):
         dist.destroy_process_group()
 
 
-def test_binned_median_stays_eager(dev):
-    """median='binned' is the eager rule's: no graphs on the card."""
-    model = LinearRegressionModel(16)
-    s = SVGDSampler(1000, model.log_p, model.template(), Adam(1e-1),
-                    device="cuda", median="binned", kernel_impl="pallas")
-    assert s._graphs is None
+def _bin_count_case(kind, dtype, n_bins, dev):
+    """(D, lo, width) of the bin-count kernel's shapes: a [256, 10240]
+    block of the large-n path at the first level's interval and at a
+    second level's (one first-level bin about the median: nearly every
+    entry in an end bin), the n=10000 path's remainder block [16, 10000],
+    the ring's [250, 1000], and a lattice on the bin edges, below lo and
+    past the last edge."""
+    from stein_tpu_torch.ops import median
+
+    rng = np.random.default_rng(n_bins)
+    if kind == "lattice":
+        k = np.arange(-5, n_bins + 6, dtype=np.float64)
+        D = np.concatenate([-2.0 + 0.5 * k, -2.0 + 0.5 * k + 0.25,
+                            [-1e3, -2.5, 1e6]])
+        D = torch.tensor(np.tile(D, (3, 1)), dtype=dtype, device=dev)
+        return (D, torch.tensor(-2.0, dtype=dtype, device=dev),
+                torch.tensor(0.5, dtype=dtype, device=dev))
+    n, rows = {"ring": (1000, 250), "remainder": (10000, 16)}.get(
+        kind, (10240, 256))
+    theta = torch.tensor(rng.normal(size=(n, 64)) * 0.01, dtype=dtype,
+                         device=dev)
+    rsq = torch.sum(theta * theta, dim=1)
+    D = median._row_block_sq_dists(theta[-rows:], theta, rsq[-rows:], rsq)
+    lo, hi = median._binned_range(torch.max(rsq), dtype)
+    width = (hi - lo) / n_bins
+    if kind == "second":
+        b = torch.floor((median.exact_median(D.double()).to(dtype) - lo)
+                        / width)
+        lo = lo + b * width
+        width = width / n_bins
+    return D, lo, width
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("n_bins", [4096, 2048, 1])
+@pytest.mark.parametrize("kind", ["first", "second", "remainder", "ring",
+                                  "lattice"])
+def test_bin_count_against_plain(dev, kind, n_bins, dtype):
+    """The bin-count kernel's counts bitwise the plain version's
+    (``_bin_counts``), alone and added to a running histogram; two calls
+    bitwise; one launch each."""
+    from stein_tpu_torch.ops import median
+
+    D, lo, width = _bin_count_case(kind, dtype, n_bins, dev)
+    want = median._bin_counts(D, lo, width, n_bins)
+    before = median.bin_count.launches
+    got = median.bin_count(D, lo, width, n_bins)
+    again = median.bin_count(D, lo, width, n_bins)
+    acc = torch.arange(n_bins, dtype=torch.float32, device=dev) * 2.0 ** 20
+    summed = median.bin_count(D, lo, width, n_bins, acc.clone())
+    torch.cuda.synchronize()
+    assert median.bin_count.launches - before == 3
+    assert torch.equal(got, want) and torch.equal(again, got)
+    assert torch.equal(summed, acc + want)
+    assert float(got.sum()) == D.numel()
+
+
+@pytest.mark.parametrize("kind", ["first", "lattice"])
+def test_bin_count_past_shared_memory(dev, kind):
+    """60000 bins (past a block's 227 KB of shared memory): the kernel
+    counts in the global scratch, bitwise the plain version's."""
+    from stein_tpu_torch.ops import median
+
+    D, lo, width = _bin_count_case(kind, torch.float32, 60000, dev)
+    want = median._bin_counts(D, lo, width, 60000)
+    got = median.bin_count(D, lo, width, 60000)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and float(got.sum()) == D.numel()
+
+
+def test_bin_count_guards(dev):
+    """The wrapper refuses what the kernel does not take."""
+    from stein_tpu_torch.ops import median
+
+    D = torch.ones(4, 4, device=dev)
+    lo = torch.zeros((), device=dev)
+    with pytest.raises(TypeError):
+        median.bin_count(D.half(), lo.half(), lo.half(), 8)
+    with pytest.raises(TypeError):
+        median.bin_count(D, lo.double(), lo, 8)
+    with pytest.raises(ValueError):
+        median.bin_count(D, lo, lo, 0)
+    with pytest.raises(ValueError):
+        median.bin_count(D, lo, lo, 8, torch.zeros(7, device=dev))
 
 
 def test_mesh_graphs_across_cards(dev):

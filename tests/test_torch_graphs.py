@@ -67,6 +67,8 @@ WARM = dict(median="bisect", warm_median=True, warm_passes=6)
 FUSED = dict(WARM, median_impl="fused", median_max_rows=16)
 TILE = dict(WARM, kernel_impl="pallas", median_impl="fused_gram",
             median_max_rows=16)
+# 24 particles in row blocks of 10: two blocks and a remainder of 4.
+BINNED = dict(median="binned", kernel_impl="pallas", binned_block_rows=10)
 
 
 def _sampler(cfg, theta0=None, graph=True):
@@ -104,6 +106,8 @@ def _sampler(cfg, theta0=None, graph=True):
         p = None
     elif cfg == "subsample":
         kw = dict(median="subsample", median_max_rows=16)
+    elif cfg == "binned":
+        kw = BINNED
     else:
         raise ValueError(cfg)
     if p is None:
@@ -180,14 +184,15 @@ def test_entry_points_equal_the_eager_loop(cfg, entry, k, counted):
                                    "train_minibatched"])
 @pytest.mark.parametrize("cfg", ["remat", "fused_gram", "fused",
                                  "fused_glm", "fused_model", "tile",
-                                 "epilogue", "custom_grads", "subsample"])
+                                 "epilogue", "custom_grads", "subsample",
+                                 "binned"])
 def test_every_path_equals_the_eager_loop(cfg, entry, counted):
     """Every single-device step path through the graphs (a chunk and a
     remainder) equals the eager loop bitwise, with its launch counts."""
     _both(cfg, entry, C + 3, counted)
 
 
-@pytest.mark.parametrize("cfg", ["cold", "warm", "fused_glm"])
+@pytest.mark.parametrize("cfg", ["cold", "warm", "fused_glm", "binned"])
 def test_train_on_batch_equals_the_eager_step(cfg, counted):
     """train_on_batch through the one-step graph (the cold step) equals the
     eager step bitwise, three calls on three batches; 0-d aux."""
@@ -304,27 +309,66 @@ def test_graphs_match_jax_run():
 
 
 def test_eager_rule():
-    """The eager rule names exactly median='binned' and a mesh that is not
-    NCCL; every other configuration, an NCCL mesh of one rank or of many
-    (1-D or 2-D), is captured."""
+    """The eager rule names exactly a mesh that is not NCCL: median='binned'
+    is captured on one device and on NCCL meshes of one rank or of many
+    (1-D or 2-D), and stays eager only on a gloo mesh, as every median
+    does."""
     from stein_tpu_torch.parallel.mesh import Mesh2D, ParticleMesh
 
-    assert "bincount" in graphs.eager_reason("binned", None)
-    for median in ("exact", "subsample", "bisect"):
-        assert graphs.eager_reason(median, None) is None
+    model = TLR(D)
+    for median in ("exact", "subsample", "bisect", "binned"):
+        s = st.SVGDSampler(N, model.log_p, model.template(), st.Adam(1e-1),
+                           device="cpu", median=median)
+        assert s._eager_reason is None
+    assert graphs.eager_reason(None) is None
     with one_process_mesh() as mesh:
-        assert "gloo" in graphs.eager_reason("bisect", mesh)
-        assert "bincount" in graphs.eager_reason("binned", mesh)
+        assert "gloo" in graphs.eager_reason(mesh)
+        s = st.SVGDSampler(N, model.log_p, model.template(), st.Adam(1e-1),
+                           device="cpu", mesh=mesh, **BINNED)
+        assert "gloo" in s._eager_reason
 
     def nccl(size, name="particles"):
         return ParticleMesh(None, name, size, 0, "cuda")
     for mesh in (nccl(1), Mesh2D(nccl(1), nccl(1, "model")), nccl(2),
                  Mesh2D(nccl(1), nccl(2, "model")),
                  Mesh2D(nccl(4), nccl(1, "model"))):
-        assert graphs.eager_reason("bisect", mesh) is None
-        assert "bincount" in graphs.eager_reason("binned", mesh)
+        assert graphs.eager_reason(mesh) is None
     assert [graphs.mesh_ranks(m) for m in (
         None, nccl(4), Mesh2D(nccl(2), nccl(2, "model")))] == [1, 4, 4]
+
+
+@pytest.mark.parametrize("entry", ["run", "train_on_batches",
+                                   "train_minibatched"])
+def test_binned_graph_counts(entry, monkeypatch):
+    """The binned sampler's bookkeeping: a chunk graph and a remainder
+    graph, each step's histogram counts (the plain count on the CPU,
+    counted in the registry as a kernel wrapper's launches are) replayed
+    as many times as the eager loop runs them: three row blocks (10, 10
+    and the remainder 4), two levels, two middle ranks a step."""
+    from stein_tpu_torch.ops import median
+
+    class Counts:   # the counter of the plain count's calls
+        launches = 0
+    plain = median._bin_counts
+
+    def counting(*args):
+        Counts.launches += 1
+        return plain(*args)
+    monkeypatch.setattr(median, "_bin_counts", counting)
+    registry = graphs.launch_counters
+    monkeypatch.setattr(graphs, "launch_counters", lambda: {
+        **registry(), "bin_counts": (Counts, "launches")})
+    k, out = C + 3, []
+    for graph in (True, False):
+        s, batch = _sampler("binned", graph=graph)
+        Counts.launches = 0
+        aux = _drive(entry, s, batch, k)
+        out.append((s, aux, Counts.launches))
+    (sg, ag, ng), (se, ae, ne) = out
+    _assert_same((sg, ag), (se, ae))
+    assert ng == ne == k * 3 * 2 * 2
+    assert sorted(steps for _, steps in sg._graphs.graphs) == [1, C]
+    assert sg._graphs.captures == 2
 
 
 def test_cpu_sampler_runs_eagerly():
@@ -356,5 +400,5 @@ def test_launch_counters_registry():
     attribute) pairs that read an int."""
     reg = graphs.launch_counters()
     assert {"B%d" % i for i in range(1, 13)} <= set(reg)
-    assert {"B3-bf16", "glm", "logistic"} <= set(reg)
+    assert {"B3-bf16", "glm", "logistic", "bin_count"} <= set(reg)
     assert all(isinstance(getattr(*c), int) for c in reg.values())

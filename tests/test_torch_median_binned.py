@@ -121,6 +121,67 @@ def test_binned_median_is_near_exact():
     assert abs(got - exact) <= _final_width(theta, 1024, 2) / 2 + 1e-12
 
 
+BIN_DTYPES = [(torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16),
+              (torch.float64, jnp.float64)]
+
+
+def _bin_case(kind, n_bins, tdt):
+    """(D, lo, width) in ``tdt`` for the count's edge inputs: a D block at
+    the first level's interval [lo0, hi0] (every entry inside); at a
+    second level's interval, one first-level bin about the median (nearly
+    every entry in an end bin); a lattice on the bin edges, below lo and
+    past the last edge."""
+    rng = np.random.default_rng(n_bins)
+    if kind == "lattice":
+        k = np.arange(-5, n_bins + 6, dtype=np.float64)
+        D = np.concatenate([-2.0 + 0.5 * k, -2.0 + 0.5 * k + 0.25,
+                            [-1e3, -2.5, 1e6]])
+        D = torch.from_numpy(D.reshape(1, -1)).to(tdt)
+        return (D, torch.tensor(-2.0, dtype=tdt),
+                torch.tensor(0.5, dtype=tdt))
+    theta = torch.from_numpy(rng.normal(size=(100, 5))).to(tdt)
+    rsq = torch.sum(theta * theta, dim=1)
+    D = tm._row_block_sq_dists(theta[:37], theta, rsq[:37], rsq)
+    lo, hi = tm._binned_range(torch.max(rsq), tdt)
+    width = (hi - lo) / n_bins
+    if kind == "second":
+        b = torch.floor((tm.exact_median(D.double()).to(tdt) - lo) / width)
+        lo = lo + b * width
+        width = width / n_bins
+    return D, lo, width
+
+
+@pytest.mark.parametrize("tdt,jdt", BIN_DTYPES, ids=["f32", "bf16", "f64"])
+@pytest.mark.parametrize("n_bins", [1, 2048, 4096, 4098])
+@pytest.mark.parametrize("kind", ["first", "second", "lattice"])
+def test_bin_counts_match_jax_formula(kind, n_bins, tdt, jdt):
+    """The count (``_bin_counts``, the bin-count kernel's plain version)
+    bitwise equal to JAX's block count, clip(int32((D - lo) / width), 0,
+    n_bins - 1) then a scatter-add (stein_tpu/ops/median.py:262-266), on
+    the same D, lo and width in each dtype. n_bins 4098: the last bin's
+    edge 4097 is no bf16 value, and the count compares exactly (torch
+    alone would round it to 4096). ``bin_count`` adds the counts to a
+    running histogram as the blocks' sum does."""
+    D, lo, width = _bin_case(kind, n_bins, tdt)
+
+    def jax_counts(D, lo, width):
+        b = jnp.clip(((D - lo) / width).astype(jnp.int32), 0, n_bins - 1)
+        ints = jnp.zeros((n_bins,), jnp.int32).at[b.ravel()].add(1)
+        return ints.astype(jnp.float32)
+    j = [jnp.asarray(x.double().numpy(), jdt) for x in (D, lo, width)]
+    want = np.asarray(jax.jit(jax_counts)(*j))
+    got = tm._bin_counts(D, lo, width, n_bins)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert float(got.sum()) == D.numel()
+    if kind == "second":
+        assert float(got[0] + got[-1]) > 0.9 * D.numel()
+    acc = torch.arange(n_bins, dtype=torch.float32) * 2.0 ** 20
+    np.testing.assert_array_equal(
+        tm.bin_count(D, lo, width, n_bins, acc.clone()).numpy(),
+        (acc + got).numpy())
+
+
 @functools.lru_cache(maxsize=None)
 def _port_mesh_medians(world):
     with tempfile.TemporaryDirectory() as tmp:
