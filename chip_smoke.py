@@ -22,9 +22,11 @@ results, and times the steps and the kernels. Phases:
               the thresholds they form against grid_edges); B11 at
               four shapes, ten calls bitwise equal and so on grids of one
               and seven blocks; B12 on lattice and path inputs; the bin
-              count (csrc/bin_count.cu) bitwise against its plain version
-              at the binned paths' blocks, two levels, 4096/2048/1 bins, a
-              lattice, f32, bf16 and f64; at the stated tolerances
+              count (csrc/bin_count.cu, fed by the Gram) bitwise against
+              its plain version at the binned paths' blocks, two levels,
+              one and two windows, 4096/2048/1 bins (and past the shared
+              memory), a lattice with NaN, infinities and an overflowing
+              2 g, f32, bf16 and f64; at the stated tolerances
   4. main     the bench's p=128 Bayesian linear regression at n=1000
               (B1, B2): launch counts of run(batch, 500), finiteness, the
               first 10 steps against the CPU run, the posterior mean
@@ -95,11 +97,13 @@ results, and times the steps and the kernels. Phases:
               own D rows and u
      median-binned, median-subsample  SVGDSampler(median='binned' |
               'subsample', kernel_impl='pallas') at large_particle.py's
-              default size (n=10240, p=64; B3, and the bin count 160 a
+              default size (n=10240, p=64; B3, and the bin count 80 a
               binned step): counts, 4 steps against the plain functions on
-              the card, the binned median bitwise the plain count's, against
-              the exact median of the full D and the CPU's, the subsample
-              median against a full sort of its block, us/step
+              the card, the binned median bitwise the plain count's and
+              the per-window sweep's (each middle rank refined on its own,
+              the plain count), against the exact median of the full D and
+              the CPU's, the subsample median against a full sort of its
+              block, us/step
      meshL    bench_torch.py's large-n mesh rows (n=8192, p=64, fused_shard,
               1024-wide tiles, 64 median rows) on the one-process NCCL
               mesh, 'rounds' (B8, B3) and meshL-grid ('grid': B9, B3):
@@ -189,6 +193,17 @@ def log(*parts):
 
 def fail(msg):
     raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def binned_sweep():
+    """tests/binned_sweep.py (torch and the port only): the binned median's
+    per-window reference sweep."""
+    tests = os.path.join(HERE, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import binned_sweep as sweep
+
+    return sweep
 
 
 def make_data(seed=SEED):
@@ -1990,8 +2005,9 @@ def plain_kernels():
     from stein_tpu_torch.ops import median, svgd_tile
     from stein_tpu_torch.parallel import sharded_fused
 
-    def bin_count_plain(D, lo, width, n_bins, out=None):
-        counts = median._bin_counts(D, lo, width, n_bins)
+    def bin_count_plain(G, rowsq_rows, colsq, windows, n_bins, out=None):
+        counts = median._gram_bin_counts(G, rowsq_rows, colsq, windows,
+                                         n_bins)
         return counts if out is None else out.add_(counts)
 
     def nn_plain(theta, batch, f, H, consts):
@@ -2442,8 +2458,8 @@ def run_bench(torch):
 MED_N, MED_P, MED_OBS, MED_STEPS = 10240, 64, 1000, 50
 BIN_ROWS = 256        # binned_median's row block
 # The bin-count launches of a binned step: a launch a row block (40 at
-# n=10240), two levels, two middle ranks.
-BIN_PER_STEP = -(-MED_N // BIN_ROWS) * 2 * 2
+# n=10240) and level, two levels (both middle ranks' windows in one).
+BIN_PER_STEP = -(-MED_N // BIN_ROWS) * 2
 MED_ROWS = 128
 
 
@@ -2460,102 +2476,144 @@ def large_particle_data(seed=0):
 
 # The bin-count kernel's phase: its shapes on the binned paths.
 BIN_REM_N = 10000     # n with a remainder block: 39 x 256 + 16
-BIN_RING = (250, 1000)
+# The mesh paths' blocks at N=1000, 4096 bins (SVGDSampler's binned_bins;
+# the ring's also at ring_binned_median's own default, 2048): the
+# one-process gathered step's row blocks, 3 x 256 then the remainder 232;
+# the one-process ring's one rotation; on 4 ranks, a gathered rank's block
+# and a ring rotation.
+BIN_MESH = (BIN_ROWS, N)
+BIN_MESH_REM = (N % BIN_ROWS, N)
+BIN_RING1 = (N, N)
+BIN_GATHER4 = (N // 4, N)
+BIN_RING4 = (N // 4, N // 4)
 BIN_PAST_SMEM = 60000   # bins past a block's 227 KB of shared memory
 BIN_REPS = 50
 
 
 def bin_count_cases(dev, torch):
-    """[(label, D, lo, width, n_bins)] of the bin-count phase, each dtype
-    the kernel takes (f32, bf16, f64): large_particle.py's [256, 10240]
-    block at the first level's interval [lo0, hi0] and at a second level's
-    (one first-level bin about the block's median: nearly every entry in
-    an end bin), at 4096, 2048 and 1 bins (and BIN_PAST_SMEM, the
-    kernel's global-atomics path); the n=10000 remainder block
-    [16, 10000]; the ring's [250, 1000] at 2048 bins; a lattice D on the
-    bin edges, below lo and past the last edge, at 4096, 2048 and 1."""
-    from stein_tpu_torch.ops.median import (
-        _binned_range,
-        _row_block_sq_dists,
-        exact_median,
-    )
+    """[(label, G, r, c, windows, n_bins)] of the bin-count phase, each
+    dtype the kernel takes (f32, bf16, f64), D = (r + c^T) - 2 G:
+    large_particle.py's [256, 10240] block at the first level's interval
+    [lo0, hi0], at a second level's (one first-level bin about the block's
+    median: nearly every entry in an end bin) and at both middle ranks'
+    second levels in one launch, at 4096, 2048 and 1 bins (and
+    BIN_PAST_SMEM, the kernel's global-atomics path, one window and two);
+    the n=10000 remainder block [16, 10000]; the mesh paths' blocks at
+    4096 bins (the gathered step's [256, 1000] and remainder [232, 1000],
+    a gathered rank's [250, 1000] on 4 ranks) and the ring's rotations
+    ([1000, 1000] on one rank, [250, 250] on 4) at 4096 and 2048; a
+    lattice D (G and r zero) on the bin edges, below lo, past the last
+    edge, NaN and infinities, with entries whose 2 g overflows, at 4096,
+    2048 and 1 bins, one window and two."""
+    from stein_tpu_torch.ops.median import _binned_range, exact_median
 
     theta0 = large_particle_data()[2]
     cases = []
     for dtype in (torch.float32, torch.bfloat16, torch.float64):
         name = str(dtype).replace("torch.", "")
 
-        def blocks(n, rows, bins, levels=("first", "second")):
+        def blocks(n, rows, bins, levels=("first", "second", "both")):
             theta = torch.tensor(theta0[:n], device=dev).to(dtype)
             rsq = torch.sum(theta * theta, dim=1)
-            D = _row_block_sq_dists(theta[-rows:], theta, rsq[-rows:], rsq)
+            G = torch.matmul(theta[-rows:], theta.T)
+            r = rsq[-rows:]
+            D = r[:, None] + rsq[None, :] - 2.0 * G
             lo0, hi0 = _binned_range(torch.max(rsq), dtype)
+            med = exact_median(D.double()).to(dtype)
             for nb in bins:
                 w0 = (hi0 - lo0) / nb
+                b = torch.floor((med - lo0) / w0)
+                second = [(lo0 + (b + i) * w0, w0 / nb) for i in (0, 1)]
+                wins = {"first": [(lo0, w0)], "second": second[:1],
+                        "both": second, "first+second": [(lo0, w0),
+                                                         second[0]]}
                 for level in levels:
-                    lo, w = lo0, w0
-                    if level == "second":
-                        b = torch.floor((exact_median(D.double()).to(dtype)
-                                         - lo0) / w0)
-                        lo, w = lo0 + b * w0, w0 / nb
                     cases.append((f"{name} [{rows}, {n}] {level} level "
-                                  f"{nb} bins", D, lo, w, nb))
+                                  f"{nb} bins", G, r, rsq, wins[level], nb))
         blocks(MED_N, BIN_ROWS, (4096, 2048))
         # 1 bin; and past the shared memory's room (global atomics).
-        blocks(MED_N, BIN_ROWS, (1, BIN_PAST_SMEM), ("first",))
+        blocks(MED_N, BIN_ROWS, (1, BIN_PAST_SMEM), ("first",
+                                                     "first+second"))
         blocks(BIN_REM_N, BIN_REM_N % BIN_ROWS, (4096,))
-        blocks(BIN_RING[1], BIN_RING[0], (2048,))
+        for (rows, n), bins in ((BIN_MESH, (4096,)), (BIN_MESH_REM, (4096,)),
+                                (BIN_GATHER4, (4096,)),
+                                (BIN_RING1, (4096, 2048)),
+                                (BIN_RING4, (4096, 2048))):
+            blocks(n, rows, bins)
         for nb in (4096, 2048, 1):
             k = np.arange(-5, nb + 6, dtype=np.float64)
             lat = np.concatenate([-2.0 + 0.5 * k, -2.0 + 0.5 * k + 0.25,
-                                  [-1e3, -2.5, 1e6]])
-            D = torch.tensor(np.tile(lat, (3, 1)), device=dev).to(dtype)
-            cases.append((f"{name} lattice [3, {lat.size}] {nb} bins", D,
-                          torch.full((), -2.0, dtype=dtype, device=dev),
-                          torch.full((), 0.5, dtype=dtype, device=dev), nb))
+                                  [-1e3, -2.5, 1e6, np.nan, -np.inf,
+                                   np.inf]])
+            c = torch.tensor(lat, device=dev).to(dtype)
+            G = torch.zeros(3, lat.size, dtype=dtype, device=dev)
+            G[2, :8] = 3e38
+            G[2, 8] = float("nan")
+            r = torch.zeros(3, dtype=dtype, device=dev)
+            wins = [(torch.full((), lo, dtype=dtype, device=dev),
+                     torch.full((), 0.5, dtype=dtype, device=dev))
+                    for lo in (-2.0, -1.75)]
+            for nw in (1, 2):
+                cases.append((f"{name} lattice [3, {lat.size}] {nb} bins, "
+                              f"{nw} windows", G, r, c, wins[:nw], nb))
     return cases
 
 
 def check_bin_count(dev, torch):
     """[kernels] the bin-count kernel against its plain version
-    (``_bin_counts``) at every case of bin_count_cases: the counts bitwise,
-    alone and added to a running histogram, and a second call bitwise.
-    Returns the max abs error (0 or the phase fails) and the timing inputs:
-    the [median-binned] path's block, its first-level interval and bins,
-    its bin indices (for torch.bincount's time) and a second level's
-    interval."""
+    (``_gram_bin_counts``, itself checked against ``_bin_counts`` of the
+    plain D a window) at every case of bin_count_cases: the counts
+    bitwise, alone and added to a running histogram, and a second call
+    bitwise. Returns the max abs error (0 or the phase fails) and the
+    timing inputs: the [median-binned] path's first-level case, its bin
+    indices (for torch.bincount's time) and its second-level cases, one
+    window and both."""
     from stein_tpu_torch.ops import median
 
     t0 = time.perf_counter()
     cases = bin_count_cases(dev, torch)
     bad = []
-    for label, D, lo, w, nb in cases:
-        want = median._bin_counts(D, lo, w, nb)
-        got = median.bin_count(D, lo, w, nb)
-        again = median.bin_count(D, lo, w, nb)
-        acc = torch.arange(nb, dtype=torch.float32, device=dev) * 2.0 ** 20
-        summed = median.bin_count(D, lo, w, nb, acc.clone())
+    for label, G, r, c, wins, nb in cases:
+        want = median._gram_bin_counts(G, r, c, wins, nb)
+        D = median._sq_dists_from_gram(G, r, c)
+        plain_d = torch.equal(want, torch.stack(
+            [median._bin_counts(D, lo, w, nb) for lo, w in wins]))
+        got = median.bin_count(G, r, c, wins, nb)
+        again = median.bin_count(G, r, c, wins, nb)
+        acc = torch.arange(len(wins) * nb, dtype=torch.float32,
+                           device=dev).reshape(len(wins), nb) * 2.0 ** 20
+        summed = median.bin_count(G, r, c, wins, nb, acc.clone())
         torch.cuda.synchronize()
-        ends = (want[0] + want[-1]).item() / D.numel() if nb > 1 else 1.0
-        ok = (torch.equal(got, want) and torch.equal(again, got)
+        ends = (want[0, 0] + want[0, -1]).item() / G.numel() \
+            if nb > 1 else 1.0
+        ok = (plain_d and torch.equal(got, want) and torch.equal(again, got)
               and torch.equal(summed, acc + want)
-              and got.sum().item() == D.numel())
+              and bool((got.sum(dim=1) == G.numel()).all()))
         log(f"[kernels] bin_count {label}: counts bitwise the plain "
             f"version's {torch.equal(got, want)}, with a running histogram "
             f"{torch.equal(summed, acc + want)}, repeat bitwise "
-            f"{torch.equal(again, got)}; end bins hold {ends:.4f} of "
-            f"{D.numel()} entries")
+            f"{torch.equal(again, got)}, the plain version the plain D's "
+            f"count {plain_d}; end bins hold {ends:.4f} of {G.numel()} "
+            "entries")
         if not ok:
             bad.append(label)
     log(f"[kernels] bin_count: {len(cases) - len(bad)} of {len(cases)} "
         f"cases bitwise ({time.perf_counter() - t0:.1f} s)")
     if bad:
         fail(f"bin_count disagrees with its plain version: {bad}")
-    D, lo, w, nb = cases[0][1:]
-    lo2, w2 = cases[1][2:4]   # the same block at a second level
-    q = ((D - lo) / w).reshape(-1)
-    idx = torch.clamp(q, 0.0, nb - 1.0).to(torch.int32)
-    return 0.0, (D, lo, w, nb, idx, lo2, w2)
+    by_label = {case[0]: case[1:] for case in cases}
+    G, r, c, wins, nb = cases[0][1:]
+    D = median._sq_dists_from_gram(G, r, c)
+    lo, w = wins[0]
+    idx = torch.clamp(((D - lo) / w).reshape(-1), 0.0, nb - 1.0).to(
+        torch.int32)
+    # f32 at the binned paths' blocks, 4096 bins: each level's case.
+    shapes = {}
+    for rows, n in (BIN_ROWS, MED_N), BIN_MESH, BIN_RING1, BIN_RING4:
+        shapes[f"[{rows}, {n}]"] = {
+            level: by_label[f"float32 [{rows}, {n}] {level} level 4096 bins"]
+            for level in ("first", "second", "both")}
+    return 0.0, dict(first=cases[0][1:], idx=idx, shapes=shapes)
 
 
 def run_median_paths(dev, torch, counters, gpu):
@@ -2621,11 +2679,15 @@ def run_median_paths(dev, torch, counters, gpu):
             # against the CPU's binned_median of the same theta within one
             # final bin.
             med_kernel = binned_median(theta).item()
+            med_sweep = binned_sweep().reference_binned_median(
+                theta).item()
             log(f"[{label}] binned median with the bin-count kernel "
-                f"{med_kernel!r}, with the plain count {med!r}")
-            if med_kernel != med:
+                f"{med_kernel!r}, with the plain count {med!r}, by the "
+                f"per-window sweep (each middle rank on its own, the plain "
+                f"count) {med_sweep!r}")
+            if not med_kernel == med == med_sweep:
                 fail(f"[{label}] the kernel's binned median is not the "
-                     "plain count's")
+                     "plain count's and the per-window sweep's")
             D = pairwise_sq_dists(theta)
             exact = exact_median(D).item()
             del D
@@ -2674,12 +2736,12 @@ def run_mesh_medians_2d(sampler_for, mesh2, run_path, X, y, theta0, batch,
 
     lin = LinearRegressionModel(P)
     # bin_count a step: 4 row blocks of 256 (gathered) or one rotation
-    # (the ring of one rank), two levels, two middle ranks.
+    # (the ring of one rank), two levels (both middle ranks in one).
     for label, comm, blocks in (("mesh-binned", "all_gather", 4),
                                 ("mesh-ring-binned", "ring", 1)):
         cfg = dict(median="binned", kernel_impl="pallas", comm=comm)
         run_path(label, sampler_for(N, lin, theta0, cfg), batch,
-                 dict(B3=MESH_STEPS, bin_count=4 * blocks * MESH_STEPS))
+                 dict(B3=MESH_STEPS, bin_count=2 * blocks * MESH_STEPS))
 
     cfg = throughput_config(N, P, mesh=mesh2, model_axis="model")
     log(f"[mesh2d] throughput_config({N}, {P}, mesh=, model_axis='model') "
@@ -4083,25 +4145,33 @@ def main():
     # the kernel by device time (events where device_us cannot read it);
     # its plain version and torch.bincount of the same block's bin indices
     # by events (both read back to the host, so the calls do not queue).
+    # Then device time at each binned path's block and level, one window
+    # and both.
     from stein_tpu_torch.ops import median as median_ops
-    D_b, lo_b, w_b, nb_b, idx_b, lo2, w2 = bin_in
+    bin_first = bin_in["first"]
     bin_ms, bin_plain = in_turns(
-        lambda: median_ops._bin_counts(D_b, lo_b, w_b, nb_b),
-        lambda: median_ops.bin_count(D_b, lo_b, w_b, nb_b), BIN_REPS, torch)
-    bin_lib = cuda_ms(lambda: torch.bincount(idx_b, minlength=nb_b),
+        lambda: median_ops._gram_bin_counts(*bin_first),
+        lambda: median_ops.bin_count(*bin_first), BIN_REPS, torch)
+    bin_lib = cuda_ms(lambda: torch.bincount(bin_in["idx"],
+                                             minlength=bin_first[-1]),
                       BIN_REPS, torch)
-    bin_dev = device_us(lambda: median_ops.bin_count(D_b, lo_b, w_b, nb_b),
-                        BIN_REPS, torch)
-    bin_dev2 = device_us(lambda: median_ops.bin_count(D_b, lo2, w2, nb_b),
-                         BIN_REPS, torch)
-    bin_by = "events" if bin_dev is None else "device"
-    if bin_dev is not None:
-        bin_ms = bin_dev / 1e3
-    log(f"[timing] {gpu}: bin_count [{D_b.shape[0]}, {D_b.shape[1]}] f32, "
-        f"{nb_b} bins: device {bin_dev} us (first level), {bin_dev2} us (a "
-        f"second level's interval: the end bins); by events kernel "
-        f"{bin_ms * 1e3:.2f} us, plain {bin_plain * 1e3:.2f} us, "
+    bin_dev = {shape: {level: device_us(
+        lambda case=case: median_ops.bin_count(*case), BIN_REPS, torch)
+        for level, case in levels.items()}
+        for shape, levels in bin_in["shapes"].items()}
+    first_dev = bin_dev[f"[{BIN_ROWS}, {MED_N}]"]["first"]
+    bin_by = "events" if first_dev is None else "device"
+    if first_dev is not None:
+        bin_ms = first_dev / 1e3
+    log(f"[timing] {gpu}: bin_count [{BIN_ROWS}, {MED_N}] f32 from the "
+        f"Gram, 4096 bins, first level: kernel "
+        f"{bin_ms * 1e3:.2f} us ({bin_by}), plain {bin_plain * 1e3:.2f} us, "
         f"torch.bincount of the bin indices {bin_lib * 1e3:.2f} us")
+    for shape, levels in bin_dev.items():
+        log(f"[timing] {gpu}: bin_count {shape} f32, device us a launch: "
+            f"first level {levels['first']}, a second level's interval "
+            f"{levels['second']}, both middle ranks' second levels in one "
+            f"launch {levels['both']}")
     # One-process NCCL collectives: wall µs per call on the host clock
     # (the step's host cost), the device's share is in [profile].
     from stein_tpu_torch.parallel import collectives as coll
@@ -4320,16 +4390,19 @@ def main():
         # tensor cores, the exponentials and the warm search's compares
         # over all n^2 entries; bytes: theta, grads and Adam's two moments
         # in, theta and the moments out.
-        # The bin count: one read of the [256, 10240] f32 block, the
-        # running histogram read and written; four operations an entry
-        # (the subtraction, the division, two compares) on the CUDA cores.
-        # No Pallas site: the JAX package's count is XLA's scatter-add.
+        # The bin count: one read of the [256, 10240] f32 Gram block and
+        # its norms, the running histogram read and written; seven
+        # operations an entry (D's add, product and subtraction; the
+        # window's subtraction, division and two compares) on the CUDA
+        # cores. No Pallas site: the JAX package's count is XLA's
+        # scatter-add.
         row("bin_count, median='binned''s count", "bin_count",
             "bin_count.cu",
             "stein_tpu/ops/median.py:265 (XLA scatter-add; no Pallas "
             "kernel)", bin_err, bin_ms, bin_plain,
-            D_b.element_size() * D_b.numel() + 2 * 4 * nb_b,
-            4 * D_b.numel(), bin_lib, ms_by=bin_by),
+            sum(t.element_size() * t.numel() for t in bin_first[:3])
+            + 2 * 4 * bin_first[-1], 7 * bin_first[0].numel(), bin_lib,
+            ms_by=bin_by),
         row("fused_warm_step_pblock", "B12", "stein_kernels.cu",
             "stein_tpu/ops/pallas_step.py:619", entry_errs["B12"],
             *row_ms["B12"][:2], 4 * 7 * nn_n * nn_p,

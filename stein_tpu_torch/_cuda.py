@@ -98,9 +98,10 @@ _SIGNATURES = {
         _I),
     "stein_logistic_grad_smem": ((_I, _I), _I),
     "stein_bin_count": (
-        (_P, ctypes.c_longlong, _I, _P, _P, _I,   # D, numel, dtype, lo,
-                                                  # width, n_bins
-         _P, _P, _P, _P),                         # acc, out, scratch, stream
+        (_P, _I, _I, _I, _P, _P, _I,        # G, rows, cols, dtype, norms,
+                                            # windows
+         _P, _P, _P, _P, _I,                # lo0, w0, lo1, w1, n_bins
+         _P, _P, _P, _P),                   # acc, out, scratch, stream
         _I),
     "stein_glm_grads": (
         (_P, _I, _I, _P, _P, _P, _P, _P),   # theta, n, p, A, b, grads, logp

@@ -5,9 +5,10 @@ the exact median of all n^2 entries of the pairwise squared-distance matrix
 D (stein/utilities/compute_median.py:4-16). ``subsampled_sq_dist_median``
 is the exact median of a strided row block; the sort-free searches count
 ``|{D <= t}|`` on such a block; ``binned_median`` refines a histogram of
-all n^2 entries, streamed in row blocks of D, level by level; its count
-is ``bin_count``, a kernel on a card (``csrc/bin_count.cu``) and
-``_bin_counts`` on the CPU.
+all n^2 entries, streamed in row blocks of D, level by level, both
+middle ranks' intervals in one sweep; its count is ``bin_count``, fed by
+each block's Gram: a kernel on a card (``csrc/bin_count.cu``, D formed in
+registers) and ``_gram_bin_counts`` on the CPU.
 
 Every search is the JAX search's scalar expression tree in f32 0-d tensors
 (integer counts, order-free min/max), so on the same D block it returns
@@ -73,12 +74,18 @@ def exact_median(D):
     return (lo + hi) * 0.5
 
 
+def _sq_dists_from_gram(G, rowsq_rows, colsq):
+    """D = (r + c^T) - 2 G of a Gram block G: the add, the product and the
+    subtraction, each rounded in G's dtype."""
+    return rowsq_rows[:, None] + colsq[None, :] - 2.0 * G
+
+
 def _row_block_sq_dists(theta_rows, theta, rowsq_rows, rowsq):
     """Squared distances between a row block and all particles, the
     reference's D = r + r^T - 2 T T^T (abstract_kernel.py:33-35), with an
     f32 Gram (the JAX HIGHEST precision; TF32 stays off)."""
-    return (rowsq_rows[:, None] + rowsq[None, :]
-            - 2.0 * torch.matmul(theta_rows, theta.T))
+    return _sq_dists_from_gram(torch.matmul(theta_rows, theta.T), rowsq_rows,
+                               rowsq)
 
 
 def _subsample_idx(n, max_rows, device=None):
@@ -158,57 +165,87 @@ def _bin_counts(D, lo, width, n_bins):
     return torch.bincount(idx, minlength=n_bins).to(torch.float32)
 
 
+def _gram_bin_counts(G, rowsq_rows, colsq, windows, n_bins):
+    """``bin_count``'s plain version: the f32 [len(windows), n_bins]
+    histograms (``_bin_counts``) of the plain D of the Gram block ``G``
+    (``_sq_dists_from_gram``), one a window (lo, width)."""
+    D = _sq_dists_from_gram(G, rowsq_rows, colsq)
+    return torch.stack([_bin_counts(D, lo, width, n_bins)
+                        for lo, width in windows])
+
+
 # bin_count's dtypes, by the kernel's code.
 _BIN_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
+# The largest Gram block the kernel takes (its indices are 32-bit).
+_BIN_MAX_ENTRIES = 2 ** 31 - 2 ** 24
 
 
 @functools.lru_cache(maxsize=None)
 def _bin_scratch(n_bins, device):
-    """bin_count's int32 scratch on ``device``: n_bins counts and the last
-    block's ticket, zero between launches (each launch leaves it so)."""
-    return torch.zeros(n_bins + 1, dtype=torch.int32, device=device)
+    """bin_count's int32 scratch on ``device``, two windows' n_bins counts,
+    zero between launches (each launch leaves it so)."""
+    return torch.zeros(2 * n_bins, dtype=torch.int32, device=device)
 
 
-def bin_count(D, lo, width, n_bins, out=None):
-    """``_bin_counts(D, lo, width, n_bins)``, added in place to the f32
-    [n_bins] histogram ``out`` when one is given (the sum of the blocks, in
-    their order), and returned. A CUDA tensor launches the bin-count kernel
-    (``csrc/bin_count.cu``: one read of D, ``lo`` and ``width`` read on the
-    card, the counts bitwise the plain version's); a CPU tensor runs the
-    plain version. D is f32, bf16 or f64, and the 0-d ``lo`` and ``width``
-    have its dtype. Launches on one stream run in order, as they share a
-    scratch."""
-    if D.device.type == "cpu":
-        counts = _bin_counts(D, lo, width, n_bins)
+def bin_count(G, rowsq_rows, colsq, windows, n_bins, out=None):
+    """The histograms of D = (rowsq_rows[:, None] + colsq[None, :]) - 2 G
+    over each window (lo, width) of ``windows`` (one or two), n_bins bins
+    each: ``_gram_bin_counts``, added in place to the f32 [len(windows),
+    n_bins] ``out`` when one is given (the sum of the blocks, in their
+    order), and returned. A CUDA tensor launches the bin-count kernel
+    (``csrc/bin_count.cu``: one read of G, D formed in registers and never
+    written, every window counted in the same pass, ``lo`` and ``width``
+    read on the card, the counts bitwise the plain version's); a CPU tensor
+    runs the plain version. G [rows, cols], the norms [rows] and [cols],
+    and the 0-d ``lo`` and ``width`` share one dtype: f32, bf16 or f64.
+    Launches on one stream run in order, as they share a scratch."""
+    if G.device.type == "cpu":
+        counts = _gram_bin_counts(G, rowsq_rows, colsq, windows, n_bins)
         return counts if out is None else out.add_(counts)
-    if D.device.type != "cuda":
-        raise ValueError(f"bin_count: no kernel for {D.device}")
-    if D.dtype not in _BIN_DTYPES or lo.dtype != D.dtype \
-            or width.dtype != D.dtype:
-        raise TypeError(f"bin_count takes D, lo and width of one dtype of "
-                        f"{list(_BIN_DTYPES)} (got {D.dtype}, {lo.dtype}, "
-                        f"{width.dtype})")
-    if lo.dim() or width.dim() or lo.device != D.device \
-            or width.device != D.device or n_bins < 1:
-        raise ValueError("bin_count: lo and width are 0-d tensors on D's "
-                         f"device, n_bins >= 1 (got n_bins={n_bins})")
+    if G.device.type != "cuda":
+        raise ValueError(f"bin_count: no kernel for {G.device}")
+    scalars = [t for window in windows for t in window]
+    tensors = [G, rowsq_rows, colsq] + scalars
+    if G.dtype not in _BIN_DTYPES or any(t.dtype != G.dtype
+                                         for t in tensors):
+        raise TypeError(f"bin_count takes G, its norms, lo and width of one "
+                        f"dtype of {list(_BIN_DTYPES)} (got "
+                        f"{[t.dtype for t in tensors]})")
+    n_win = len(windows)
+    if G.dim() != 2 or tuple(rowsq_rows.shape) != G.shape[:1] \
+            or tuple(colsq.shape) != G.shape[1:] \
+            or any(t.device != G.device for t in tensors) \
+            or any(t.dim() for t in scalars) or n_win not in (1, 2) \
+            or any(len(window) != 2 for window in windows) or n_bins < 1 \
+            or G.numel() > _BIN_MAX_ENTRIES:
+        raise ValueError(
+            "bin_count: G is a [rows, cols] block on a card (at most "
+            f"{_BIN_MAX_ENTRIES} entries), its norms [rows] and [cols], "
+            "one or two windows of 0-d (lo, width) on G's device, "
+            f"n_bins >= 1 (got G {tuple(G.shape)}, norms "
+            f"{tuple(rowsq_rows.shape)} and {tuple(colsq.shape)}, "
+            f"{n_win} windows, n_bins={n_bins})")
     if out is not None and (out.dtype != torch.float32
-                            or tuple(out.shape) != (n_bins,)
-                            or out.device != D.device
+                            or tuple(out.shape) != (n_win, n_bins)
+                            or out.device != G.device
                             or not out.is_contiguous()):
         raise ValueError(f"bin_count: out must be a contiguous f32 "
-                         f"[{n_bins}] tensor on {D.device}")
+                         f"[{n_win}, {n_bins}] tensor on {G.device}")
     from .. import _cuda
 
-    D = D.contiguous()
+    G, rowsq_rows, colsq = (t.contiguous() for t in (G, rowsq_rows, colsq))
     acc = out
     if out is None:
-        out = torch.empty(n_bins, dtype=torch.float32, device=D.device)
+        out = torch.empty(n_win, n_bins, dtype=torch.float32,
+                          device=G.device)
+    (lo0, w0), (lo1, w1) = windows[0], windows[-1]
     err = _cuda.library().lib.stein_bin_count(
-        D.data_ptr(), D.numel(), _BIN_DTYPES[D.dtype], lo.data_ptr(),
-        width.data_ptr(), n_bins, None if acc is None else acc.data_ptr(),
-        out.data_ptr(), _bin_scratch(n_bins, D.device).data_ptr(),
-        torch.cuda.current_stream(D.device).cuda_stream)
+        G.data_ptr(), G.shape[0], G.shape[1], _BIN_DTYPES[G.dtype],
+        rowsq_rows.data_ptr(), colsq.data_ptr(), n_win, lo0.data_ptr(),
+        w0.data_ptr(), lo1.data_ptr(), w1.data_ptr(), n_bins,
+        None if acc is None else acc.data_ptr(), out.data_ptr(),
+        _bin_scratch(n_bins, G.device).data_ptr(),
+        torch.cuda.current_stream(G.device).cuda_stream)
     _cuda.check(err, "bin_count launch")
     bin_count.launches += 1
     return out
@@ -217,46 +254,60 @@ def bin_count(D, lo, width, n_bins, out=None):
 bin_count.launches = 0
 
 
-def _block_histogram(theta, rowsq, theta_cols, colsq, lo, hi, n_bins,
+def _bin_windows(windows, n_bins):
+    """The (lo, width) of each interval (lo, hi): width = (hi - lo) /
+    n_bins."""
+    return [(lo, (hi - lo) / n_bins) for lo, hi in windows]
+
+
+def _block_histogram(theta, rowsq, theta_cols, colsq, windows, n_bins,
                      block_rows):
-    """Histogram of the squared distances between ``theta``'s rows and
-    ``theta_cols``'s rows over [lo, hi], streaming row blocks of D (never
-    materialised): per-block exact counts, summed across blocks in f32 in
-    block order, the remainder rows (n not divisible by block_rows) last,
-    as the JAX scan sums them (``bin_count``, one launch a block on a
-    card). A direct f32 count would saturate once a bin passes 2^24."""
-    width = (hi - lo) / n_bins
+    """The [len(windows), n_bins] histograms of the squared distances
+    between ``theta``'s rows and ``theta_cols``'s rows over each interval
+    (lo, hi) of ``windows`` (one or two), streaming row blocks of D (never
+    materialised): a block's Gram, then its exact counts in every window
+    in one ``bin_count`` (one launch a block on a card), summed across
+    blocks in f32 in block order, the remainder rows (n not divisible by
+    block_rows) last, as the JAX scan sums them. A direct f32 count would
+    saturate once a bin passes 2^24."""
+    wins = _bin_windows(windows, n_bins)
     counts = None
     for start in range(0, theta.shape[0], block_rows):
-        D = _row_block_sq_dists(theta[start:start + block_rows], theta_cols,
-                                rowsq[start:start + block_rows], colsq)
-        counts = bin_count(D, lo, width, n_bins, counts)
+        G = torch.matmul(theta[start:start + block_rows], theta_cols.T)
+        counts = bin_count(G, rowsq[start:start + block_rows], colsq, wins,
+                           n_bins, counts)
     return counts
 
 
 def _refine_levels(hist, lo0, hi0, total, n_bins, n_levels):
     """The two middle ranks' bins refined ``n_levels`` times: each level
     locates the bin holding rank k (searchsorted of the f32 cumulative
-    counts, side='left') and searches inside it. ``hist(lo, hi)`` is the
-    (global) f32 histogram of [lo, hi]. Returns the midpoint of the two
+    counts, side='left') and searches inside it. ``hist(windows)`` is the
+    (global) f32 [len(windows), n_bins] histogram of each interval (lo,
+    hi) of ``windows``. Both ranks start from [lo0, hi0], so the first
+    level's one histogram serves both; each later level counts both ranks'
+    intervals in one sweep. The bins are those of refining each rank on
+    its own (the JAX package's order). Returns the midpoint of the two
     final bin centres (np.median's midpoint for an even total)."""
     k_lo = (total + 1) // 2
     k_hi = total // 2 + 1
 
-    def refine(lo, hi, k):
-        cum = torch.cumsum(hist(lo, hi), dim=0)
+    def locate(counts, lo, hi, k):
+        cum = torch.cumsum(counts, dim=0)
         kf = torch.full((1,), float(k), dtype=torch.float32,
                         device=cum.device)
         b = torch.searchsorted(cum, kf, side="left")[0].to(lo.dtype)
         width = (hi - lo) / n_bins
         return lo + b * width, lo + (b + 1.0) * width
 
-    lo_a, hi_a = lo0, hi0
-    lo_b, hi_b = lo0, hi0
-    for _ in range(n_levels):
-        lo_a, hi_a = refine(lo_a, hi_a, k_lo)
-        lo_b, hi_b = refine(lo_b, hi_b, k_hi)
-    return 0.5 * ((lo_a + hi_a) * 0.5 + (lo_b + hi_b) * 0.5)
+    a = b = (lo0, hi0)
+    for level in range(n_levels):
+        if level == 0:
+            c_a = c_b = hist([a])[0]
+        else:
+            c_a, c_b = hist([a, b])
+        a, b = locate(c_a, *a, k_lo), locate(c_b, *b, k_hi)
+    return 0.5 * ((a[0] + a[1]) * 0.5 + (b[0] + b[1]) * 0.5)
 
 
 def _binned_range(max_rsq, dtype):
@@ -286,8 +337,8 @@ def binned_median(theta, n_bins=4096, n_levels=2, block_rows=256,
         max_rsq = coll.pmax(max_rsq, mesh)
     lo0, hi0 = _binned_range(max_rsq, theta.dtype)
 
-    def hist(lo, hi):
-        counts = _block_histogram(theta, rowsq, theta_cols, colsq, lo, hi,
+    def hist(windows):
+        counts = _block_histogram(theta, rowsq, theta_cols, colsq, windows,
                                   n_bins, block_rows)
         return counts if mesh is None else coll.psum(counts, mesh)
 
@@ -594,20 +645,21 @@ def ring_binned_median(theta_loc, mesh, n_bins=2048, n_levels=2):
     """binned_median for the ring step: each rank histograms its local rows
     against every column block as the blocks circulate around the ring
     (``coll.ppermute_ring``), and the per-rotation counts, summed in f32,
-    are psum'd over the mesh for the full n^2 coverage."""
+    are psum'd over the mesh for the full n^2 coverage. A level's windows
+    share one circulation and one psum."""
     n_loc = theta_loc.shape[0]
     n_total = n_loc * mesh.size
     rsq_loc = torch.sum(theta_loc * theta_loc, dim=1)
     lo0, hi0 = _binned_range(coll.pmax(torch.max(rsq_loc), mesh),
                              theta_loc.dtype)
 
-    def hist(lo, hi):
-        width = (hi - lo) / n_bins
+    def hist(windows):
+        wins = _bin_windows(windows, n_bins)
         counts = None
         blk, blk_rsq = theta_loc, rsq_loc
         for r in range(mesh.size):
-            D = _row_block_sq_dists(theta_loc, blk, rsq_loc, blk_rsq)
-            counts = bin_count(D, lo, width, n_bins, counts)
+            counts = bin_count(torch.matmul(theta_loc, blk.T), rsq_loc,
+                               blk_rsq, wins, n_bins, counts)
             if r + 1 < mesh.size:
                 blk = coll.ppermute_ring(blk, mesh)
                 blk_rsq = coll.ppermute_ring(blk_rsq, mesh)

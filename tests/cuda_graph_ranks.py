@@ -459,9 +459,10 @@ def b3_case(rows, cols, grads):
 def binned_kernels(blk, mesh, cfg, gen):
     """(iv) of a binned path: B3's tile on this rank's rows against the
     gathered columns (gathered) or against its own block (a ring
-    rotation's tile), and the bin count of this rank's D block (its rows
-    against every column, or against its own block) at the first level's
-    interval and at a second level's, bitwise its plain version and
+    rotation's tile), and the bin count of this rank's Gram block (its
+    rows against every column, or against its own block) at the first
+    level's interval and at both middle ranks' second levels in one
+    launch, bitwise its plain version (itself the plain D's count) and
     repeat bitwise. Returns (ok, the line)."""
     from stein_tpu_torch.ops import median
 
@@ -470,19 +471,25 @@ def binned_kernels(blk, mesh, cfg, gen):
     grads = torch.randn(cols.shape, generator=gen, device=blk.device)
     ok, err = b3_case(blk, cols, grads)
     rsq, csq = torch.sum(blk * blk, dim=1), torch.sum(cols * cols, dim=1)
+    G = torch.matmul(blk, cols.T)
     D = median._row_block_sq_dists(blk, cols, rsq, csq)
-    n_bins = 2048 if ring else 4096
+    n_bins = 4096   # SVGDSampler's binned_bins, on both paths
     lo, hi = median._binned_range(coll.pmax(torch.max(rsq), mesh), blk.dtype)
     w = (hi - lo) / n_bins
     b = torch.floor((median.exact_median(D) - lo) / w)
-    for lo_, w_ in ((lo, w), (lo + b * w, w / n_bins)):
-        want = median._bin_counts(D, lo_, w_, n_bins)
-        got = median.bin_count(D, lo_, w_, n_bins)
-        again = median.bin_count(D, lo_, w_, n_bins)
-        ok &= torch.equal(got, want) and torch.equal(again, got)
+    for wins in ([(lo, w)], [(lo + (b + i) * w, w / n_bins)
+                             for i in (0, 1)]):
+        want = median._gram_bin_counts(G, rsq, csq, wins, n_bins)
+        plain_d = torch.stack([median._bin_counts(D, lo_, w_, n_bins)
+                               for lo_, w_ in wins])
+        got = median.bin_count(G, rsq, csq, wins, n_bins)
+        again = median.bin_count(G, rsq, csq, wins, n_bins)
+        ok &= (torch.equal(want, plain_d) and torch.equal(got, want)
+               and torch.equal(again, got))
     return ok, (f"B3 [{blk.shape[0]}, {cols.shape[0]}] p={blk.shape[1]}: "
-                f"normalised error {err:.3e}; bin_count [{D.shape[0]}, "
-                f"{D.shape[1]}] at {n_bins} bins, two levels, bitwise")
+                f"normalised error {err:.3e}; bin_count [{G.shape[0]}, "
+                f"{G.shape[1]}] at {n_bins} bins, the first level and both "
+                f"ranks' second levels, bitwise")
 
 
 def kernels_at_rank_shapes(label, s, model, batch, cfg, world):

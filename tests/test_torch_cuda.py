@@ -1144,90 +1144,144 @@ def test_mesh_graphs_equal_the_eager_loop(dev, path):
 
 
 def _bin_count_case(kind, dtype, n_bins, dev):
-    """(D, lo, width) of the bin-count kernel's shapes: a [256, 10240]
-    block of the large-n path at the first level's interval and at a
-    second level's (one first-level bin about the median: nearly every
-    entry in an end bin), the n=10000 path's remainder block [16, 10000],
-    the ring's [250, 1000], and a lattice on the bin edges, below lo and
-    past the last edge."""
+    """(G, r, c, two windows) of the bin-count kernel's shapes, D = (r +
+    c^T) - 2 G: a [256, 10240] block of the large-n path at the first
+    level's interval and at a second level's (one first-level bin about
+    the median: nearly every entry in an end bin), the n=10000 path's
+    remainder block [16, 10000], and the mesh paths' blocks at n=1000: the
+    one-process gathered step's remainder [232, 1000], a gathered rank's
+    [250, 1000] on 4 ranks, the ring's rotation [1000, 1000] on one rank
+    and [250, 250] on 4 (the second window a second level's); the two
+    middle ranks' second levels ("second"); and "edges": G and r zero but
+    for entries whose 2 g overflows (and a NaN) in the last row, c a
+    lattice on the bin edges, below lo and past the last edge, NaN and
+    infinities, over windows (-2, 0.5) and (-1.75, 0.5)."""
     from stein_tpu_torch.ops import median
 
     rng = np.random.default_rng(n_bins)
-    if kind == "lattice":
+    if kind == "edges":
         k = np.arange(-5, n_bins + 6, dtype=np.float64)
-        D = np.concatenate([-2.0 + 0.5 * k, -2.0 + 0.5 * k + 0.25,
-                            [-1e3, -2.5, 1e6]])
-        D = torch.tensor(np.tile(D, (3, 1)), dtype=dtype, device=dev)
-        return (D, torch.tensor(-2.0, dtype=dtype, device=dev),
-                torch.tensor(0.5, dtype=dtype, device=dev))
-    n, rows = {"ring": (1000, 250), "remainder": (10000, 16)}.get(
-        kind, (10240, 256))
+        c = np.concatenate([-2.0 + 0.5 * k, -2.0 + 0.5 * k + 0.25,
+                            [-1e3, -2.5, 1e6, np.nan, -np.inf, np.inf]])
+        c = torch.tensor(c, dtype=dtype, device=dev)
+        G = torch.zeros(3, c.numel(), dtype=dtype, device=dev)
+        G[2, :8] = 3e38
+        G[2, 8] = float("nan")
+        r = torch.zeros(3, dtype=dtype, device=dev)
+        return G, r, c, [(torch.tensor(lo, dtype=dtype, device=dev),
+                          torch.tensor(0.5, dtype=dtype, device=dev))
+                         for lo in (-2.0, -1.75)]
+    n, rows = {"gather4": (1000, 250), "ring4": (250, 250),
+               "mesh_remainder": (1000, 232), "ring1": (1000, 1000),
+               "remainder": (10000, 16)}.get(kind, (10240, 256))
     theta = torch.tensor(rng.normal(size=(n, 64)) * 0.01, dtype=dtype,
                          device=dev)
     rsq = torch.sum(theta * theta, dim=1)
-    D = median._row_block_sq_dists(theta[-rows:], theta, rsq[-rows:], rsq)
+    blk, r = theta[-rows:], rsq[-rows:]
+    D = median._row_block_sq_dists(blk, theta, r, rsq)
     lo, hi = median._binned_range(torch.max(rsq), dtype)
     width = (hi - lo) / n_bins
-    if kind == "second":
-        b = torch.floor((median.exact_median(D.double()).to(dtype) - lo)
-                        / width)
-        lo = lo + b * width
-        width = width / n_bins
-    return D, lo, width
+    b = torch.floor((median.exact_median(D.double()).to(dtype) - lo)
+                    / width)
+    second = [(lo + (b + i) * width, width / n_bins) for i in (0, 1)]
+    wins = second if kind == "second" else [(lo, width), second[0]]
+    return torch.matmul(blk, theta.T), r, rsq, wins
 
 
+@pytest.mark.parametrize("n_windows", [1, 2])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float64])
 @pytest.mark.parametrize("n_bins", [4096, 2048, 1])
-@pytest.mark.parametrize("kind", ["first", "second", "remainder", "ring",
-                                  "lattice"])
-def test_bin_count_against_plain(dev, kind, n_bins, dtype):
+@pytest.mark.parametrize("kind", ["first", "second", "remainder",
+                                  "mesh_remainder", "gather4", "ring1",
+                                  "ring4", "edges"])
+def test_bin_count_against_plain(dev, kind, n_bins, dtype, n_windows):
     """The bin-count kernel's counts bitwise the plain version's
-    (``_bin_counts``), alone and added to a running histogram; two calls
-    bitwise; one launch each."""
+    (``_gram_bin_counts``, itself ``_bin_counts`` of the plain D a window),
+    alone and added to a running histogram; two calls bitwise; one launch
+    each."""
     from stein_tpu_torch.ops import median
 
-    D, lo, width = _bin_count_case(kind, dtype, n_bins, dev)
-    want = median._bin_counts(D, lo, width, n_bins)
+    G, r, c, wins = _bin_count_case(kind, dtype, n_bins, dev)
+    wins = wins[:n_windows]
+    want = median._gram_bin_counts(G, r, c, wins, n_bins)
+    D = median._sq_dists_from_gram(G, r, c)
+    assert torch.equal(want, torch.stack(
+        [median._bin_counts(D, lo, w, n_bins) for lo, w in wins]))
     before = median.bin_count.launches
-    got = median.bin_count(D, lo, width, n_bins)
-    again = median.bin_count(D, lo, width, n_bins)
-    acc = torch.arange(n_bins, dtype=torch.float32, device=dev) * 2.0 ** 20
-    summed = median.bin_count(D, lo, width, n_bins, acc.clone())
+    got = median.bin_count(G, r, c, wins, n_bins)
+    again = median.bin_count(G, r, c, wins, n_bins)
+    acc = torch.arange(n_windows * n_bins, dtype=torch.float32,
+                       device=dev).reshape(n_windows, n_bins) * 2.0 ** 20
+    summed = median.bin_count(G, r, c, wins, n_bins, acc.clone())
     torch.cuda.synchronize()
     assert median.bin_count.launches - before == 3
     assert torch.equal(got, want) and torch.equal(again, got)
     assert torch.equal(summed, acc + want)
-    assert float(got.sum()) == D.numel()
+    assert (got.sum(dim=1) == G.numel()).all()
 
 
-@pytest.mark.parametrize("kind", ["first", "lattice"])
-def test_bin_count_past_shared_memory(dev, kind):
-    """60000 bins (past a block's 227 KB of shared memory): the kernel
-    counts in the global scratch, bitwise the plain version's."""
+@pytest.mark.parametrize("n_windows,n_bins", [(1, 60000), (2, 60000),
+                                              (2, 30000)])
+@pytest.mark.parametrize("kind", ["first", "edges"])
+def test_bin_count_past_shared_memory(dev, kind, n_windows, n_bins):
+    """Past a block's 227 KB of shared memory (60000 bins a window, or two
+    windows of 30000): the kernel counts in the global scratch, bitwise
+    the plain version's."""
     from stein_tpu_torch.ops import median
 
-    D, lo, width = _bin_count_case(kind, torch.float32, 60000, dev)
-    want = median._bin_counts(D, lo, width, 60000)
-    got = median.bin_count(D, lo, width, 60000)
+    G, r, c, wins = _bin_count_case(kind, torch.float32, n_bins, dev)
+    wins = wins[:n_windows]
+    want = median._gram_bin_counts(G, r, c, wins, n_bins)
+    got = median.bin_count(G, r, c, wins, n_bins)
     torch.cuda.synchronize()
-    assert torch.equal(got, want) and float(got.sum()) == D.numel()
+    assert torch.equal(got, want) and (got.sum(dim=1) == G.numel()).all()
 
 
 def test_bin_count_guards(dev):
     """The wrapper refuses what the kernel does not take."""
     from stein_tpu_torch.ops import median
 
-    D = torch.ones(4, 4, device=dev)
+    G = torch.ones(4, 4, device=dev)
+    r = torch.ones(4, device=dev)
     lo = torch.zeros((), device=dev)
+    win = [(lo, lo)]
     with pytest.raises(TypeError):
-        median.bin_count(D.half(), lo.half(), lo.half(), 8)
+        median.bin_count(G.half(), r.half(), r.half(),
+                         [(lo.half(), lo.half())], 8)
     with pytest.raises(TypeError):
-        median.bin_count(D, lo.double(), lo, 8)
+        median.bin_count(G, r, r, [(lo.double(), lo)], 8)
+    with pytest.raises(TypeError):
+        median.bin_count(G, r.double(), r, win, 8)
     with pytest.raises(ValueError):
-        median.bin_count(D, lo, lo, 0)
+        median.bin_count(G, r, r, win, 0)
     with pytest.raises(ValueError):
-        median.bin_count(D, lo, lo, 8, torch.zeros(7, device=dev))
+        median.bin_count(G, r, r, win * 3, 8)
+    with pytest.raises(ValueError):
+        median.bin_count(G, r[:3], r, win, 8)
+    with pytest.raises(ValueError):
+        median.bin_count(G, r, r, win, 8, torch.zeros(1, 7, device=dev))
+
+
+@pytest.mark.parametrize("n_levels", [1, 2, 3])
+@pytest.mark.parametrize("n", [10240, 10000])
+def test_binned_median_equals_the_per_window_sweep(dev, n, n_levels):
+    """large_particle.py's binned median (n=10240, p=64; and n=10000, a
+    remainder block) with the kernel's shared sweeps bitwise the per-window
+    sweep's with the plain count (binned_sweep.reference_binned_median),
+    with one launch a row block and level."""
+    from binned_sweep import reference_binned_median
+    from stein_tpu_torch.ops import median
+
+    rng = np.random.default_rng(3)
+    theta = torch.tensor(rng.normal(size=(n, 64)) * 0.01,
+                         dtype=torch.float32, device=dev)
+    before = median.bin_count.launches
+    got = median.binned_median(theta, n_levels=n_levels)
+    launches = median.bin_count.launches - before
+    want = reference_binned_median(theta, n_levels=n_levels)
+    assert torch.equal(got, want), (got.item(), want.item())
+    assert launches == -(-n // 256) * n_levels
 
 
 def test_mesh_graphs_across_cards(dev):

@@ -344,17 +344,18 @@ def test_binned_graph_counts(entry, monkeypatch):
     graph, each step's histogram counts (the plain count on the CPU,
     counted in the registry as a kernel wrapper's launches are) replayed
     as many times as the eager loop runs them: three row blocks (10, 10
-    and the remainder 4), two levels, two middle ranks a step."""
+    and the remainder 4) and two levels a step, both middle ranks' windows
+    in one count a block."""
     from stein_tpu_torch.ops import median
 
     class Counts:   # the counter of the plain count's calls
         launches = 0
-    plain = median._bin_counts
+    plain = median._gram_bin_counts
 
     def counting(*args):
         Counts.launches += 1
         return plain(*args)
-    monkeypatch.setattr(median, "_bin_counts", counting)
+    monkeypatch.setattr(median, "_gram_bin_counts", counting)
     registry = graphs.launch_counters
     monkeypatch.setattr(graphs, "launch_counters", lambda: {
         **registry(), "bin_counts": (Counts, "launches")})
@@ -366,7 +367,7 @@ def test_binned_graph_counts(entry, monkeypatch):
         out.append((s, aux, Counts.launches))
     (sg, ag, ng), (se, ae, ne) = out
     _assert_same((sg, ag), (se, ae))
-    assert ng == ne == k * 3 * 2 * 2
+    assert ng == ne == k * 3 * 2
     assert sorted(steps for _, steps in sg._graphs.graphs) == [1, C]
     assert sg._graphs.captures == 2
 

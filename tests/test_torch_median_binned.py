@@ -28,6 +28,7 @@ from jax.sharding import PartitionSpec as P
 import stein_tpu as sj
 import stein_tpu_torch as st
 import torch_mesh_runner as R
+from binned_sweep import reference_binned_median
 from stein_tpu.kernels import InverseMultiquadricKernel as JIMQ
 from stein_tpu.models import LinearRegressionModel as JLR
 from stein_tpu.ops import median as jm
@@ -125,22 +126,30 @@ BIN_DTYPES = [(torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16),
               (torch.float64, jnp.float64)]
 
 
+def _lattice(n_bins):
+    """A D row on the bin edges of (lo, width) = (-2, 0.5), between them,
+    below lo and past the last edge."""
+    k = np.arange(-5, n_bins + 6, dtype=np.float64)
+    return np.concatenate([-2.0 + 0.5 * k, -2.0 + 0.5 * k + 0.25,
+                           [-1e3, -2.5, 1e6]])
+
+
 def _bin_case(kind, n_bins, tdt):
-    """(D, lo, width) in ``tdt`` for the count's edge inputs: a D block at
-    the first level's interval [lo0, hi0] (every entry inside); at a
-    second level's interval, one first-level bin about the median (nearly
-    every entry in an end bin); a lattice on the bin edges, below lo and
-    past the last edge."""
+    """(G, r, c, lo, width) in ``tdt`` for the count's edge inputs, D =
+    (r + c^T) - 2 G: a Gram block at the first level's interval [lo0, hi0]
+    (every entry inside); at a second level's interval, one first-level
+    bin about the median (nearly every entry in an end bin); a lattice on
+    the bin edges, below lo and past the last edge (G and r zero, so D is
+    the lattice exactly)."""
     rng = np.random.default_rng(n_bins)
     if kind == "lattice":
-        k = np.arange(-5, n_bins + 6, dtype=np.float64)
-        D = np.concatenate([-2.0 + 0.5 * k, -2.0 + 0.5 * k + 0.25,
-                            [-1e3, -2.5, 1e6]])
-        D = torch.from_numpy(D.reshape(1, -1)).to(tdt)
-        return (D, torch.tensor(-2.0, dtype=tdt),
+        c = torch.from_numpy(_lattice(n_bins)).to(tdt)
+        return (torch.zeros(1, c.numel(), dtype=tdt),
+                torch.zeros(1, dtype=tdt), c, torch.tensor(-2.0, dtype=tdt),
                 torch.tensor(0.5, dtype=tdt))
     theta = torch.from_numpy(rng.normal(size=(100, 5))).to(tdt)
     rsq = torch.sum(theta * theta, dim=1)
+    G = torch.matmul(theta[:37], theta.T)
     D = tm._row_block_sq_dists(theta[:37], theta, rsq[:37], rsq)
     lo, hi = tm._binned_range(torch.max(rsq), tdt)
     width = (hi - lo) / n_bins
@@ -148,21 +157,23 @@ def _bin_case(kind, n_bins, tdt):
         b = torch.floor((tm.exact_median(D.double()).to(tdt) - lo) / width)
         lo = lo + b * width
         width = width / n_bins
-    return D, lo, width
+    return G, rsq[:37], rsq, lo, width
 
 
 @pytest.mark.parametrize("tdt,jdt", BIN_DTYPES, ids=["f32", "bf16", "f64"])
 @pytest.mark.parametrize("n_bins", [1, 2048, 4096, 4098])
 @pytest.mark.parametrize("kind", ["first", "second", "lattice"])
 def test_bin_counts_match_jax_formula(kind, n_bins, tdt, jdt):
-    """The count (``_bin_counts``, the bin-count kernel's plain version)
-    bitwise equal to JAX's block count, clip(int32((D - lo) / width), 0,
-    n_bins - 1) then a scatter-add (stein_tpu/ops/median.py:262-266), on
-    the same D, lo and width in each dtype. n_bins 4098: the last bin's
-    edge 4097 is no bf16 value, and the count compares exactly (torch
-    alone would round it to 4096). ``bin_count`` adds the counts to a
-    running histogram as the blocks' sum does."""
-    D, lo, width = _bin_case(kind, n_bins, tdt)
+    """The count (``_bin_counts``, the bin-count kernel's plain version's
+    count of the plain D) bitwise equal to JAX's block count,
+    clip(int32((D - lo) / width), 0, n_bins - 1) then a scatter-add
+    (stein_tpu/ops/median.py:262-266), on the same D, lo and width in each
+    dtype. n_bins 4098: the last bin's edge 4097 is no bf16 value, and the
+    count compares exactly (torch alone would round it to 4096).
+    ``bin_count`` of the same Gram block adds the counts to a running
+    histogram as the blocks' sum does."""
+    G, r, c, lo, width = _bin_case(kind, n_bins, tdt)
+    D = tm._sq_dists_from_gram(G, r, c)
 
     def jax_counts(D, lo, width):
         b = jnp.clip(((D - lo) / width).astype(jnp.int32), 0, n_bins - 1)
@@ -176,10 +187,93 @@ def test_bin_counts_match_jax_formula(kind, n_bins, tdt, jdt):
     assert float(got.sum()) == D.numel()
     if kind == "second":
         assert float(got[0] + got[-1]) > 0.9 * D.numel()
-    acc = torch.arange(n_bins, dtype=torch.float32) * 2.0 ** 20
+    acc = torch.arange(n_bins, dtype=torch.float32).reshape(1, -1) * 2.0 ** 20
     np.testing.assert_array_equal(
-        tm.bin_count(D, lo, width, n_bins, acc.clone()).numpy(),
+        tm.bin_count(G, r, c, [(lo, width)], n_bins, acc.clone()).numpy(),
         (acc + got).numpy())
+
+
+def _gram_case(kind, n_bins, tdt):
+    """(G, r, c, D, two windows) of the Gram-fed count's cases, D formed
+    apart from G's count: _row_block_sq_dists of a block of particles (a
+    [37, 100] block; the n=10000 path's remainder block [16, 10000] at
+    p=64), with the first level's interval and a second level's about the
+    median ("first", "remainder"), or the second levels about the two
+    middle ranks' neighbouring first-level bins ("second"); "edges": G and
+    r zero but for entries whose 2 g overflows to inf (and one NaN) in
+    the last row, c a lattice on the bin edges (q at n_bins - 1 among
+    them), NaN, -inf and inf, over windows (-2, 0.5) and (-1.75, 0.5)."""
+    if kind == "edges":
+        c = torch.from_numpy(np.concatenate(
+            [_lattice(n_bins), [np.nan, -np.inf, np.inf]])).to(tdt)
+        G = torch.zeros(2, c.numel(), dtype=tdt)
+        G[1, :8] = 3e38
+        G[1, 8] = float("nan")
+        r = torch.zeros(2, dtype=tdt)
+        D = (r[:, None] + c[None, :]) - 2.0 * G
+        wins = [(torch.tensor(lo, dtype=tdt), torch.tensor(0.5, dtype=tdt))
+                for lo in (-2.0, -1.75)]
+        return G, r, c, D, wins
+    n, p, rows = (10000, 64, 16) if kind == "remainder" else (100, 5, 37)
+    rng = np.random.default_rng(n_bins + n)
+    theta = torch.from_numpy(rng.normal(size=(n, p)) * (
+        0.01 if kind == "remainder" else 1.0)).to(tdt)
+    rsq = torch.sum(theta * theta, dim=1)
+    blk, r = theta[-rows:], rsq[-rows:]
+    D = tm._row_block_sq_dists(blk, theta, r, rsq)
+    lo, hi = tm._binned_range(torch.max(rsq), tdt)
+    width = (hi - lo) / n_bins
+    b = torch.floor((tm.exact_median(D.double()).to(tdt) - lo) / width)
+    second = [(lo + (b + i) * width, width / n_bins) for i in (0, 1)]
+    wins = second if kind == "second" else [(lo, width), second[0]]
+    return torch.matmul(blk, theta.T), r, rsq, D, wins
+
+
+@pytest.mark.parametrize("n_windows", [1, 2])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16,
+                                 torch.float64], ids=["f32", "bf16", "f64"])
+@pytest.mark.parametrize("n_bins", [1, 2048, 4096])
+@pytest.mark.parametrize("kind", ["first", "second", "remainder", "edges"])
+def test_gram_bin_counts_equal_the_plain_d_count(kind, n_bins, tdt,
+                                                 n_windows):
+    """The Gram-fed count's plain version (``_gram_bin_counts``, and
+    ``bin_count`` on the CPU) bitwise ``_bin_counts`` of the D that
+    ``_row_block_sq_dists`` forms, a histogram a window, alone and added
+    to a running [windows, n_bins] histogram."""
+    G, r, c, D, wins = _gram_case(kind, n_bins, tdt)
+    wins = wins[:n_windows]
+    want = torch.stack([tm._bin_counts(D, lo, w, n_bins) for lo, w in wins])
+    got = tm._gram_bin_counts(G, r, c, wins, n_bins)
+    assert got.dtype == torch.float32 and got.shape == (n_windows, n_bins)
+    assert torch.equal(got, want)
+    assert torch.equal(tm.bin_count(G, r, c, wins, n_bins), want)
+    assert (got.sum(dim=1) == D.numel()).all()
+    acc = torch.arange(n_windows * n_bins, dtype=torch.float32).reshape(
+        n_windows, n_bins) * 2.0 ** 20
+    assert torch.equal(tm.bin_count(G, r, c, wins, n_bins, acc.clone()),
+                       acc + want)
+
+
+@pytest.mark.parametrize("n_levels", [1, 2, 3])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float64], ids=["f32", "bf16", "f64"])
+@pytest.mark.parametrize("n,p,n_bins,block_rows", [
+    (300, 5, 1024, 64),     # a remainder block
+    (96, 2, 2048, 1000),    # one block
+    (513, 4, 300, 7),       # n_bins not a power of two
+])
+def test_binned_median_equals_the_per_window_sweep(n, p, n_bins, block_rows,
+                                                   dt, n_levels):
+    """binned_median's shared sweeps (one histogram at the first level,
+    both middle ranks' windows in one sweep after it) give bitwise the
+    median of refining each rank on its own, one sweep a rank and level
+    (binned_sweep.reference_binned_median)."""
+    theta = torch.from_numpy(_theta(n, p, n + p, np.float64)).to(dt)
+    kw = dict(n_bins=n_bins, n_levels=n_levels, block_rows=block_rows)
+    got = tm.binned_median(theta, **kw)
+    want = reference_binned_median(theta, **kw)
+    assert got.dtype == want.dtype == dt
+    assert torch.equal(got, want), (float(got), float(want))
 
 
 @functools.lru_cache(maxsize=None)
@@ -199,7 +293,7 @@ def _jax_mesh_medians(world):
     out = {}
     for name, (dt, jdt) in zip(("f32", "f64"), DTYPES):
         theta = jnp.asarray(R.medians_theta(dt), jdt)
-        for levels in (2, 3):
+        for levels in (1, 2, 3):
             f = jax.shard_map(
                 lambda t, levels=levels: jm.binned_median(
                     t, n_bins=512, n_levels=levels, block_rows=5,
@@ -209,11 +303,12 @@ def _jax_mesh_medians(world):
                 mesh=mesh, in_specs=P("particles"), out_specs=P(),
                 check_vma=False)
             out[f"binned_{name}_{levels}"] = np.asarray(jax.jit(f)(theta))
-        f = jax.shard_map(
-            lambda t: jm.ring_binned_median(t, "particles", n_bins=512),
-            mesh=mesh, in_specs=P("particles"), out_specs=P(),
-            check_vma=False)
-        out[f"ring_{name}"] = np.asarray(jax.jit(f)(theta))
+            f = jax.shard_map(
+                lambda t, levels=levels: jm.ring_binned_median(
+                    t, "particles", n_bins=512, n_levels=levels),
+                mesh=mesh, in_specs=P("particles"), out_specs=P(),
+                check_vma=False)
+            out[f"ring_{name}_{levels}"] = np.asarray(jax.jit(f)(theta))
     return out
 
 
@@ -221,15 +316,30 @@ def _jax_mesh_medians(world):
 def test_mesh_binned_medians_match_jax(world):
     """binned_median with a mesh (local rows against the gathered columns,
     histograms psum'd) and ring_binned_median (the column blocks around
-    the ring) in 2 and 4 gloo processes, against the JAX functions under
-    shard_map on as many fake devices: the same bins (64^2 entries, exact
-    counts)."""
+    the ring) in 2 and 4 gloo processes, at n_levels 1, 2 and 3, against
+    the JAX functions under shard_map on as many fake devices: the same
+    bins (64^2 entries, exact counts)."""
     got, want = _port_mesh_medians(world), _jax_mesh_medians(world)
-    assert set(got) == set(want)
+    assert {k for k in got if not k.startswith("ref_")} == set(want)
     for key in want:
-        levels = 3 if key.endswith("_3") else 2
+        levels = int(key.rsplit("_", 1)[1])
         width = _final_width(R.medians_theta(np.float64), 512, levels)
         assert abs(float(got[key]) - float(want[key])) < width / 4, key
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_mesh_binned_medians_equal_the_per_window_sweep(world):
+    """On 2 and 4 gloo processes, binned_median and ring_binned_median
+    (one psum of both windows' histograms a level; on the ring one
+    circulation a level) give bitwise the medians of the per-window sweep
+    (a circulation and a psum a rank and level), f32 and f64, n_levels 1,
+    2 and 3."""
+    got = _port_mesh_medians(world)
+    keys = [k for k in got if not k.startswith("ref_")]
+    assert len(keys) == 12
+    for key in keys:
+        assert got[key].dtype == got["ref_" + key].dtype, key
+        assert np.array_equal(got[key], got["ref_" + key]), key
 
 
 def _problem(n=48, p=6, seed=0):

@@ -36,6 +36,10 @@ from stein_tpu_torch.models import (  # noqa: E402
 )
 from stein_tpu_torch.parallel import collectives as coll  # noqa: E402
 from stein_tpu_torch.parallel import mesh_2d, particle_mesh  # noqa: E402
+from binned_sweep import (  # noqa: E402
+    reference_binned_median,
+    reference_ring_binned_median,
+)
 
 _FS = dict(median="bisect", warm_median=True, warm_passes=8,
            step_impl="fused_shard")
@@ -338,7 +342,8 @@ def medians_theta(dtype):
 def median_functions(mesh):
     """binned_median (the all-gather step's: local rows against the
     gathered columns) and ring_binned_median on this rank's block, f32 and
-    f64, at n_levels 2 and 3 (ring: 2, its only setting in the step)."""
+    f64, at n_levels 1, 2 and 3; under "ref_" the per-window sweeps'
+    (reference_binned_median, reference_ring_binned_median)."""
     from stein_tpu_torch.ops.median import binned_median, ring_binned_median
 
     out = {}
@@ -346,12 +351,17 @@ def median_functions(mesh):
         theta = torch.from_numpy(medians_theta(dt))
         n_loc = theta.shape[0] // mesh.size
         loc = theta[mesh.rank * n_loc:(mesh.rank + 1) * n_loc]
-        for levels in (2, 3):
+        for levels in (1, 2, 3):
+            kw = dict(n_bins=512, n_levels=levels)
+            gathered = dict(kw, block_rows=5, mesh=mesh, theta_cols=theta)
             out[f"binned_{name}_{levels}"] = binned_median(
-                loc, n_bins=512, n_levels=levels, block_rows=5, mesh=mesh,
-                theta_cols=theta).numpy()
-        out[f"ring_{name}"] = ring_binned_median(loc, mesh,
-                                                 n_bins=512).numpy()
+                loc, **gathered).numpy()
+            out[f"ref_binned_{name}_{levels}"] = reference_binned_median(
+                loc, **gathered).numpy()
+            out[f"ring_{name}_{levels}"] = ring_binned_median(
+                loc, mesh, **kw).numpy()
+            out[f"ref_ring_{name}_{levels}"] = reference_ring_binned_median(
+                loc, mesh, **kw).numpy()
     return out
 
 
