@@ -142,7 +142,17 @@ results, and times the steps and the kernels. Phases:
               subprocess (60 s limit) a one-process NCCL mesh captures a
               run, then frees its graphs (graphs.release) and destroys the
               group; in another it exits with neither (the graphs freed
-              from atexit): both exit 0.
+              from atexit): both exit 0. [recovery]: [main]'s
+              configuration through train_with_recovery (256 steps, a
+              checkpoint every 64) in three subprocesses (120 s limit
+              each): one exits 17 at the first checkpoint, the relaunch
+              resumes from it (executed 192, graphs replayed), and its
+              state and aux are bitwise those of an uninterrupted run;
+              the walls of the restore and the first capture after it.
+              [statistical]: tests/test_torch_statistical.py's card cases
+              in a subprocess (tests/test_statistical.py's analytic
+              targets, f64 and bf16, through run's graphs): all 5 must
+              pass.
 
 With --split it stops after the build and prints only [split]: the device
 time of the median kernel's Gram stage apart from its search at each
@@ -2281,36 +2291,44 @@ FIDELITY_TIMEOUT_S = 420
 BENCH_TIMEOUT_S = 600
 
 
-def run_fidelity(torch):
-    """[fidelity]: tests/test_torch_fidelity.py's card cases in a
-    subprocess (the f32 step on the card against the f64 oracle); its
-    [fidelity] lines. Fails on any failure, error or skip (a skip on the
-    card hides the check), or on a count other than FIDELITY_CASES."""
+def pytest_phase(torch, label, args, cases, timeout, echo=False):
+    """[label]: the card cases (``-m cuda``) of pytest ``args`` in a
+    subprocess; with ``echo`` the run's own [label] lines. Fails on any
+    failure, error or skip (a skip on the card hides the check), or on a
+    count of passes other than ``cases``."""
     import re
 
     torch.cuda.empty_cache()
-    cmd = [sys.executable, "-m", "pytest", "tests/test_torch_fidelity.py",
-           "-m", "cuda", "-q", "--noconftest", "-p", "no:cacheprovider",
-           "-rs", "-s"]
+    cmd = [sys.executable, "-m", "pytest", *args, "-m", "cuda", "-q",
+           "--noconftest", "-p", "no:cacheprovider", "-rs"]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
-                         timeout=FIDELITY_TIMEOUT_S)
+                         timeout=timeout)
     out = res.stdout + res.stderr
-    for line in out.splitlines():
-        if "[fidelity]" in line:
-            log(line[line.index("[fidelity]"):])
+    tag = f"[{label}]"
+    if echo:
+        for line in out.splitlines():
+            if tag in line:
+                log(line[line.index(tag):])
     summary = [ln for ln in out.splitlines()
                if re.search(r"\d+ (passed|failed|skipped|error)", ln)]
     summary = summary[-1] if summary else "(no summary)"
-    log(f"[fidelity] pytest {summary.strip('= ')}, exit {res.returncode}, "
+    log(f"{tag} pytest {summary.strip('= ')}, exit {res.returncode}, "
         f"{time.perf_counter() - t0:.1f} s")
     passed = re.search(r"(\d+) passed", summary)
     if (res.returncode != 0 or re.search(r"failed|skipped|error", summary)
-            or not passed or int(passed.group(1)) != FIDELITY_CASES):
+            or not passed or int(passed.group(1)) != cases):
         for line in out.splitlines()[-60:]:
-            log(f"[fidelity]   | {line}")
-        fail(f"[fidelity] {summary}: expected {FIDELITY_CASES} passed, "
-             "none failed or skipped")
+            log(f"{tag}   | {line}")
+        fail(f"{tag} {summary}: expected {cases} passed, none failed or "
+             "skipped")
+
+
+def run_fidelity(torch):
+    """[fidelity]: tests/test_torch_fidelity.py's card cases (the f32 step
+    on the card against the f64 oracle) and their [fidelity] lines."""
+    pytest_phase(torch, "fidelity", ["tests/test_torch_fidelity.py", "-s"],
+                 FIDELITY_CASES, FIDELITY_TIMEOUT_S, echo=True)
 
 
 GRAPH_TEST_CASES = 26
@@ -2318,33 +2336,26 @@ GRAPH_TEST_TIMEOUT_S = 300
 
 
 def run_graph_tests(torch):
-    """[graph-tests]: tests/test_torch_cuda.py's graph cases in a
-    subprocess (every captured single-card path at its widths and every
-    one-process NCCL mesh path, the binned ones included, each entry point
-    against the eager loop, bitwise, with equal counts). Fails on any
-    failure, error or skip, or on a count other than GRAPH_TEST_CASES."""
-    import re
+    """[graph-tests]: tests/test_torch_cuda.py's graph cases (every
+    captured single-card path at its widths and every one-process NCCL
+    mesh path, the binned ones included, each entry point against the
+    eager loop, bitwise, with equal counts)."""
+    pytest_phase(torch, "graph-tests", ["tests/test_torch_cuda.py", "-k",
+                                        "graphs_equal_the_eager_loop"],
+                 GRAPH_TEST_CASES, GRAPH_TEST_TIMEOUT_S)
 
-    torch.cuda.empty_cache()
-    cmd = [sys.executable, "-m", "pytest", "tests/test_torch_cuda.py",
-           "-m", "cuda", "-q", "--noconftest", "-p", "no:cacheprovider",
-           "-rs", "-k", "graphs_equal_the_eager_loop"]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
-                         timeout=GRAPH_TEST_TIMEOUT_S)
-    out = res.stdout + res.stderr
-    summary = [ln for ln in out.splitlines()
-               if re.search(r"\d+ (passed|failed|skipped|error)", ln)]
-    summary = summary[-1] if summary else "(no summary)"
-    log(f"[graph-tests] pytest {summary.strip('= ')}, exit "
-        f"{res.returncode}, {time.perf_counter() - t0:.1f} s")
-    passed = re.search(r"(\d+) passed", summary)
-    if (res.returncode != 0 or re.search(r"failed|skipped|error", summary)
-            or not passed or int(passed.group(1)) != GRAPH_TEST_CASES):
-        for line in out.splitlines()[-60:]:
-            log(f"[graph-tests]   | {line}")
-        fail(f"[graph-tests] {summary}: expected {GRAPH_TEST_CASES} "
-             "passed, none failed or skipped")
+
+STATISTICAL_CASES = 5
+STATISTICAL_TIMEOUT_S = 300
+
+
+def run_statistical(torch):
+    """[statistical]: tests/test_torch_statistical.py's card cases (the
+    JAX suite's analytic targets, f64 and bf16, through run's graphs) and
+    their [statistical] lines."""
+    pytest_phase(torch, "statistical",
+                 ["tests/test_torch_statistical.py", "-s"],
+                 STATISTICAL_CASES, STATISTICAL_TIMEOUT_S, echo=True)
 
 
 TEARDOWN_TIMEOUT_S = 60
@@ -2416,6 +2427,163 @@ def run_teardown():
                 log(f"[teardown]   | {line}")
             fail(f"[teardown] {mode}: exit {res.returncode}")
 
+
+RECOVERY_TIMEOUT_S = 120
+# [recovery]'s schedule: train_with_recovery's steps and checkpoint
+# interval (two whole graph chunks a checkpoint).
+RECOVERY_STEPS, RECOVERY_EVERY = 256, 64
+RECOVERY_DIR = os.path.join(HERE, "build", "chip_smoke_recovery")
+
+
+def recovery_child(mode):
+    """``chip_smoke.py --recovery MODE`` (run by [recovery]): [main]'s
+    configuration (n=1000, p=128, ``throughput_config``, Adam(0.1); B1 and
+    B2) through ``train_with_recovery(sampler, RECOVERY_STEPS,
+    make_batches, ckpt, ckpt_every=RECOVERY_EVERY)``, the batch stacked k
+    times. 'crash' exits 17 in the hook of the first checkpoint; 'resume'
+    is the relaunch on that checkpoint; 'whole' the uninterrupted run from
+    a fresh path. 'resume' and 'whole' write their final state and the
+    aux of their chunks to <mode>.npz in RECOVERY_DIR."""
+    t_start = time.perf_counter()
+    import torch
+
+    sys.path.insert(0, HERE)
+    from stein_tpu_torch import Adam, SVGDSampler, throughput_config
+    from stein_tpu_torch.models import LinearRegressionModel
+    from stein_tpu_torch.utils.recovery import train_with_recovery
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    X, y, theta0 = make_data()
+    model = LinearRegressionModel(P)
+    batch = {"X": torch.tensor(X, dtype=torch.float32, device=dev),
+             "y": torch.tensor(y, dtype=torch.float32, device=dev)}
+    s = SVGDSampler(N, model.log_p, model.template(), Adam(1e-1),
+                    theta=theta0, device="cuda", **throughput_config(N, P))
+    if s._graphs is None or s._eager_reason is not None:
+        fail(f"[recovery] {mode}: the sampler runs eagerly")
+
+    def make_batches(start, k):
+        return {key: v.expand(k, *v.shape) for key, v in batch.items()}
+
+    ckpt = os.path.join(RECOVERY_DIR, "whole.ckpt" if mode == "whole"
+                        else "main.ckpt")
+    auxes, walls = [], {}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            walls.setdefault(name, time.perf_counter() - t0)
+            return out
+        return call
+
+    def hook(step, aux):
+        auxes.append(aux)
+        if mode == "crash" and step == RECOVERY_EVERY:
+            print(f"[recovery] crash: checkpoint of step {step} in "
+                  f"{time.perf_counter() - t0:.4f} s from "
+                  f"train_with_recovery's call, "
+                  f"{time.perf_counter() - t_start:.4f} s from the "
+                  "process's start; exit 17", flush=True)
+            os._exit(17)
+
+    def capture(warm, body, inner=s._graphs.capture):
+        return inner(timed("warm-up", warm), body)
+    s.restore = timed("restore", s.restore)
+    s._graphs.capture = timed("capture", capture)
+    t0 = time.perf_counter()
+    executed = train_with_recovery(s, RECOVERY_STEPS, make_batches, ckpt,
+                                   ckpt_every=RECOVERY_EVERY,
+                                   on_checkpoint=hook)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if mode == "crash":
+        print("CRASH-MODE-DID-NOT-CRASH", flush=True)
+        return 1
+    opt = s.state.opt_state
+    state = {"particles": s.samples, "step": s.state.step.cpu().numpy(),
+             **{f"opt_{k}": v.cpu().numpy()
+                for k, v in zip(opt._fields, opt)},
+             **{f"aux_{k}": torch.cat([a[k] for a in auxes]).cpu().numpy()
+                for k in auxes[0]}}
+    np.savez(os.path.join(RECOVERY_DIR, f"{mode}.npz"), **state)
+    print(f"[recovery] {mode}: executed {executed} steps to step "
+          f"{int(s.state.step)}; graph captures {s._graphs.captures}; "
+          f"restore {walls.get('restore')} s, first capture "
+          f"{walls.get('capture')} s (of which its warm-up step, the "
+          f"process's first, {walls.get('warm-up')} s), "
+          f"train_with_recovery {wall:.4f} s, "
+          f"{time.perf_counter() - t_start:.4f} s from the process's start",
+          flush=True)
+    print(f"RECOVERY-DONE {executed} {int(s.state.step)} "
+          f"{s._graphs.captures}", flush=True)
+    return 0
+
+
+def run_recovery():
+    """[recovery]: ``recovery_child`` in a subprocess, 'crash', 'resume'
+    then 'whole', each within RECOVERY_TIMEOUT_S: the crash exits 17 with
+    the checkpoint of step RECOVERY_EVERY in place; the relaunch restores
+    it, executes the rest and replays graphs; its state (particles, Adam's
+    moments and scalars, the step) and the aux of its chunks are bitwise
+    those of the uninterrupted run."""
+    os.makedirs(RECOVERY_DIR, exist_ok=True)
+    for name in os.listdir(RECOVERY_DIR):
+        os.remove(os.path.join(RECOVERY_DIR, name))
+    done = {}
+    for mode, code in (("crash", 17), ("resume", 0), ("whole", 0)):
+        t0 = time.perf_counter()
+        try:
+            res = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--recovery",
+                 mode], cwd=HERE, capture_output=True, text=True,
+                timeout=RECOVERY_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"[recovery] {mode}: the process did not exit within "
+                 f"{RECOVERY_TIMEOUT_S} s")
+        for line in res.stdout.splitlines():
+            if line.startswith("[recovery]"):
+                log(line)
+            if line.startswith("RECOVERY-DONE"):
+                done[mode] = [int(x) for x in line.split()[1:]]
+        log(f"[recovery] {mode}: exit {res.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s (the process, from its "
+            "start)")
+        ok = res.returncode == code and "DID-NOT-CRASH" not in res.stdout
+        if mode == "crash":
+            path = os.path.join(RECOVERY_DIR, "main.ckpt")
+            with np.load(path) as f:
+                paths = str(f["__meta__"][1]).split("|")
+                held = int(f[f"leaf_{paths.index('.step')}"])
+            files = sorted(os.listdir(RECOVERY_DIR))
+            log(f"[recovery] crash: the checkpoint holds step {held}; "
+                f"files {files}")
+            ok = ok and held == RECOVERY_EVERY and files == ["main.ckpt"]
+        if not ok:
+            for line in (res.stdout + res.stderr).splitlines()[-40:]:
+                log(f"[recovery]   | {line}")
+            fail(f"[recovery] {mode}: exit {res.returncode}")
+    want = {"resume": [RECOVERY_STEPS - RECOVERY_EVERY, RECOVERY_STEPS],
+            "whole": [RECOVERY_STEPS, RECOVERY_STEPS]}
+    if any(done.get(m, [None] * 3)[:2] != w or done[m][2] < 1
+           for m, w in want.items()):
+        fail(f"[recovery] [executed, step, captures] {done}: expected "
+             f"{want} and graphs captured")
+    with np.load(os.path.join(RECOVERY_DIR, "resume.npz")) as f:
+        resumed = dict(f)
+    with np.load(os.path.join(RECOVERY_DIR, "whole.npz")) as f:
+        whole = dict(f)
+    same = {k: bool(np.array_equal(v, whole[k][RECOVERY_EVERY:]
+                                   if k.startswith("aux_") else whole[k]))
+            for k, v in resumed.items()}
+    log(f"[recovery] resumed against the uninterrupted run, bitwise (aux "
+        f"of steps {RECOVERY_EVERY}-{RECOVERY_STEPS}): {same}")
+    if set(same) != set(whole) or not all(same.values()):
+        fail("[recovery] the resumed state differs from the uninterrupted "
+             "run")
 
 def run_bench(torch):
     """[bench]: bench_torch.py in a subprocess at its default budget; its
@@ -3826,6 +3994,8 @@ def main():
     run_fidelity(torch)
     run_graph_tests(torch)
     run_teardown()
+    run_recovery()
+    run_statistical(torch)
     run_bench(torch)
 
     # --------------------------------------------------------- 5. timing
@@ -4442,4 +4612,6 @@ def run():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--teardown"]:
         sys.exit(teardown_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--recovery"]:
+        sys.exit(recovery_child(sys.argv[2]))
     sys.exit(run())

@@ -2,9 +2,13 @@
 
 PyTorch counterpart of ``stein_tpu/utils/recovery.py``: the full sampler
 state checkpoints atomically every ``ckpt_every`` steps, and the loop
-resumes from the last checkpoint on restart. Process 0 writes; on a
-``torch.distributed`` group the decision to resume is broadcast from it,
-so that every process takes the same branch."""
+resumes from the last checkpoint on restart. One process writes: rank 0 of
+the sampler's mesh, or without one process 0 of an initialised
+``torch.distributed`` group. Its decision to resume is sent to every
+process that shares the checkpoint (the mesh's, or the group's), so that
+they all take the same branch. A mesh over a subgroup (say one replica of
+several) decides on its own, as the JAX package's one mesh over every
+process never has to."""
 
 import math
 import os
@@ -25,8 +29,14 @@ def _atomic_save(sampler, path):
         os.replace(tmp, path)     # the process that wrote renames
 
 
-def _broadcast_exists(exists):
-    """Process 0's answer on every process of an initialised group."""
+def _broadcast_exists(exists, mesh=None):
+    """The writer's answer on every process that shares the checkpoint:
+    rank 0's of ``mesh`` on its ranks (a collective over the mesh alone),
+    else process 0's on every process of an initialised group."""
+    if mesh is not None:
+        flag = torch.tensor(int(exists) if mesh.rank == 0 else 0,
+                            dtype=torch.int32, device=mesh.device)
+        return bool(host_scalar(coll.psum(flag, mesh)))
     if not (dist.is_available() and dist.is_initialized()
             and dist.get_world_size() > 1):
         return exists
@@ -56,7 +66,8 @@ def train_with_recovery(sampler, n_iters, make_batches, ckpt_path,
 
     Returns the number of steps executed in this invocation.
     """
-    exists = _broadcast_exists(os.path.exists(ckpt_path))
+    exists = _broadcast_exists(os.path.exists(ckpt_path),
+                               getattr(sampler, "mesh", None))
     if exists:
         sampler.restore(ckpt_path)
     executed = 0

@@ -5,6 +5,8 @@ the CPU recorder below, at n=64, to rehearse the harness).
     python tests/cuda_graph_ranks.py RANK WORLD PORT [--cpu] [--timing]
         [--teardown destroy|exit] [--paths LABEL,LABEL...]
     python tests/cuda_graph_ranks.py RANK WORLD PORT --scenario NAME
+    python tests/cuda_graph_ranks.py RANK WORLD PORT [--cpu]
+        --recovery crash|resume|whole --ckpt PATH
 
 Every rank builds the same samplers through the entry points a user calls
 (``particle_mesh`` / ``mesh_2d``, ``SVGDSampler(mesh=,
@@ -24,7 +26,9 @@ bench_torch's meshL rows at n=8192, p=64):
   one-rank group) at the classes of ROADMAP's contracts (SHARD_CLASS and
   the rest below), with 200 median rows for the n=1000 paths: every fifth
   particle on one rank and on 2 or 4, where throughput_config's 256 take
-  other particles on each (other D entries, another median);
+  other particles on each (other D entries, another median); the paths
+  held to the fused_gram class also print a 5-step reading at
+  tests/test_sharded.py:628's class (its own step count);
 - (iv) each kernel of the path once at this rank's shapes against its
   plain version (chip_smoke.py's [kernels] bounds).
 
@@ -44,6 +48,29 @@ the next; the process exits 1 if any failed.
 destroys the process group; exit leaves both to the interpreter's exit,
 where ``graphs.release`` runs from atexit. --scenario runs one of the CPU
 tests' scenarios (SCENARIOS; tests/test_torch_graph_ranks.py) on gloo.
+
+--recovery runs one launch of the crash-and-resume drill on meshL rounds
+(bench_torch's n=8192, p=64 fused_shard row; 256 particles with --cpu):
+``train_with_recovery`` for RECOVERY_STEPS steps, a checkpoint at PATH
+every RECOVERY_EVERY (two whole graph chunks), the sufficient batch
+stacked k times. tests/cuda_mesh_cards.py runs the three launches in turn,
+each on fresh processes and a fresh port:
+
+- crash: in the hook of the first checkpoint rank 1 exits hard
+  (os._exit(17)); every other rank sleeps 1 s and exits 17 too, its graphs
+  live and its group never destroyed, as a scheduler's teardown leaves it;
+- resume: every rank restores its block, must report executed
+  RECOVERY_STEPS - RECOVERY_EVERY and the last step, and must have
+  replayed graphs; rank 0 writes the gathered state and the chunks' aux
+  to PATH.resume.npz and prints the walls of the restore, of the first
+  capture after it and of the run;
+- whole: the uninterrupted run from a fresh checkpoint path (PATH.whole):
+  its gathered particles, Adam moments, step and aux must equal the
+  resumed run's bitwise; the 4 ranks restored from the crash's checkpoint
+  (PATH.step64, kept by the caller) must agree with rank 0's card alone (a
+  one-rank group) restored from it at the meshL rounds path's (iii) class
+  over its 10 steps; and, a reading past the class's steps, the whole run
+  beside the same run on rank 0's card alone (PATH.one).
 """
 
 import argparse
@@ -179,8 +206,13 @@ SAME_ROWS = 200
 # normalised; B7's logp (rtol, atol) and grads (of max |g|).
 B3_BOUND, BRACKET_BOUND, B10_BOUND = 1e-4, 1e-5, 1e-5
 B7_LOGP, B7_GRADS = (2e-5, 1e-5), 2e-5
+# (iii)'s reading at :628's own step count, printed beside the fused_gram
+# class's verdict.
+SHARD_CLASS_5 = SHARD_CLASS[:-1] + (5,)
 # --timing: steps a reading (whole chunks), and profiled steps.
 TIMED_STEPS = 4 * graphs.CHUNK
+# --recovery: the drill's steps and its checkpoint interval (whole chunks).
+RECOVERY_STEPS, RECOVERY_EVERY = 8 * graphs.CHUNK, 2 * graphs.CHUNK
 
 
 def log(rank, *parts):
@@ -339,12 +371,15 @@ def trial(s, batch, steps):
                                    a2["phi_norm"]]).cpu().numpy()}
 
 
-def class_excess(klass, got, want):
+def class_excess(klass, got, want, eps_rule=True):
     """(pass, the line's numbers) of got against want at ``klass``; the
     samples in Adam's eps regime (at most 1 coordinate in 1000) held
-    through phi at step 1 only."""
+    through phi at step 1 only. Without ``eps_rule`` (a trial from a
+    restored state, whose Adam moments are not zero, so its first step
+    amplifies nothing) every coordinate is held."""
     _, med_tol, norm_tol, rtol, atol, _ = klass
-    ill = adam_eps_regime(want["phi1"])
+    ill = (adam_eps_regime(want["phi1"]) if eps_rule
+           else np.zeros(want["phi1"].shape, bool))
 
     def excess(a, b):
         return float(np.max(np.abs(a - b) - (atol + rtol * np.abs(b))))
@@ -365,23 +400,33 @@ def class_excess(klass, got, want):
 def one_card(label, path, rows):
     """(iii): the mesh's gathered trial against the one-card run of the
     same configuration, on rank 0, at the path's class (and the verdict
-    of the stricter class BESIDE it)."""
+    of the stricter class BESIDE it); a path held to the fused_gram class
+    also gets a 5-step reading at SHARD_CLASS_5 (its verdict printed)."""
     name, steps = path.klass[0], path.klass[-1]
     got = trial(path.make(path.mesh, rows), path.batch, steps)
+    got5 = (trial(path.make(path.mesh, rows), path.batch, SHARD_CLASS_5[-1])
+            if path.klass is GRAM_CLASS else None)
     if path.solo is None:
         return
     want = trial(path.make(path.solo, rows), path.batch, steps)
     ok, line = class_excess(path.klass, got, want)
-    rows = f"{rows} median rows" if rows else "its median rows"
-    print(f"[ranks] {label}: {steps} steps vs one card ({rows}): samples "
-          f"max abs {np.abs(got['samples'] - want['samples']).max():.3e}; "
-          f"at {name} class: {line}: {'within' if ok else 'OUTSIDE'}",
-          flush=True)
+    rows_txt = f"{rows} median rows" if rows else "its median rows"
+    diff = np.abs(got["samples"] - want["samples"]).max()
+    print(f"[ranks] {label}: {steps} steps vs one card ({rows_txt}): "
+          f"samples max abs {diff:.3e}; at {name} class: {line}: "
+          f"{'within' if ok else 'OUTSIDE'}", flush=True)
     beside = BESIDE.get(path.klass)
     if beside is not None:
         also_ok, also = class_excess(beside, got, want)
         print(f"[ranks] {label}: at {beside[0]} class: {also}: "
               f"{'within' if also_ok else 'outside'}", flush=True)
+    if got5 is not None:
+        want5 = trial(path.make(path.solo, rows), path.batch,
+                      SHARD_CLASS_5[-1])
+        ok5, line5 = class_excess(SHARD_CLASS_5, got5, want5)
+        print(f"[ranks] {label}: {SHARD_CLASS_5[-1]} steps vs one card at "
+              f"{SHARD_CLASS_5[0]} class (its own step count): {line5}: "
+              f"{'within' if ok5 else 'outside'}", flush=True)
     if not ok:
         raise RuntimeError(f"{label}: the mesh left the one-card run's "
                            "class")
@@ -714,6 +759,225 @@ def check_path(label, spec, meshes, n, dev, cpu, timing_on):
     return out
 
 
+# ------------------------------------------- the crash-and-resume drill
+
+def _timed(fn, walls, dev):
+    """``fn``, each call's wall seconds (the card synchronised before and
+    after) appended to ``walls``."""
+    def call(*args, **kw):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return out
+    return call
+
+
+def drill_sampler(mesh, dev, cpu):
+    """meshL rounds on ``mesh``, its steps replayed from graphs (recorded
+    on the CPU): (sampler, its batch, make_batches: the batch stacked k
+    times)."""
+    import bench_torch
+
+    if cpu:
+        bench_torch.MESHL_N = 256
+    s, batch = bench_torch.make_meshL_sampler(
+        mesh, device=dev, **bench_torch.MESHL_ARMS["meshL_fused_shard"])
+    if cpu:
+        s._graphs = graphs.StepGraphs(capture=recorder, mesh=mesh)
+    elif s._graphs is None or s._eager_reason is not None:
+        raise RuntimeError("meshL rounds chose the eager loop "
+                           f"({s._eager_reason})")
+
+    def make_batches(start, k):
+        return graphs.tree_map(
+            lambda l: l.unsqueeze(0).expand(k, *l.shape), batch)
+    return s, batch, make_batches
+
+
+def drill_run(s, make_batches, path):
+    """train_with_recovery over the drill's schedule: (steps executed, the
+    aux of this invocation's chunks concatenated as numpy, wall s)."""
+    from stein_tpu_torch.utils.recovery import train_with_recovery
+
+    auxes = []
+    t0 = time.perf_counter()
+    executed = train_with_recovery(
+        s, RECOVERY_STEPS, make_batches, path, ckpt_every=RECOVERY_EVERY,
+        on_checkpoint=lambda step, aux: auxes.append(aux))
+    if s.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    aux = {k: torch.cat([a[k] for a in auxes]).cpu().numpy()
+           for k in auxes[0]} if auxes else {}
+    return executed, aux, wall
+
+
+def drill_state(s, aux):
+    """The gathered particles and Adam moments, the optimizer's scalars,
+    the step and the chunks' aux, as numpy (a collective)."""
+    opt = s.state.opt_state
+    out = {"particles": s.samples,
+           "mu": coll.all_gather(opt.mu, s.mesh).cpu().numpy(),
+           "nu": coll.all_gather(opt.nu, s.mesh).cpu().numpy(),
+           "count": opt.count.cpu().numpy(),
+           "learning_rate": opt.learning_rate.cpu().numpy(),
+           "step": s.state.step.cpu().numpy()}
+    out.update({f"aux_{k}": v for k, v in aux.items()})
+    return out
+
+
+def every_rank(values, world, dev):
+    """[rank][value] of a few integers from every rank."""
+    t = torch.tensor(values, dtype=torch.int64, device=dev)
+    return coll.all_gather(t, world, tiled=False).cpu().tolist()
+
+
+def recovery(mode, ckpt, meshes, dev, cpu, t_start):
+    """One launch of the drill (module docstring). Returns the exit code;
+    in crash mode the process exits 17 from the checkpoint's hook."""
+    from stein_tpu_torch.utils.recovery import train_with_recovery
+
+    world = meshes.world
+    rank = world.rank
+    lib_s = None
+    if not cpu:   # the kernels' library, built before the launch: its load
+        from stein_tpu_torch import _cuda
+
+        t0 = time.perf_counter()
+        _cuda.library()
+        lib_s = time.perf_counter() - t0
+    s, batch, make_batches = drill_sampler(world, dev, cpu)
+    if mode == "crash":
+        t0 = time.perf_counter()
+
+        def die(step, aux):
+            if step != RECOVERY_EVERY:
+                return
+            log(rank, f"[recovery] crash: checkpoint of step {step} in "
+                f"{time.perf_counter() - t0:.3f} s from train_with_recovery's "
+                f"call ({time.perf_counter() - t_start:.3f} s from main's "
+                "start); rank 1 exits 17, the others 1 s later")
+            sys.stdout.flush()
+            if rank == 1:
+                os._exit(17)    # the lost worker: no cleanup at all
+            time.sleep(1.0)     # the scheduler's teardown of the job
+            os._exit(17)
+
+        train_with_recovery(s, RECOVERY_STEPS, make_batches, ckpt,
+                            ckpt_every=RECOVERY_EVERY, on_checkpoint=die)
+        print(f"CRASH-MODE-DID-NOT-CRASH-{rank}", flush=True)
+        return 1
+
+    bad = []
+    if mode == "resume":
+        restores, captures, warm_ups = [], [], []
+
+        def capture(warm, body, inner=s._graphs.capture):
+            return inner(_timed(warm, warm_ups, dev), body)
+        s.restore = _timed(s.restore, restores, dev)
+        s._graphs.capture = _timed(capture, captures, dev)
+        executed, aux, wall = drill_run(s, make_batches, ckpt)
+        want = RECOVERY_STEPS - RECOVERY_EVERY
+        state = drill_state(s, aux)
+        by_rank = every_rank([executed, int(s.state.step),
+                              s._graphs.captures, len(restores)], world, dev)
+        log(rank, f"[recovery] resume: [executed, step, graph captures, "
+            f"restores] by rank {by_rank}; restore {restores[0]:.4f} s, "
+            f"first capture after it {captures[0]:.4f} s (of which its "
+            f"warm-up step, the process's first, {warm_ups[0]:.4f} s), "
+            f"train_with_recovery {wall:.4f} s for {want}"
+            f" steps ({time.perf_counter() - t_start:.3f} s from main's "
+            f"start; the kernels' library loaded in {lib_s} s before it)")
+        if any(r[:2] != [want, RECOVERY_STEPS] or r[2] < 1 or r[3] != 1
+               for r in by_rank):
+            bad.append(f"resume: a rank did not restore, run {want} steps "
+                       "to the end and replay graphs")
+        launches = {k: v for k, v in graphs.read_counts().items() if v}
+        log(rank, f"[recovery] resume: launches on rank 0 {launches}")
+        if rank == 0:
+            np.savez(ckpt + ".resume.npz", **state)
+    else:
+        whole = ckpt + ".whole"
+        if rank == 0 and os.path.exists(whole):
+            os.remove(whole)
+        executed, aux, wall = drill_run(s, make_batches, whole)
+        state = drill_state(s, aux)
+        log(rank, f"[recovery] whole: executed {executed} steps to step "
+            f"{int(s.state.step)} in {wall:.4f} s")
+        if executed != RECOVERY_STEPS:
+            bad.append(f"whole: executed {executed}")
+        # (iii) from the crash's checkpoint: the mesh's restore against one
+        # card's, over the class's steps.
+        at = f"{ckpt}.step{RECOVERY_EVERY}"
+        restored, _, _ = drill_sampler(world, dev, cpu)
+        restored.restore(at)
+        got = trial(restored, batch, MESHL_CLASS[-1])
+        if rank == 0:
+            bad += compare_drill(ckpt, at, state, got, meshes.solo, dev, cpu)
+    flags = every_rank([int(bool(bad))], world, dev)
+    for line in bad:
+        print(f"[recovery] rank {rank}: FAILED {line}", flush=True)
+    if any(f[0] for f in flags):
+        return 1
+    log(rank, f"[recovery] {mode}: OK on every rank")
+    return 0
+
+
+def compare_drill(ckpt, at, whole, got, solo, dev, cpu):
+    """Rank 0: the resumed state against the whole run's, bitwise (the
+    resumed chunks' aux against the same chunks'); the mesh's trial from
+    the crash's checkpoint ``at`` against rank 0's card alone from it, at
+    the meshL rounds path's (iii) class; and, as a reading, the whole run
+    against the same run on one card. Returns the failures."""
+    bad = []
+    with np.load(ckpt + ".resume.npz") as f:
+        resumed = dict(f)
+    skip = RECOVERY_EVERY
+    same = {k: bool(np.array_equal(
+        v, whole[k][skip:] if k.startswith("aux_") else whole[k]))
+        for k, v in resumed.items()}
+    print(f"[recovery] resumed against whole, bitwise (aux of steps "
+          f"{skip}-{RECOVERY_STEPS}): {same}", flush=True)
+    if not all(same.values()) or set(same) != set(whole):
+        bad.append("the resumed state differs from the uninterrupted run")
+
+    one, batch, make_batches = drill_sampler(solo, dev, cpu)
+    one.restore(at)
+    want = trial(one, batch, MESHL_CLASS[-1])
+    ok, line = class_excess(MESHL_CLASS, got, want, eps_rule=False)
+    print(f"[recovery] restored at step {RECOVERY_EVERY} from the crash's "
+          f"checkpoint, {MESHL_CLASS[-1]} steps, 4 ranks against rank 0's "
+          f"card alone (a one-rank group): at {MESHL_CLASS[0]} class: "
+          f"{line}: {'within' if ok else 'OUTSIDE'}", flush=True)
+    if not ok:
+        bad.append("the restored mesh left the one-card run's class")
+
+    # The reading: RECOVERY_STEPS steps on one card beside the mesh's.
+    path = ckpt + ".one"
+    if os.path.exists(path):
+        os.remove(path)
+    one, _, make_batches = drill_sampler(solo, dev, cpu)
+    _, aux, _ = drill_run(one, make_batches, path)
+    _, med_tol, norm_tol, rtol, atol, _ = MESHL_CLASS
+    med = np.abs(whole["aux_median"] / aux["median"] - 1)
+    norm = np.abs(whole["aux_phi_norm"] / aux["phi_norm"] - 1)
+    left = np.flatnonzero((med > med_tol) | (norm > norm_tol))
+    excess = np.max(np.abs(whole["particles"] - one.samples)
+                    - (atol + rtol * np.abs(one.samples)))
+    print(f"[recovery] reading: the whole run against the same run on one "
+          f"card, {RECOVERY_STEPS} steps: median rel max {med.max():.3e}, "
+          f"phi_norm rel max {norm.max():.3e}, first step past "
+          f"{MESHL_CLASS[0]} class's medians or phi_norm "
+          f"{int(left[0]) + 1 if left.size else None}; samples at step "
+          f"{RECOVERY_STEPS} excess over rtol {rtol:g} / atol {atol:g} "
+          f"{excess:.3e}", flush=True)
+    return bad
+
+
 def main(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("rank", type=int)
@@ -725,7 +989,11 @@ def main(argv):
                     default="destroy")
     ap.add_argument("--paths", default=None)
     ap.add_argument("--scenario", choices=sorted(SCENARIOS), default=None)
+    ap.add_argument("--recovery", choices=("crash", "resume", "whole"),
+                    default=None)
+    ap.add_argument("--ckpt", default=None)
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     rank, world = args.rank, args.world
     cpu = args.cpu or args.scenario is not None
     if cpu:
@@ -743,6 +1011,12 @@ def main(argv):
             world_size=world, device_id=dev)
     if args.scenario is not None:
         return SCENARIOS[args.scenario](rank, world)
+    if args.recovery is not None:
+        code = recovery(args.recovery, args.ckpt, Meshes(world, []), dev,
+                        cpu, t_start)
+        graphs.release()
+        dist.destroy_process_group()
+        return code
     n = 64 if cpu else 1000
     todo = paths(world, n, dev)
     if args.paths:

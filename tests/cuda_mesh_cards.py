@@ -19,17 +19,36 @@ written as it runs:
    1000 observations, 1500 iterations) under torchrun on N ranks, and as
    one process on one card (a one-process NCCL group), in turns (1, N, N,
    1): each run's particle-updates/s and posterior lines;
-4. examples_torch/production_run.py --mesh under torchrun on N ranks.
+4. the crash-and-resume drill on meshL rounds (n=8192, p=64, fused_shard;
+   tests/cuda_graph_ranks.py --recovery, three launches on fresh processes
+   and fresh ports): a crash after the first checkpoint (rank 1 exits 17,
+   the others 1 s later, graphs live, no destroy; the checkpoint must hold
+   step 64), the relaunch that resumes (executed 192 on every rank, graphs
+   replayed) and an uninterrupted run that the resumed state must equal
+   bitwise (and, restored from the crash's checkpoint, rank 0's card alone
+   at (iii)'s class over its 10 steps);
+5. examples_torch/production_run.py --mesh under torchrun on N ranks, run
+   through (--csv production_B.csv); then the same job stopped at
+   --n-iters 1000 and relaunched with the defaults on one --csv
+   (production_A.csv): the relaunch must report executed 2000 steps and a
+   total of 3000, and its step lines and final KSD^2 line must equal the
+   uninterrupted run's letter for letter, the CSV rows too (step,
+   phi_norm, h2, log_p_mean: the other two columns are wall times).
 
-Every process must exit 0. Prints a line a step and, last,
-``[result] cards {...}`` (JSON). --cpu rehearses the same on gloo CPU
-processes at small sizes (the CLIs with --device cpu and 256 particles).
+Every process must exit as its step says (0; 17 for the drill's crash).
+Prints a line a step and, last, ``[result] cards {...}`` (JSON). --cpu
+rehearses the same on gloo CPU processes at small sizes (the CLIs with
+--device cpu and 256 particles; production_run with 600 iterations, a
+checkpoint every 200, stopped at 200; the drill at 256 particles).
 """
 
 import argparse
+import csv
+import glob
 import json
 import os
 import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -42,9 +61,16 @@ if ROOT not in sys.path:   # run as a script from tests/
 RUNNER = os.path.join(HERE, "cuda_graph_ranks.py")
 EXAMPLES = os.path.join(ROOT, "examples_torch")
 # Limits in seconds: the runner's paths (104 s on 4 H100s with 64-step
-# readings), its one-path exit check (36 s), each CLI run (23-31 s).
+# readings), its one-path exit check (36 s), each CLI run (23-31 s), each
+# launch of the drill.
 RANKS_LIMIT_S, EXIT_LIMIT_S, CLI_LIMIT_S = 600, 180, 300
+DRILL_LIMIT_S = 240
 EXIT_PATH = "fused_shard rounds"
+# The drill's first checkpoint (cuda_graph_ranks.RECOVERY_EVERY).
+DRILL_CKPT_STEP = 64
+# The metrics CSV's columns that a resumed run must reproduce (the others
+# are wall times).
+CSV_SAME = ("step", "phi_norm", "h2", "log_p_mean")
 
 
 def free_port():
@@ -125,6 +151,40 @@ def lines(out, keep):
                                     if keep(ln)))
 
 
+def checkpoint_step(path):
+    """The step a checkpoint file holds (its '.step' leaf)."""
+    import numpy as np
+
+    with np.load(path) as f:
+        paths = str(f["__meta__"][1]).split("|")
+        return int(f[f"leaf_{paths.index('.step')}"])
+
+
+def csv_rows(path):
+    """The metrics CSV's rows, CSV_SAME's columns only."""
+    with open(path, newline="") as f:
+        return [tuple(row[k] for k in CSV_SAME) for row in csv.DictReader(f)]
+
+
+# Where production_run.py's reports start: torchrun runs its workers
+# unbuffered (python -u), so ranks that print the same line can run one
+# rank's line into another's before either writes its newline.
+REPORT_START = re.compile(
+    r"(?<!\n)(?=step \d+: held-out|executed \d+ steps|final KSD\^2:)")
+
+
+def unspliced(out):
+    """``out`` with each of production_run.py's reports on a line of its
+    own."""
+    return REPORT_START.sub("\n", out)
+
+
+def step_lines(out, after=0):
+    """production_run.py's 'step N:' lines past step ``after``, each once."""
+    return [ln for ln in dict.fromkeys(out.splitlines())
+            if ln.startswith("step ") and int(ln.split()[1][:-1]) > after]
+
+
 def gpu_line():
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -152,8 +212,8 @@ def main(argv):
         print(f"[cards] kernel library ready in {time.time() - t0:.1f} s",
               flush=True)
 
-    def step(name, rcs, outs, secs, show):
-        ok = all(rc == 0 for rc in rcs)
+    def step(name, rcs, outs, secs, show, ok=None):
+        ok = all(rc == 0 for rc in rcs) if ok is None else ok
         print(f"[cards] {name}: return codes {rcs} in {secs:.1f} s"
               + ("" if ok else " FAILED"), flush=True)
         if not ok:
@@ -201,16 +261,75 @@ def main(argv):
               f"cards {tw:.6g}; strong-scaling efficiency t1 / ({world} "
               f"t{world}) = {t1 / (world * tw):.4f}", flush=True)
 
-    prod = ["--mesh", "--ckpt", os.path.join(args.out, "production.ckpt")]
+    drill = os.path.join(args.out, "meshL_drill.ckpt")
+    for path in glob.glob(drill + "*"):
+        os.unlink(path)
+    rcs, outs, secs = ranks(world, ["--recovery", "crash", "--ckpt", drill],
+                            "recovery_crash", args.out, DRILL_LIMIT_S, cpu)
+    held = checkpoint_step(drill) if os.path.exists(drill) else None
+    files = sorted(os.path.basename(p) for p in glob.glob(drill + "*"))
+    if held is not None:   # kept for the whole run's (iii) from step 64
+        shutil.copyfile(drill, f"{drill}.step{DRILL_CKPT_STEP}")
+    step("recovery_crash", rcs, outs, secs, lambda o: lines(
+        o[0], lambda ln: ln.startswith("[recovery]"))
+        + f"\n[cards] the checkpoint holds step {held}; the files of the "
+          f"drill: {files}",
+        ok=(rcs == [17] * world and held == DRILL_CKPT_STEP
+            and files == [os.path.basename(drill)]
+            and not any("DID-NOT-CRASH" in o for o in outs)))
+    for mode in ("resume", "whole"):
+        rcs, outs, secs = ranks(world, ["--recovery", mode, "--ckpt", drill],
+                                f"recovery_{mode}", args.out, DRILL_LIMIT_S,
+                                cpu)
+        step(f"recovery_{mode}", rcs, outs, secs, lambda o: lines(
+            o[0], lambda ln: ln.startswith("[recovery]")))
+
+    ckpt = os.path.join(args.out, "production.ckpt")
+    csv_a, csv_b = (os.path.join(args.out, f"production_{x}.csv")
+                    for x in "AB")
+    prod = ["--mesh", "--ckpt", ckpt]
+    total, stop = 3000, 1000
     if cpu:
-        prod += ["--device", "cpu", "--n-iters", "600", "--ckpt-every",
+        total, stop = 600, 200
+        prod += ["--device", "cpu", "--n-iters", str(total), "--ckpt-every",
                  "200"]
-    if os.path.exists(prod[2]):
-        os.unlink(prod[2])
-    rcs, outs, secs = cli("production_run.py", prod, world, args.out,
-                          "production_run", cpu)
-    step("production_run", rcs, outs, secs, lambda o: lines(
-        o[0], lambda ln: ln.startswith(("step ", "executed", "final KSD"))))
+    runs = {}
+    for name, extra in (("production_run", ["--csv", csv_b]),
+                        ("production_stopped", ["--n-iters", str(stop),
+                                                "--csv", csv_a]),
+                        ("production_resumed", ["--csv", csv_a])):
+        if name != "production_resumed":   # a fresh job
+            for path in (ckpt, extra[-1]):
+                if os.path.exists(path):
+                    os.unlink(path)
+        rcs, outs, secs = cli("production_run.py", prod + extra, world,
+                              args.out, name, cpu)
+        runs[name] = unspliced(outs[0])
+        step(name, rcs, outs, secs, lambda o: lines(
+            o[0], lambda ln: ln.startswith(("step ", "executed",
+                                            "final KSD"))))
+    whole, resumed = runs["production_run"], runs["production_resumed"]
+    same_lines = (step_lines(resumed) == step_lines(whole, stop)
+                  and bool(step_lines(resumed)))
+    ksd = [lines(o, lambda ln: ln.startswith("final KSD^2:"))
+           for o in (resumed, whole)]
+    same_ksd = ksd[0] == ksd[1] != ""
+    counts = (f"executed {total - stop} steps" in resumed
+              and f"total step count {total}" in resumed)
+    rows = {x: csv_rows(p) if os.path.exists(p) else None
+            for x, p in (("A", csv_a), ("B", csv_b))}
+    same_rows = rows["A"] is not None and rows["A"] == rows["B"]
+    ok = counts and same_lines and same_ksd and same_rows
+    print(f"[cards] production_run stopped at {stop}, relaunched: executed "
+          f"{total - stop} of {total} {counts}; its {len(step_lines(resumed))}"
+          f" step lines equal the uninterrupted run's {same_lines}; final "
+          f"KSD^2 line equal {same_ksd}; CSV rows ({', '.join(CSV_SAME)}) "
+          f"{len(rows['A'] or [])} and {len(rows['B'] or [])}, equal "
+          f"{same_rows}" + ("" if ok else " FAILED"), flush=True)
+    result["production_resume"] = {"counts": counts, "lines": same_lines,
+                                   "ksd": same_ksd, "csv": same_rows}
+    if not ok:
+        failed.append("production_resume")
     result["failed"] = failed
     print("[result] cards " + json.dumps(result), flush=True)
     return 1 if failed else 0

@@ -1291,8 +1291,10 @@ def test_mesh_graphs_across_cards(dev):
     bitwise agreement, the gathered samples against one card, each kernel
     at its rank shapes and the timings; then both teardowns (the graphs
     released and the group destroyed; neither, at the interpreter's exit)
-    and the two torchrun CLIs. Every process must exit 0 within its limit,
-    on the normal teardown; one past it is killed and the test fails. Each
+    and the two torchrun CLIs; the crash-and-resume drill on meshL and
+    production_run.py stopped and relaunched. Every process must exit 0
+    (the drill's crash 17) within its limit, on the normal teardown; one
+    past it is killed and the test fails. Each
     process's log is written under build/mesh_cards/ as it runs. One card
     skips."""
     import cuda_mesh_cards
