@@ -26,9 +26,14 @@ results, and times the steps and the kernels. Phases:
               its plain version at the binned paths' blocks, two levels,
               one and two windows, 4096/2048/1 bins (and past the shared
               memory), a lattice with NaN, infinities and an overflowing
-              2 g, f32, bf16 and f64; at the stated tolerances
+              2 g, f32, bf16 and f64; the linear models' data products
+              (csrc/data_product.cu, both entry points) at the paths' row
+              counts against torch.matmul, and row-invariant: blocks of
+              rows at every offset bitwise the full launch's; at the
+              stated tolerances
   4. main     the bench's p=128 Bayesian linear regression at n=1000
-              (B1, B2): launch counts of run(batch, 500), finiteness, the
+              (B1, B2; the data products of its torch.func gradients):
+              launch counts of run(batch, 500), finiteness, the
               first 10 steps against the CPU run, the posterior mean
               against the conjugate closed form
      main-nn  the Bayesian NN (n=1000, p=303; B7, B3, B5): run(batch,
@@ -148,7 +153,9 @@ results, and times the steps and the kernels. Phases:
               each): one exits 17 at the first checkpoint, the relaunch
               resumes from it (executed 192, graphs replayed), and its
               state and aux are bitwise those of an uninterrupted run;
-              the walls of the restore and the first capture after it.
+              the walls of the first step's parts (the library's load,
+              the first cuBLAS call, the first and second torch.func
+              gradient), the restore and the first capture after it.
               [statistical]: tests/test_torch_statistical.py's card cases
               in a subprocess (tests/test_statistical.py's analytic
               targets, f64 and bf16, through run's graphs): all 5 must
@@ -786,7 +793,7 @@ def run_nn_paths(dev, torch, nn_model, counters):
         "step: " + ", ".join(f"{k}={v[-1].item():.6g}"
                              for k, v in aux_n.items()))
     want = dict.fromkeys(counters, 0)
-    want.update(B3=LARGE_STEPS, B2=LARGE_STEPS + 1)
+    want.update(B3=LARGE_STEPS, B2=LARGE_STEPS + 1, **dp(LARGE_STEPS))
     if n_counts != want:
         fail(f"[large-n] launch counts {n_counts}, expected {want}")
     if not np.all(np.isfinite(big.samples)) or not all(
@@ -1559,7 +1566,8 @@ def run_tail_paths(dev, torch, counters, X, y, theta0, batch):
                            theta=theta0, device=device, **kwf)
 
     s = fused_sampler("cuda")
-    run_path("main-fused", s, batch, STEPS, dict(B1=STEPS, B10=STEPS, B2=1))
+    run_path("main-fused", s, batch, STEPS,
+             dict(B1=STEPS, B10=STEPS, B2=1, **dp(STEPS)))
     compare_with_cpu(fused_sampler, batch, FUSED_CLASS_STEPS, "main-fused",
                      0.1)
     compare_with_plain(
@@ -1584,7 +1592,8 @@ def run_tail_paths(dev, torch, counters, X, y, theta0, batch):
 
     s = epi_sampler()
     run_path("large-n-epilogue", s, batch, LARGE_STEPS,
-             dict(B3=LARGE_STEPS, B2=LARGE_STEPS + 1, B6=LARGE_STEPS))
+             dict(B3=LARGE_STEPS, B2=LARGE_STEPS + 1, B6=LARGE_STEPS,
+                  **dp(LARGE_STEPS)))
     compare_with_plain(
         "large-n-epilogue", epi_sampler, batch,
         plain_pallas_runner(epi_sampler(), batch, lr_grads, gram=False), 4,
@@ -1800,8 +1809,10 @@ def run_slice_phases(dev, torch, counters, gpu, main_make, main_sampler,
     if not 0 <= v_main < v0 / 10:
         fail("[ksd] the KSD did not fall below a tenth of theta0's")
     # ksd is plain PyTorch (the JAX package computes it outside any
-    # kernel): no kernel of the port launches.
-    counts["ksd"] = check_counts("ksd", counters, {})
+    # kernel); its scores are the linear model's torch.func gradients: the
+    # data products, once for each of the 7 score calls (V, U and the
+    # check's own on each sampler; theta0's V).
+    counts["ksd"] = check_counts("ksd", counters, dp(7))
     log(f"[ksd] phase {time.perf_counter() - t_phase:.1f} s")
 
     # [checkpoint]: 250 steps, save, 250 more; a fresh sampler restores and
@@ -1844,7 +1855,7 @@ def run_slice_phases(dev, torch, counters, gpu, main_make, main_sampler,
     # run: s1 2 calls, s2 1; train_with_recovery: ref 2 chunks, half 1,
     # resumed 1. B2 seeds each call's carry.
     counts["checkpoint"] = check_counts("checkpoint", counters, {
-        "B1": 7 * CKPT_STEPS, "B2": 7})
+        "B1": 7 * CKPT_STEPS, "B2": 7, **dp(7 * CKPT_STEPS)})
     same = np.array_equal(s1.samples, s2.samples) and all(
         torch.equal(x, y) for x, y in zip(s1.state.opt_state,
                                           s2.state.opt_state))
@@ -1871,7 +1882,9 @@ def run_slice_phases(dev, torch, counters, gpu, main_make, main_sampler,
         return main_make(device, kernel=InverseMultiquadricKernel())
     reset(counters)
     got = sampler_trial(lambda: imq("cuda"), batch, IMQ_STEPS)
-    counts["kernel-imq"] = check_counts("kernel-imq", counters, {})
+    # The trial's two samplers take 1 + IMQ_STEPS gradients.
+    counts["kernel-imq"] = check_counts("kernel-imq", counters,
+                                        dp(IMQ_STEPS + 1))
     check_class("kernel-imq", "the CPU", got,
                 sampler_trial(lambda: imq("cpu"),
                               {k: v.cpu() for k, v in batch.items()},
@@ -2009,8 +2022,9 @@ def check_bracket_kernels(dev, torch, theta, nn_theta):
 def plain_kernels():
     """The mesh paths' kernels swapped for their plain versions (on the
     card's tensors) while the block runs: B8, B9, B3 (both of its mesh
-    entry points), B7, B10 and the bin count."""
+    entry points), B7, B10, the bin count and the data products."""
     from stein_tpu_torch.models import bayesian_nn
+    from stein_tpu_torch.ops import data_product as dpm
     from stein_tpu_torch.ops import fused_median as fm
     from stein_tpu_torch.ops import median, svgd_tile
     from stein_tpu_torch.parallel import sharded_fused
@@ -2042,7 +2056,9 @@ def plain_kernels():
              (svgd_tile, "svgd_both_ksum_on_D",
               svgd_tile.svgd_both_ksum_on_D_plain),
              (bayesian_nn, "nn_grads", nn_plain),
-             (median, "bin_count", bin_count_plain)]
+             (median, "bin_count", bin_count_plain),
+             (dpm, "data_product", dpm.data_product_plain),
+             (dpm, "data_product_t", dpm.data_product_t_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
         for mod, name, fn in swaps:
@@ -2139,7 +2155,8 @@ def run_mesh_paths(dev, torch, counters, X, y, theta0, batch, nn_model):
             cfg.get("median_collectives") != "rounds":
         fail("[mesh] throughput_config did not pick fused_shard/rounds")
     make = sampler_for(N, lin, theta0, cfg)
-    s, _ = run_path("mesh", make, batch, dict(B8=MESH_STEPS, B3=MESH_STEPS))
+    s, _ = run_path("mesh", make, batch,
+                    dict(B8=MESH_STEPS, B3=MESH_STEPS, **dp(MESH_STEPS)))
     posterior("mesh", s, POSTERIOR_MESH_JAX)
     single = throughput_config(N, P)
     check_class("mesh", "the single-device fused_gram sampler on the card",
@@ -2150,10 +2167,10 @@ def run_mesh_paths(dev, torch, counters, X, y, theta0, batch, nn_model):
 
     run_path("mesh-grid", sampler_for(
         N, lin, theta0, dict(cfg, median_collectives="grid")), batch,
-        dict(B9=MESH_STEPS, B3=MESH_STEPS))
+        dict(B9=MESH_STEPS, B3=MESH_STEPS, **dp(MESH_STEPS)))
     run_path("mesh-ring", sampler_for(
         N, lin, theta0, dict(cfg, median_collectives="grid", comm="ring")),
-        batch, dict(B9=MESH_STEPS, B3=MESH_STEPS))
+        batch, dict(B9=MESH_STEPS, B3=MESH_STEPS, **dp(MESH_STEPS)))
 
     cfg_glm = throughput_config(N, P, mesh=mesh, model=lin)
     if "quadratic_form" not in cfg_glm:
@@ -2490,6 +2507,31 @@ def recovery_child(mode):
                   "process's start; exit 17", flush=True)
             os._exit(17)
 
+    # The process's first step, split: read in turn before
+    # train_with_recovery (which then meets each part warm) the kernel
+    # library's load (the parent built it), the first cuBLAS call, the
+    # first torch.func gradient of log_p (functorch's first transforms and
+    # the data products' first launches) and a second one.
+    from stein_tpu_torch import _cuda
+    from stein_tpu_torch.api import _make_grad_all
+    from stein_tpu_torch.utils.ravel import template_unraveler
+
+    grad_all = _make_grad_all(model.log_p,
+                              template_unraveler(model.template())[1])
+    first = {}
+    for name, fn in (
+            ("library load", _cuda.library),
+            ("first cuBLAS call",
+             lambda: torch.matmul(batch["X"], batch["X"][:1].T)),
+            ("first torch.func gradient",
+             lambda: grad_all(s.state.particles, batch)),
+            ("second torch.func gradient",
+             lambda: grad_all(s.state.particles, batch))):
+        timed(name, fn)()
+        first[name] = round(walls[name], 4)
+    print(f"[recovery] {mode}: the first step's parts, s: {first}",
+          flush=True)
+
     def capture(warm, body, inner=s._graphs.capture):
         return inner(timed("warm-up", warm), body)
     s.restore = timed("restore", s.restore)
@@ -2514,7 +2556,8 @@ def recovery_child(mode):
           f"{int(s.state.step)}; graph captures {s._graphs.captures}; "
           f"restore {walls.get('restore')} s, first capture "
           f"{walls.get('capture')} s (of which its warm-up step, the "
-          f"process's first, {walls.get('warm-up')} s), "
+          f"process's first after the parts above, {walls.get('warm-up')} "
+          "s), "
           f"train_with_recovery {wall:.4f} s, "
           f"{time.perf_counter() - t_start:.4f} s from the process's start",
           flush=True)
@@ -2784,6 +2827,98 @@ def check_bin_count(dev, torch):
     return 0.0, dict(first=cases[0][1:], idx=idx, shapes=shapes)
 
 
+# [kernels] data_product: the linear models' folded data products
+# (ops/data_product.py, csrc/data_product.cu) at the row counts the paths
+# give them, (n, N, p): [main] and its CPU comparisons (1000), [large-n]
+# (10240), a 4-card shard of [main] (250), the one-process mesh's median
+# block (256), meshL's 4-card shard (2048) and large_particle's (2560, p
+# 64); the sufficient batch's A [128, 128] and the logistic model's X [50,
+# 54] at n=1000.
+DP_CASES = ((1000, 1000, 128), (10240, 1000, 128), (250, 1000, 128),
+            (256, 1000, 128), (2048, 1000, 64), (2560, 1000, 64),
+            (1000, 128, 128), (1000, 50, 54))
+# Normalised error (max |kernel - plain| / max |plain|) against the plain
+# version (torch.matmul, TF32 off): the two f32 sums of up to 1000 terms
+# differ by their order only (f64: 1e-12; bf16, rounded once from f32
+# sums: two bf16 ulps, 8e-3).
+DP_BOUND = {"float32": 1e-5, "float64": 1e-12, "bfloat16": 8e-3}
+# Row invariance: each case's rows launched again in blocks of these
+# sizes, at every offset (0, b, 2b, ...), bitwise the full launch's rows.
+DP_BLOCKS = (250, 97, 33, 1)
+DP_REPS = 50
+
+
+def dp(steps):
+    """The launch counts of a linear model's torch.func gradient taken
+    ``steps`` times: one folded product and its transpose a gradient."""
+    return {"data_product": steps, "data_product_t": steps}
+
+
+def same_bits(a, b):
+    """Bitwise equality of two float tensors (-0.0 and 0.0 apart)."""
+    import torch
+
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(ints[a.element_size()]),
+        b.contiguous().view(ints[b.element_size()]))
+
+
+def check_data_product(dev, torch):
+    """[kernels] data_product: both entry points against their plain
+    versions at DP_CASES (f32; f64 and bf16 at [main]'s shape), within
+    DP_BOUND normalised; two calls bitwise; every case's rows in blocks of
+    DP_BLOCKS at every offset bitwise the full launch's. Returns the max
+    abs error (f32) and the timing inputs."""
+    from stein_tpu_torch.ops import data_product as dpm
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(17)
+    cases = [(n, N, p, torch.float32) for n, N, p in DP_CASES]
+    cases += [(1000, 1000, 128, torch.float64), (1000, 1000, 128,
+                                                 torch.bfloat16)]
+    err32, inputs, bad = 0.0, {}, []
+    for n, N, p, dtype in cases:
+        M = torch.tensor(rng.normal(size=(N, p)), dtype=dtype, device=dev)
+        W = torch.tensor(rng.normal(size=(n, p)), dtype=dtype, device=dev)
+        R = torch.tensor(rng.normal(size=(n, N)), dtype=dtype, device=dev)
+        name = str(dtype).split(".")[-1]
+        line = []
+        for fn, plain, A in ((dpm.data_product, dpm.data_product_plain, W),
+                             (dpm.data_product_t, dpm.data_product_t_plain,
+                              R)):
+            got, again = fn(M, A), fn(M, A)
+            want = plain(M, A)
+            blocks = {}
+            for b in DP_BLOCKS:
+                if b > n:
+                    continue
+                parts = [fn(M, A[a:a + b]) for a in range(0, n, b)]
+                blocks[b] = same_bits(torch.cat(parts), got)
+            torch.cuda.synchronize()
+            err = norm_err(got, want)
+            ok = (err <= DP_BOUND[name] and same_bits(again, got)
+                  and all(blocks.values()))
+            if dtype == torch.float32:
+                err32 = max(err32, (got - want).abs().max().item())
+            line.append(f"{fn.__name__} {err:.3e} normalised, repeat "
+                        f"bitwise {same_bits(again, got)}, blocks of "
+                        f"{sorted(blocks, reverse=True)} at every offset "
+                        f"bitwise {all(blocks.values())}")
+            if not ok:
+                bad.append(f"{fn.__name__} {name} n={n} N={N} p={p}")
+        log(f"[kernels] data_product {name} n={n} N={N} p={p}: "
+            + "; ".join(line) + f" (bound {DP_BOUND[name]:g})")
+        if dtype == torch.float32:
+            inputs[n, N, p] = (M, W, R)
+    log(f"[kernels] data_product: {2 * len(cases) - len(bad)} of "
+        f"{2 * len(cases)} entry points within the bound and row-invariant "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if bad:
+        fail(f"data_product disagrees or is not row-invariant: {bad}")
+    return err32, inputs
+
+
 def run_median_paths(dev, torch, counters, gpu):
     """[median-binned] and [median-subsample]: SVGDSampler(median='binned'
     | 'subsample', kernel_impl='pallas') at large_particle.py's default
@@ -2812,11 +2947,12 @@ def run_median_paths(dev, torch, counters, gpu):
     counts, timed = {}, {}
     for label, cfg, median_fn, want in (
             ("median-binned", dict(median="binned"), binned_plain,
-             dict(B3=MED_STEPS, bin_count=BIN_PER_STEP * MED_STEPS)),
+             dict(B3=MED_STEPS, bin_count=BIN_PER_STEP * MED_STEPS,
+                  **dp(MED_STEPS))),
             ("median-subsample", dict(median="subsample",
                                       median_max_rows=MED_ROWS),
              lambda t: subsampled_sq_dist_median(t, MED_ROWS),
-             dict(B3=MED_STEPS))):
+             dict(B3=MED_STEPS, **dp(MED_STEPS)))):
         def make(cfg=cfg):
             return SVGDSampler(MED_N, model.log_p, model.template(),
                                Adam(1e-2), theta=theta0, device="cuda",
@@ -2909,7 +3045,8 @@ def run_mesh_medians_2d(sampler_for, mesh2, run_path, X, y, theta0, batch,
                                 ("mesh-ring-binned", "ring", 1)):
         cfg = dict(median="binned", kernel_impl="pallas", comm=comm)
         run_path(label, sampler_for(N, lin, theta0, cfg), batch,
-                 dict(B3=MESH_STEPS, bin_count=2 * blocks * MESH_STEPS))
+                 dict(B3=MESH_STEPS, bin_count=2 * blocks * MESH_STEPS,
+                      **dp(MESH_STEPS)))
 
     cfg = throughput_config(N, P, mesh=mesh2, model_axis="model")
     log(f"[mesh2d] throughput_config({N}, {P}, mesh=, model_axis='model') "
@@ -2919,7 +3056,7 @@ def run_mesh_medians_2d(sampler_for, mesh2, run_path, X, y, theta0, batch,
         fail("[mesh2d] throughput_config did not pick the tile and rounds")
     cfg.pop("mesh")
     s, aux = run_path("mesh2d", sampler_for(N, lin, theta0, cfg, True),
-                      batch, dict(B10=MESH_STEPS))
+                      batch, dict(B10=MESH_STEPS, **dp(MESH_STEPS)))
     lp = aux["log_p_mean"][-1].item()
     post = np.linalg.solve(X.T @ X + np.eye(P), X.T @ y).ravel()
     err = float(np.max(np.abs(s.samples.mean(0) - post)))
@@ -2933,7 +3070,8 @@ def run_mesh_medians_2d(sampler_for, mesh2, run_path, X, y, theta0, batch,
             not err <= 4 * POSTERIOR_MESH2D_JAX:
         fail("[mesh2d] log_p_mean or the posterior mean is off")
     run_path("mesh2d-grid", sampler_for(N, lin, theta0, dict(
-        cfg, median_collectives="grid"), True), batch, dict(B10=MESH_STEPS))
+        cfg, median_collectives="grid"), True), batch,
+        dict(B10=MESH_STEPS, **dp(MESH_STEPS)))
 
     theta_nn = nn_data(NN_N)[2]
     cfg_nn = throughput_config(NN_N, NN_P, mesh=mesh2, model_axis="model",
@@ -3898,6 +4036,7 @@ def main():
     entry_errs, entry_in = check_sym_pblock_kernels(dev, torch, nn_model,
                                                     nn_batch, nn_theta)
     bin_err, bin_in = check_bin_count(dev, torch)
+    dp_err, dp_in = check_data_product(dev, torch)
 
     # ------------------------------------------------------ 4. main path
     # Every wrapper's launch count, the registry utils/graphs.py keeps.
@@ -3916,7 +4055,7 @@ def main():
     log(f"[main] run(batch, {STEPS}) in {wall:.2f} s (first call), "
         f"launches {launches}")
     want = dict.fromkeys(counters, 0)
-    want.update(B2=1, B1=STEPS)
+    want.update(B2=1, B1=STEPS, **dp(STEPS))
     if launches != want:
         fail(f"launch counts {launches}, expected {want}")
     samples = sampler.samples
@@ -4342,6 +4481,59 @@ def main():
             f"first level {levels['first']}, a second level's interval "
             f"{levels['second']}, both middle ranks' second levels in one "
             f"launch {levels['both']}")
+    # The data products at [main]'s, [large-n]'s and a 4-card shard's
+    # shapes: the kernel by device time, its plain version (torch.matmul of
+    # the folded operands: cuBLAS, the library call too) by events in turns
+    # and by device time. Then the gradient stage they feed
+    # (_make_grad_all of the linear model's log_p) by device time, with the
+    # data products and with torch.matmul in log_p (torch.func's batched
+    # GEMV, the route before them), in turns.
+    from stein_tpu_torch.models import linear_regression as lr_mod
+    from stein_tpu_torch.ops import data_product as dpm
+    dp_t = {}
+    for key in ((N, N_OBS, P), (LARGE_N, N_OBS, P), (N // 4, N_OBS, P)):
+        M_, W_, R_ = dp_in[key]
+        for fn, plain, A_ in ((dpm.data_product, dpm.data_product_plain,
+                               W_),
+                              (dpm.data_product_t, dpm.data_product_t_plain,
+                               R_)):
+            ms_, plain_ms_ = in_turns(lambda: plain(M_, A_),
+                                      lambda: fn(M_, A_), DP_REPS, torch)
+            dp_t[fn.__name__, key] = (
+                ms_, plain_ms_, device_us(lambda: fn(M_, A_), DP_REPS, torch),
+                device_us(lambda: plain(M_, A_), DP_REPS, torch))
+            log(f"[timing] {gpu}: {fn.__name__} n={key[0]} N={key[1]} "
+                f"p={key[2]}: kernel {dp_t[fn.__name__, key][2]} us "
+                f"(device; events {ms_ * 1e3:.2f}), plain (torch.matmul) "
+                f"{dp_t[fn.__name__, key][3]} us (device; events "
+                f"{plain_ms_ * 1e3:.2f})")
+
+    @contextlib.contextmanager
+    def gemv_log_p():
+        saved = lr_mod.matvec
+        lr_mod.matvec = torch.matmul
+        try:
+            yield
+        finally:
+            lr_mod.matvec = saved
+
+    def grad_stage(theta_, batch_):
+        return lambda: grad_all(theta_, batch_)
+    stage_us = {}
+    for label, th_, b_ in (("main", theta, batch),
+                           ("large-n", big.state.particles, lr_batch)):
+        reps = 20 if label == "main" else 5
+        with gemv_log_p():
+            g1 = device_us(grad_stage(th_, b_), reps, torch)
+        d1 = device_us(grad_stage(th_, b_), reps, torch)
+        d2 = device_us(grad_stage(th_, b_), reps, torch)
+        with gemv_log_p():
+            g2 = device_us(grad_stage(th_, b_), reps, torch)
+        stage_us[label] = ((d1, d2), (g1, g2))
+        log(f"[timing] {gpu}: the gradient stage of [{label}] (n="
+            f"{th_.shape[0]}), device us a call in turns: with the data "
+            f"products {d1}, {d2}; with torch.func's batched GEMV "
+            f"{g1}, {g2}")
     # One-process NCCL collectives: wall µs per call on the host clock
     # (the step's host cost), the device's share is in [profile].
     from stein_tpu_torch.parallel import collectives as coll
@@ -4443,6 +4635,18 @@ def main():
     log(f"[graph] phase {time.perf_counter() - t_graph:.1f} s")
 
     total = {k: sum(c[k] for c in path_counts.values()) for k in counters}
+
+    def dp_ms(t):
+        """(ms, plain ms) of a data-product reading: the kernel's device
+        time where device_us read it, else events; the plain version by
+        events."""
+        return (t[0] if t[2] is None else t[2] / 1e3), t[1]
+
+    def dp_lib(t):
+        return t[1] if t[3] is None else t[3] / 1e3
+
+    def dp_by(t):
+        return "events" if t[2] is None else "device"
 
     def row(name, key, source, replaces, err, ms, plain_ms, nbytes, ops,
             library_ms=None, tf32_ops=0, bf16_ops=0, ms_by="events"):
@@ -4573,6 +4777,23 @@ def main():
             sum(t.element_size() * t.numel() for t in bin_first[:3])
             + 2 * 4 * bin_first[-1], 7 * bin_first[0].numel(), bin_lib,
             ms_by=bin_by),
+        # The data products at [main]'s shape: 2 n N p FLOP on the CUDA
+        # cores (f32); bytes: the particles' rows (or the residual rows) and
+        # the data matrix in, the product out. No Pallas site: XLA forms the
+        # JAX models' products. The library call is the plain version's
+        # one torch.matmul (cuBLAS).
+        *[row(f"{name}, the linear models' {what} folded", name,
+              "data_product.cu",
+              "none: jnp.matmul(batch['X'], w) under jax.vmap("
+              "jax.value_and_grad) (stein_tpu/models/linear_regression.py:"
+              "93, logistic_regression.py:163, stein_tpu/api.py:442; XLA, "
+              "no Pallas kernel)", dp_err,
+              *dp_ms(dp_t[name, (N, N_OBS, P)]),
+              4 * (N * P + N_OBS * P + N * N_OBS), 2 * N * N_OBS * P,
+              dp_lib(dp_t[name, (N, N_OBS, P)]),
+              ms_by=dp_by(dp_t[name, (N, N_OBS, P)]))
+          for name, what in (("data_product", "X @ w"),
+                             ("data_product_t", "X^T r"))],
         row("fused_warm_step_pblock", "B12", "stein_kernels.cu",
             "stein_tpu/ops/pallas_step.py:619", entry_errs["B12"],
             *row_ms["B12"][:2], 4 * 7 * nn_n * nn_p,

@@ -106,6 +106,12 @@ _SIGNATURES = {
     "stein_glm_grads": (
         (_P, _I, _I, _P, _P, _P, _P, _P),   # theta, n, p, A, b, grads, logp
         _I),
+    "stein_data_product": (
+        (_P, _P, _P, _I, _I, _I, _I, _P),   # W, M, Y, n, N, p, dtype, stream
+        _I),
+    "stein_data_product_t": (
+        (_P, _P, _P, _I, _I, _I, _I, _P),   # R, M, G, n, N, p, dtype, stream
+        _I),
     "stein_logistic_grads": (
         (_P, _I, _I, _P, _P, _I, _P, _P,    # theta, n, p, X, y, N, masks
          _F, _F, _P, _P, _P),               # scale, d/2, grads, logp, stream

@@ -4,9 +4,12 @@ PyTorch counterpart of ``stein_tpu/models/linear_regression.py``: the
 reference example's model (examples/linear_regression/main.py:18-31), an
 N(0,1) prior on the weights and a unit-variance Gaussian likelihood,
   log_p = -0.5 * sum((Xw - y)^2) + sum log N(w; 0, 1).
-Data matmuls are f32 ``torch.matmul``s (full f32 unless the caller turns
-TF32 on), the precision the JAX model's default "high" tier stands for; its
-``precision=`` field is kept and checked, and changes nothing.
+``log_p``'s data products (``X @ w``, ``A @ w``) go through
+``ops/data_product.matvec``: under ``vmap(grad_and_value)`` every particle's
+product is one folded launch of a kernel with a fixed reduction order, in
+IEEE f32, the precision the JAX model's default "high" tier stands for
+(``predict`` is a ``torch.matmul``, full f32 unless the caller turns TF32
+on); its ``precision=`` field is kept and checked, and changes nothing.
 """
 
 import dataclasses
@@ -14,6 +17,7 @@ import math
 
 import torch
 
+from ..ops.data_product import matvec
 from .distributions import check_precision, normal_log_prob
 
 
@@ -61,13 +65,13 @@ class LinearRegressionModel:
     def log_p(self, params, batch):
         w = params["w"]
         if "A" in batch:
-            Aw = torch.matmul(batch["A"], w)
+            Aw = matvec(batch["A"], w)
             log_l = -0.5 * (
                 torch.sum(w * Aw) - 2.0 * torch.sum(batch["b"] * w)
                 + batch["yty"]
             )
         else:
-            y_hat = torch.matmul(batch["X"], w)
+            y_hat = matvec(batch["X"], w)
             log_l = -0.5 * torch.sum(torch.square(y_hat - batch["y"]))
         log_prior = torch.sum(normal_log_prob(w, 0.0, 1.0))
         return log_l + log_prior

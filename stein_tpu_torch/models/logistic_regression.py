@@ -6,8 +6,9 @@ Gamma(1, 0.01) prior on the precision alpha = exp(log_alpha), evaluated at
 alpha with no Jacobian correction as the reference does, an N(0, alpha^-1/2)
 prior on the weights and the sigmoid cross-entropy likelihood rescaled by
 n_train/n_batch. The JAX model's ``precision=`` field is kept and checked
-and changes nothing: data products are f32 ``torch.matmul``s (see
-``models/distributions.py``).
+and changes nothing: ``log_p``'s logits ``X @ w`` go through
+``ops/data_product.matvec`` (one folded launch for every particle under
+``vmap(grad_and_value)``, a fixed reduction order, IEEE f32).
 
 ``inkernel_model(batch)`` packages the model for step_impl='fused_model':
 its gradients and log_p values come from the fused step's logistic stage
@@ -20,6 +21,7 @@ import math
 
 import torch
 
+from ..ops.data_product import matvec
 from ..ops.fused_step import InKernelModel
 from ..ops.model_grad import LogisticGrad
 from ..utils.ravel import template_unraveler
@@ -98,7 +100,7 @@ class LogisticRegressionModel:
     def log_p(self, params, batch):
         w = params["w"]
         alpha = torch.exp(params["log_alpha"])
-        logits = torch.matmul(batch["X"], w)
+        logits = matvec(batch["X"], w)
         log_l = -torch.sum(
             sigmoid_cross_entropy_with_logits(batch["y"], logits))
         w_prior = torch.sum(normal_log_prob(w, 0.0, 1.0 / torch.sqrt(alpha)))

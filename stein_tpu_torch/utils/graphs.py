@@ -156,7 +156,14 @@ def launch_counters():
     """Every kernel wrapper's launch count by the kernel's name: (wrapper,
     attribute). Each wrapper adds one where it launches its kernel."""
     from ..models import bayesian_nn
-    from ..ops import fused_median, fused_step, median, model_grad, svgd_tile
+    from ..ops import (
+        data_product,
+        fused_median,
+        fused_step,
+        median,
+        model_grad,
+        svgd_tile,
+    )
 
     return {"B1": (fused_step.fused_warm_step_tail, "launches"),
             "B2": (fused_median.fused_warm_median_rows, "launches"),
@@ -173,6 +180,8 @@ def launch_counters():
             "B12": (fused_step.fused_warm_step_pblock, "launches"),
             "glm": (model_grad.glm_grads, "launches"),
             "bin_count": (median.bin_count, "launches"),
+            "data_product": (data_product.data_product, "launches"),
+            "data_product_t": (data_product.data_product_t, "launches"),
             "logistic": (model_grad.logistic_grads, "launches")}
 
 

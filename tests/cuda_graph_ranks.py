@@ -26,9 +26,11 @@ bench_torch's meshL rows at n=8192, p=64):
   one-rank group) at the classes of ROADMAP's contracts (SHARD_CLASS and
   the rest below), with 200 median rows for the n=1000 paths: every fifth
   particle on one rank and on 2 or 4, where throughput_config's 256 take
-  other particles on each (other D entries, another median); the paths
-  held to the fused_gram class also print a 5-step reading at
-  tests/test_sharded.py:628's class (its own step count);
+  other particles on each (other D entries, another median); the
+  torch.func paths (fused_shard rounds, grid, ring) are also held at
+  tests/test_sharded.py:628's class over its own 5 steps, and on the card
+  their gradients (like the binned and the warm ring's) must be the same
+  bits on a rank's block as in the gathered block (gradient_blocks);
 - (iv) each kernel of the path once at this rank's shapes against its
   plain version (chip_smoke.py's [kernels] bounds).
 
@@ -172,11 +174,12 @@ def compare(label, s, batch, data, rank=0):
 # rtol, samples rtol, samples atol, steps).
 # - tests/test_sharded.py:628's class of the fused mesh step (samples 5e-5
 #   / 1e-7, medians 1e-6), where a particle's gradient is the same bits in
-#   a block of 250 and of 1000 (quadratic_form's model stage, B7);
-# - the fused_gram class where torch.func forms the gradients: its batched
-#   GEMV rounds by the block's particle count (gradient_blocks prints it),
-#   as the same in-kernel-Gram path in another fp order does; :628's
-#   verdict is printed beside it;
+#   a block of 250 and of 1000: quadratic_form's model stage, B7, and the
+#   torch.func gradients of the linear model, whose data products
+#   (ops/data_product.py) sum every element in one fixed order whatever
+#   the block (gradient_blocks checks it on the card). The torch.func
+#   paths are also held at :628's own 5 steps, and the fused_gram class's
+#   verdict is printed beside them;
 # - the warm mesh steps: the warm bisect class;
 # - the 2-D mesh, chaotic (its D rows are psum'd partial Grams): the
 #   fused_gram class for 5 steps;
@@ -198,7 +201,7 @@ CLASS_2D = ("the fused_gram", 5e-3, 1e-4, 2e-4, 1e-6, 5)
 MESHL_CLASS = ("tests_tpu/test_tpu_fidelity.py:776's", 2e-2, 2e-2, 2e-2,
                1e-4, 10)
 # The stricter class whose verdict (iii) prints beside a path's own.
-BESIDE = {GRAM_CLASS: SHARD_CLASS, MESHL_CLASS: GRAM_CLASS,
+BESIDE = {MESHL_CLASS: GRAM_CLASS,
           BINNED_CLASS: COLD_CLASS}
 # The n=1000 paths' median rows for (iii) (see the module docstring).
 SAME_ROWS = 200
@@ -206,8 +209,7 @@ SAME_ROWS = 200
 # normalised; B7's logp (rtol, atol) and grads (of max |g|).
 B3_BOUND, BRACKET_BOUND, B10_BOUND = 1e-4, 1e-5, 1e-5
 B7_LOGP, B7_GRADS = (2e-5, 1e-5), 2e-5
-# (iii)'s reading at :628's own step count, printed beside the fused_gram
-# class's verdict.
+# (iii)'s second gate of the torch.func paths, :628's own step count.
 SHARD_CLASS_5 = SHARD_CLASS[:-1] + (5,)
 # --timing: steps a reading (whole chunks), and profiled steps.
 TIMED_STEPS = 4 * graphs.CHUNK
@@ -308,6 +310,7 @@ def build(model, batch, opt, meshes, n, dev):
         def make(mesh, rows=None):
             return bench_torch.make_meshL_sampler(mesh, device=dev, **arm)[0]
         return SimpleNamespace(make=make, batch=batch, data=None,
+                               torch_func=False,
                                klass=MESHL_CLASS, mesh=meshes.world,
                                solo=meshes.solo, cfg=cfg)
     p = 303 if isinstance(model, BayesianNNModel) else 128
@@ -327,7 +330,7 @@ def build(model, batch, opt, meshes, n, dev):
         mesh, solo = meshes.world, meshes.solo
         cfg = st.throughput_config(n, p, mesh=mesh, model=opt.get("model"))
         cfg.update({k: v for k, v in opt.items() if k != "model"})
-        klass = SHARD_CLASS if "model" in opt else GRAM_CLASS
+        klass = SHARD_CLASS
     theta0 = np.random.default_rng(1).normal(size=(n, p)) * 0.1
 
     def make(m, rows=None):
@@ -340,7 +343,9 @@ def build(model, batch, opt, meshes, n, dev):
     if opt.get("model") is model and hasattr(model, "sufficient_batch"):
         batch, data = model.sufficient_batch(batch), None
     return SimpleNamespace(make=make, batch=batch, data=data, klass=klass,
-                           mesh=mesh, solo=solo, cfg=cfg)
+                           mesh=mesh, solo=solo, cfg=cfg,
+                           torch_func=klass is SHARD_CLASS
+                           and "model" not in opt)
 
 
 def ranks_agree(label, aux, world):
@@ -400,12 +405,14 @@ def class_excess(klass, got, want, eps_rule=True):
 def one_card(label, path, rows):
     """(iii): the mesh's gathered trial against the one-card run of the
     same configuration, on rank 0, at the path's class (and the verdict
-    of the stricter class BESIDE it); a path held to the fused_gram class
-    also gets a 5-step reading at SHARD_CLASS_5 (its verdict printed)."""
+    of the class BESIDE it); the torch.func paths are also held at
+    SHARD_CLASS_5, :628's own 5 steps, with the fused_gram class's verdict
+    printed beside."""
     name, steps = path.klass[0], path.klass[-1]
+    torch_func = getattr(path, "torch_func", False)
     got = trial(path.make(path.mesh, rows), path.batch, steps)
     got5 = (trial(path.make(path.mesh, rows), path.batch, SHARD_CLASS_5[-1])
-            if path.klass is GRAM_CLASS else None)
+            if torch_func else None)
     if path.solo is None:
         return
     want = trial(path.make(path.solo, rows), path.batch, steps)
@@ -415,7 +422,7 @@ def one_card(label, path, rows):
     print(f"[ranks] {label}: {steps} steps vs one card ({rows_txt}): "
           f"samples max abs {diff:.3e}; at {name} class: {line}: "
           f"{'within' if ok else 'OUTSIDE'}", flush=True)
-    beside = BESIDE.get(path.klass)
+    beside = GRAM_CLASS if torch_func else BESIDE.get(path.klass)
     if beside is not None:
         also_ok, also = class_excess(beside, got, want)
         print(f"[ranks] {label}: at {beside[0]} class: {also}: "
@@ -426,7 +433,8 @@ def one_card(label, path, rows):
         ok5, line5 = class_excess(SHARD_CLASS_5, got5, want5)
         print(f"[ranks] {label}: {SHARD_CLASS_5[-1]} steps vs one card at "
               f"{SHARD_CLASS_5[0]} class (its own step count): {line5}: "
-              f"{'within' if ok5 else 'outside'}", flush=True)
+              f"{'within' if ok5 else 'OUTSIDE'}", flush=True)
+        ok = ok and ok5
     if not ok:
         raise RuntimeError(f"{label}: the mesh left the one-card run's "
                            "class")
@@ -434,8 +442,10 @@ def one_card(label, path, rows):
 
 def gradient_blocks(label, s, model, batch, world):
     """The torch.func gradients of this rank's particles against the same
-    rows of the gathered block's (rank 0 prints whether they are the same
-    bits on every rank, and the largest relative difference)."""
+    rows of the gathered block's: on the card the same bits on every rank
+    (the data products' row invariance), else it raises; rank 0 prints the
+    verdict and the largest relative difference. With --cpu the plain
+    version's torch.matmul makes no such promise: printed only."""
     from stein_tpu_torch.api import _make_grad_all
     from stein_tpu_torch.utils.ravel import template_unraveler
 
@@ -455,6 +465,9 @@ def gradient_blocks(label, s, model, batch, world):
         f"{n_loc} particles against the same rows of all {cols.shape[0]}: "
         f"the same bits {eq.tolist()}, max relative difference "
         f"{rel.max().item():.3e}")
+    if blk.device.type == "cuda" and not bool(eq.all()):
+        raise RuntimeError(f"{label}: a rank's torch.func gradients are not "
+                           "the same bits as the gathered block's rows")
 
 
 def bracket_case(rows, cols):
@@ -734,7 +747,7 @@ def check_path(label, spec, meshes, n, dev, cpu, timing_on):
         lambda: ranks_agree(label, s.run(path.batch, graphs.CHUNK + 3),
                             meshes.world),
         lambda: one_card(label, path, rows)]
-    if path.klass in (GRAM_CLASS, BINNED_CLASS):
+    if path.torch_func or path.klass in (BINNED_CLASS, WARM_CLASS):
         checks.append(lambda: gradient_blocks(label, s, model, path.batch,
                                               meshes.world))
     if not cpu:

@@ -1304,3 +1304,141 @@ def test_mesh_graphs_across_cards(dev):
         pytest.skip("needs 2 or more cards (one NCCL rank a card)")
     world = 4 if cards >= 4 else 2
     assert cuda_mesh_cards.main(["--world", str(world)]) == 0
+
+
+# ------------------------------------------------------ the data products
+# ops/data_product.py (csrc/data_product.cu): the folded products of the
+# linear models' log_p at the paths' row counts (n, N, p), chip_smoke.py's
+# [kernels] data_product cases: [main] 1000, [large-n] 10240, a 4-card
+# shard 250, the mesh's median block 256, meshL's 4-card shard 2048 and
+# large_particle's 2560 (p 64). Each entry point within 1e-5 normalised of
+# its plain version (f32 sums of up to 1000 terms in another order), and
+# row-invariant: every block of rows launched alone, at every offset, is
+# bitwise the full launch's rows.
+
+DP_BLOCKS = (250, 97, 33, 1)
+
+
+def _bits(t):
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.contiguous().view(ints[t.element_size()])
+
+
+def _dp_operands(dev, n, N, p, dtype=torch.float32, seed=17):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.normal(size=shape), dtype=dtype, device=dev)
+            for shape in ((N, p), (n, p), (n, N))]
+
+
+@pytest.mark.parametrize("n,N,p", [(1000, 1000, 128), (10240, 1000, 128),
+                                   (250, 1000, 128), (256, 1000, 128),
+                                   (2048, 1000, 64), (2560, 1000, 64),
+                                   (1000, 128, 128), (1000, 50, 54)])
+def test_data_product_against_plain_and_row_invariant(dev, n, N, p):
+    from stein_tpu_torch.ops import data_product as dp
+
+    M, W, R = _dp_operands(dev, n, N, p)
+    for fn, plain, A in ((dp.data_product, dp.data_product_plain, W),
+                         (dp.data_product_t, dp.data_product_t_plain, R)):
+        before = fn.launches
+        got = fn(M, A)
+        assert fn.launches == before + 1
+        assert _norm_err(got, plain(M, A)) <= 1e-5
+        assert torch.equal(_bits(fn(M, A)), _bits(got))
+        for b in DP_BLOCKS:
+            parts = torch.cat([fn(M, A[a:a + b]) for a in range(0, n, b)])
+            assert torch.equal(_bits(parts), _bits(got)), (fn.__name__, b)
+
+
+@pytest.mark.parametrize("dtype,bound", [(torch.float64, 1e-12),
+                                         (torch.bfloat16, 8e-3)])
+def test_data_product_other_dtypes(dev, dtype, bound):
+    """f64 sums in f64; bf16 operands sum in f32 and round once (two bf16
+    ulps of the plain version's cuBLAS product); both row-invariant."""
+    from stein_tpu_torch.ops import data_product as dp
+
+    M, W, R = _dp_operands(dev, 1000, 1000, 128, dtype)
+    for fn, plain, A in ((dp.data_product, dp.data_product_plain, W),
+                         (dp.data_product_t, dp.data_product_t_plain, R)):
+        got = fn(M, A)
+        assert got.dtype == dtype
+        assert _norm_err(got, plain(M, A)) <= bound
+        parts = torch.cat([fn(M, A[a:a + 97]) for a in range(0, 1000, 97)])
+        assert torch.equal(_bits(parts), _bits(got))
+    with pytest.raises(TypeError, match="float32, float64 or bfloat16"):
+        dp.data_product(M.half(), W.half())
+
+
+@pytest.mark.parametrize("kind", ["lr-X", "lr-A", "logistic"])
+def test_model_gradients_through_the_data_products(dev, kind):
+    """_make_grad_all of the linear models' log_p on the card: one launch
+    of each product a call (remat=True: the forward twice), no bmm left;
+    the plain and remat routes bitwise equal; against the CPU run (values
+    rtol 1e-5, gradients 1e-5 normalised: f32 sums of up to 1000 terms in
+    another order, the data products' [kernels] bound); and C10's
+    contract: the gradients of a block of 250 particles are the same bits
+    as those rows of the block of 1000 (the logistic model's weight
+    columns: its log_alpha column is a torch.sum over the weights)."""
+    from stein_tpu_torch.api import _make_grad_all
+    from stein_tpu_torch.ops import data_product as dp
+    from stein_tpu_torch.utils.ravel import template_unraveler
+
+    rng = np.random.default_rng(3)
+    n_obs, d = (50, 54) if kind == "logistic" else (1000, 128)
+    X = rng.normal(size=(n_obs, d)) * (0.25 if kind == "logistic" else 0.05)
+    if kind == "logistic":
+        model = LogisticRegressionModel(d, 2 * n_obs, n_obs)
+        y = (X @ rng.normal(size=(d, 1)) > 0) * 1.0
+        p = d + 1
+    else:
+        model = LinearRegressionModel(d)
+        y = X @ rng.normal(size=(d, 1)) + rng.normal(size=(n_obs, 1)) * 0.3
+        p = d
+    cpu = {"X": torch.tensor(X, dtype=torch.float32),
+           "y": torch.tensor(y, dtype=torch.float32)}
+    if kind == "lr-A":
+        cpu = model.sufficient_batch(cpu)
+    batch = {k: v.to(dev) for k, v in cpu.items()}
+    theta = torch.tensor(rng.normal(size=(1000, p)) * 0.5,
+                         dtype=torch.float32)
+    unravel = template_unraveler(model.template())[1]
+    grad_all = _make_grad_all(model.log_p, unravel)
+    remat = _make_grad_all(model.log_p, unravel, remat=True)
+    counts = (dp.data_product, dp.data_product_t)
+    before = [fn.launches for fn in counts]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        v, g = grad_all(theta.to(dev), batch)
+        torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(counts, before)] == [1, 1]
+    assert "aten::bmm" not in {e.key for e in prof.key_averages()}
+    v1, g1 = remat(theta.to(dev), batch)
+    assert [fn.launches - b for fn, b in zip(counts, before)] == [3, 2]
+    assert torch.equal(v, v1) and torch.equal(g, g1)
+    v_cpu, g_cpu = grad_all(theta, cpu)
+    np.testing.assert_allclose(v.cpu().numpy(), v_cpu.numpy(), rtol=1e-5)
+    assert _norm_err(g, g_cpu) <= 1e-5
+    cols = (model._ravel_layout()[1].to(dev) if kind == "logistic"
+            else torch.arange(p, device=dev))
+    for a in range(0, 1000, 250):
+        _, g_blk = grad_all(theta[a:a + 250].to(dev), batch)
+        assert torch.equal(_bits(g_blk[:, cols]), _bits(g[a:a + 250, cols]))
+
+
+def test_sampler_counts_the_data_products(dev):
+    """A torch.func LR path (fused_gram) launches each product once a
+    step, through the graphs (counts added per replay)."""
+    from stein_tpu_torch.ops import data_product as dp
+
+    rng = np.random.default_rng(0)
+    X = torch.tensor(rng.normal(size=(200, 16)), dtype=torch.float32,
+                     device=dev)
+    batch = {"X": X, "y": X @ torch.ones(16, 1, device=dev)}
+    lin = LinearRegressionModel(16)
+    s = SVGDSampler(600, lin.log_p, lin.template(), Adam(1e-1),
+                    theta=rng.normal(size=(600, 16)) * 0.1, device="cuda",
+                    **throughput_config(600, 16))
+    dp.data_product.launches = dp.data_product_t.launches = 0
+    s.run(batch, 37)
+    torch.cuda.synchronize()
+    assert (dp.data_product.launches, dp.data_product_t.launches) == (37, 37)
