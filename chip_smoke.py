@@ -27,9 +27,11 @@ results, and times the steps and the kernels. Phases:
               one and two windows, 4096/2048/1 bins (and past the shared
               memory), a lattice with NaN, infinities and an overflowing
               2 g, f32, bf16 and f64; the linear models' data products
-              (csrc/data_product.cu, both entry points) at the paths' row
-              counts against torch.matmul, and row-invariant: blocks of
-              rows at every offset bitwise the full launch's; at the
+              (csrc/data_product.cu, both entry points, f32 and bf16 on
+              the tensor cores) at the paths' row counts and the
+              transpose's split edges against torch.matmul, and
+              row-invariant: blocks of rows at every offset bitwise the
+              full launch's; HMMA instructions in their SASS; at the
               stated tolerances
   4. main     the bench's p=128 Bayesian linear regression at n=1000
               (B1, B2; the data products of its torch.func gradients):
@@ -160,6 +162,11 @@ results, and times the steps and the kernels. Phases:
               in a subprocess (tests/test_statistical.py's analytic
               targets, f64 and bf16, through run's graphs): all 5 must
               pass.
+
+With --data-product it stops after the build and prints only the data
+products' [kernels] lines (the checks and the SASS route) and their
+[timing] lines (device µs in turns with torch.matmul at [main]'s,
+[large-n]'s and a 4-card shard's shapes).
 
 With --split it stops after the build and prints only [split]: the device
 time of the median kernel's Gram stage apart from its search at each
@@ -2833,14 +2840,20 @@ def check_bin_count(dev, torch):
 # (10240), a 4-card shard of [main] (250), the one-process mesh's median
 # block (256), meshL's 4-card shard (2048) and large_particle's (2560, p
 # 64); the sufficient batch's A [128, 128] and the logistic model's X [50,
-# 54] at n=1000.
+# 54] at n=1000; then the transpose's split at its edges: a ragged last
+# chunk that is no multiple of 8 and rows of 55 (neither 16-byte aligned),
+# chunks of 512 (N = 4096), a single row.
 DP_CASES = ((1000, 1000, 128), (10240, 1000, 128), (250, 1000, 128),
             (256, 1000, 128), (2048, 1000, 64), (2560, 1000, 64),
-            (1000, 128, 128), (1000, 50, 54))
+            (1000, 128, 128), (1000, 50, 54), (97, 999, 55),
+            (256, 4096, 64), (1, 1000, 128))
+# Other dtypes: f64 and bf16 at [main]'s shape, bf16 at the 4-card shard.
+DP_OTHER = (("float64", (1000, 1000, 128)), ("bfloat16", (1000, 1000, 128)),
+            ("bfloat16", (250, 1000, 128)))
 # Normalised error (max |kernel - plain| / max |plain|) against the plain
-# version (torch.matmul, TF32 off): the two f32 sums of up to 1000 terms
-# differ by their order only (f64: 1e-12; bf16, rounded once from f32
-# sums: two bf16 ulps, 8e-3).
+# version (torch.matmul, TF32 off): f32 sums of up to 4096 terms in
+# another order, the kernel's in 3xTF32 (f64: 1e-12; bf16, rounded once
+# from f32 sums: two bf16 ulps, 8e-3).
 DP_BOUND = {"float32": 1e-5, "float64": 1e-12, "bfloat16": 8e-3}
 # Row invariance: each case's rows launched again in blocks of these
 # sizes, at every offset (0, b, 2b, ...), bitwise the full launch's rows.
@@ -2866,17 +2879,16 @@ def same_bits(a, b):
 
 def check_data_product(dev, torch):
     """[kernels] data_product: both entry points against their plain
-    versions at DP_CASES (f32; f64 and bf16 at [main]'s shape), within
-    DP_BOUND normalised; two calls bitwise; every case's rows in blocks of
-    DP_BLOCKS at every offset bitwise the full launch's. Returns the max
-    abs error (f32) and the timing inputs."""
+    versions at DP_CASES (f32) and DP_OTHER, within DP_BOUND normalised;
+    two calls bitwise; every case's rows in blocks of DP_BLOCKS at every
+    offset bitwise the full launch's. Returns the max abs error (f32) and
+    the timing inputs."""
     from stein_tpu_torch.ops import data_product as dpm
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(17)
     cases = [(n, N, p, torch.float32) for n, N, p in DP_CASES]
-    cases += [(1000, 1000, 128, torch.float64), (1000, 1000, 128,
-                                                 torch.bfloat16)]
+    cases += [(*shape, getattr(torch, name)) for name, shape in DP_OTHER]
     err32, inputs, bad = 0.0, {}, []
     for n, N, p, dtype in cases:
         M = torch.tensor(rng.normal(size=(N, p)), dtype=dtype, device=dev)
@@ -2897,17 +2909,20 @@ def check_data_product(dev, torch):
                 blocks[b] = same_bits(torch.cat(parts), got)
             torch.cuda.synchronize()
             err = norm_err(got, want)
+            failing = [b for b, same in blocks.items() if not same]
             ok = (err <= DP_BOUND[name] and same_bits(again, got)
-                  and all(blocks.values()))
+                  and not failing)
             if dtype == torch.float32:
                 err32 = max(err32, (got - want).abs().max().item())
             line.append(f"{fn.__name__} {err:.3e} normalised, repeat "
                         f"bitwise {same_bits(again, got)}, blocks of "
                         f"{sorted(blocks, reverse=True)} at every offset "
-                        f"bitwise {all(blocks.values())}")
+                        f"bitwise {not failing}"
+                        + (f" (not: {failing})" if failing else ""))
             if not ok:
                 bad.append(f"{fn.__name__} {name} n={n} N={N} p={p}")
-        log(f"[kernels] data_product {name} n={n} N={N} p={p}: "
+        log(f"[kernels] data_product {name} n={n} N={N} p={p} (the "
+            f"transpose's split {dpm.transpose_plan(N)}): "
             + "; ".join(line) + f" (bound {DP_BOUND[name]:g})")
         if dtype == torch.float32:
             inputs[n, N, p] = (M, W, R)
@@ -2917,6 +2932,70 @@ def check_data_product(dev, torch):
     if bad:
         fail(f"data_product disagrees or is not row-invariant: {bad}")
     return err32, inputs
+
+
+def data_product_route(lib):
+    """[kernels] data_product route: the count of HMMA (tensor-core)
+    instructions in the SASS of every f32 and bf16 instance of both
+    tensor-core kernels of csrc/data_product.cu (cuobjdump --dump-sass of
+    the built library); fails unless each product has instances of both
+    dtypes and every one holds HMMA."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", str(lib.path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    found = {f"{k} {d}": [] for k in ("forward", "transpose")
+             for d in ("f32", "bf16")}
+    for part in sass.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        m = re.search(r"tc_(forward|transpose)_kernelILb([01])E", name)
+        if m:
+            found[f"{m.group(1)} {('f32', 'bf16')[int(m.group(2))]}"].append(
+                body.count("HMMA"))
+    log(f"[kernels] data_product route: HMMA instructions in the SASS of "
+        f"each tensor-core instance (cuobjdump --dump-sass "
+        f"{lib.path.name}): {json.dumps(found)}")
+    bad = [k for k, v in found.items() if not v or min(v) == 0]
+    if bad:
+        fail(f"data_product: no tensor-core instructions in {bad}")
+
+
+def data_product_timing(torch, gpu, dp_in):
+    """[timing] data_product: each product at [main]'s, [large-n]'s and a
+    4-card shard's shapes against its plain version (torch.matmul of the
+    folded operands: cuBLAS, the library call too), by device time
+    (device_us) in turns plain, kernel, kernel, plain, and by events in
+    turns. Returns {(name, (n, N, p)): (ms by events, plain ms by events,
+    kernel device µs, plain device µs)}, each device figure the mean of its
+    two readings (None where one was not read)."""
+    from stein_tpu_torch.ops import data_product as dpm
+
+    def mean(a, b):
+        return None if a is None or b is None else (a + b) / 2
+
+    dp_t = {}
+    for key in ((N, N_OBS, P), (LARGE_N, N_OBS, P), (N // 4, N_OBS, P)):
+        M_, W_, R_ = dp_in[key]
+        for fn, plain, A_ in ((dpm.data_product, dpm.data_product_plain,
+                               W_),
+                              (dpm.data_product_t, dpm.data_product_t_plain,
+                               R_)):
+            ms_, plain_ms_ = in_turns(lambda: plain(M_, A_),
+                                      lambda: fn(M_, A_), DP_REPS, torch)
+            p1 = device_us(lambda: plain(M_, A_), DP_REPS, torch)
+            k1 = device_us(lambda: fn(M_, A_), DP_REPS, torch)
+            k2 = device_us(lambda: fn(M_, A_), DP_REPS, torch)
+            p2 = device_us(lambda: plain(M_, A_), DP_REPS, torch)
+            dp_t[fn.__name__, key] = (ms_, plain_ms_, mean(k1, k2),
+                                      mean(p1, p2))
+            log(f"[timing] {gpu}: {fn.__name__} n={key[0]} N={key[1]} "
+                f"p={key[2]}: kernel {k1}, {k2} us (device, in turns with "
+                f"plain; events {ms_ * 1e3:.2f}), plain (torch.matmul) "
+                f"{p1}, {p2} us (device; events {plain_ms_ * 1e3:.2f})")
+    return dp_t
 
 
 def run_median_paths(dev, torch, counters, gpu):
@@ -3907,6 +3986,10 @@ def main():
     for line in lib.build_log.splitlines():
         if any(w in line for w in ("registers", "Compiling entry", "spill")):
             log(f"[build] {line.strip()}")
+    if "--data-product" in sys.argv[1:]:
+        data_product_route(lib)
+        data_product_timing(torch, gpu, check_data_product(dev, torch)[1])
+        return 0
     if "--split" in sys.argv[1:]:
         redesign_split(dev, torch, gpu)
         pass_split(dev, torch, gpu)
@@ -4037,6 +4120,7 @@ def main():
                                                     nn_batch, nn_theta)
     bin_err, bin_in = check_bin_count(dev, torch)
     dp_err, dp_in = check_data_product(dev, torch)
+    data_product_route(lib)
 
     # ------------------------------------------------------ 4. main path
     # Every wrapper's launch count, the registry utils/graphs.py keeps.
@@ -4482,31 +4566,12 @@ def main():
             f"{levels['second']}, both middle ranks' second levels in one "
             f"launch {levels['both']}")
     # The data products at [main]'s, [large-n]'s and a 4-card shard's
-    # shapes: the kernel by device time, its plain version (torch.matmul of
-    # the folded operands: cuBLAS, the library call too) by events in turns
-    # and by device time. Then the gradient stage they feed
+    # shapes (data_product_timing). Then the gradient stage they feed
     # (_make_grad_all of the linear model's log_p) by device time, with the
     # data products and with torch.matmul in log_p (torch.func's batched
     # GEMV, the route before them), in turns.
     from stein_tpu_torch.models import linear_regression as lr_mod
-    from stein_tpu_torch.ops import data_product as dpm
-    dp_t = {}
-    for key in ((N, N_OBS, P), (LARGE_N, N_OBS, P), (N // 4, N_OBS, P)):
-        M_, W_, R_ = dp_in[key]
-        for fn, plain, A_ in ((dpm.data_product, dpm.data_product_plain,
-                               W_),
-                              (dpm.data_product_t, dpm.data_product_t_plain,
-                               R_)):
-            ms_, plain_ms_ = in_turns(lambda: plain(M_, A_),
-                                      lambda: fn(M_, A_), DP_REPS, torch)
-            dp_t[fn.__name__, key] = (
-                ms_, plain_ms_, device_us(lambda: fn(M_, A_), DP_REPS, torch),
-                device_us(lambda: plain(M_, A_), DP_REPS, torch))
-            log(f"[timing] {gpu}: {fn.__name__} n={key[0]} N={key[1]} "
-                f"p={key[2]}: kernel {dp_t[fn.__name__, key][2]} us "
-                f"(device; events {ms_ * 1e3:.2f}), plain (torch.matmul) "
-                f"{dp_t[fn.__name__, key][3]} us (device; events "
-                f"{plain_ms_ * 1e3:.2f})")
+    dp_t = data_product_timing(torch, gpu, dp_in)
 
     @contextlib.contextmanager
     def gemv_log_p():
@@ -4777,11 +4842,12 @@ def main():
             sum(t.element_size() * t.numel() for t in bin_first[:3])
             + 2 * 4 * bin_first[-1], 7 * bin_first[0].numel(), bin_lib,
             ms_by=bin_by),
-        # The data products at [main]'s shape: 2 n N p FLOP on the CUDA
-        # cores (f32); bytes: the particles' rows (or the residual rows) and
-        # the data matrix in, the product out. No Pallas site: XLA forms the
-        # JAX models' products. The library call is the plain version's
-        # one torch.matmul (cuBLAS).
+        # The data products at [main]'s shape: 2 n N p FLOP on the tensor
+        # cores as three TF32 products each (3xTF32); bytes: the
+        # particles' rows (or the residual rows) and the data matrix in,
+        # the product out. No Pallas site: XLA forms the JAX models'
+        # products. The library call is the plain version's one
+        # torch.matmul (cuBLAS).
         *[row(f"{name}, the linear models' {what} folded", name,
               "data_product.cu",
               "none: jnp.matmul(batch['X'], w) under jax.vmap("
@@ -4789,8 +4855,9 @@ def main():
               "93, logistic_regression.py:163, stein_tpu/api.py:442; XLA, "
               "no Pallas kernel)", dp_err,
               *dp_ms(dp_t[name, (N, N_OBS, P)]),
-              4 * (N * P + N_OBS * P + N * N_OBS), 2 * N * N_OBS * P,
+              4 * (N * P + N_OBS * P + N * N_OBS), 0,
               dp_lib(dp_t[name, (N, N_OBS, P)]),
+              tf32_ops=3 * 2 * N * N_OBS * P,
               ms_by=dp_by(dp_t[name, (N, N_OBS, P)]))
           for name, what in (("data_product", "X @ w"),
                              ("data_product_t", "X^T r"))],

@@ -110,7 +110,8 @@ _SIGNATURES = {
         (_P, _P, _P, _I, _I, _I, _I, _P),   # W, M, Y, n, N, p, dtype, stream
         _I),
     "stein_data_product_t": (
-        (_P, _P, _P, _I, _I, _I, _I, _P),   # R, M, G, n, N, p, dtype, stream
+        (_P, _P, _P, _I, _I, _I, _I,        # R, M, G, n, N, p, dtype
+         _I, _I, _P),                       # splits, chunk, stream
         _I),
     "stein_logistic_grads": (
         (_P, _I, _I, _P, _P, _I, _P, _P,    # theta, n, p, X, y, N, masks
@@ -120,12 +121,14 @@ _SIGNATURES = {
 
 
 class Library:
-    """The loaded kernel library, its build log and build time."""
+    """The loaded kernel library, its build log and build time, and the
+    shared object's path."""
 
-    def __init__(self, lib, log, seconds):
+    def __init__(self, lib, log, seconds, path):
         self.lib = lib
         self.build_log = log
         self.build_seconds = seconds
+        self.path = path
 
 
 def _nvcc():
@@ -195,7 +198,7 @@ def library():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype
-    return Library(lib, log, seconds)
+    return Library(lib, log, seconds, so)
 
 
 @functools.lru_cache(maxsize=None)

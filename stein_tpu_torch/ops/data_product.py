@@ -22,16 +22,38 @@ whose backward autograd records. Only an unbatched M is taken (every path
 passes the batch with ``in_dims=None``); a batched M raises.
 
 The folded products (``data_product``, ``data_product_t``) launch
-``csrc/data_product.cu`` for a CUDA tensor, whose every output element is
-one chain of FMAs over the contraction index in increasing order: a
-particle's row is the same bits in a launch over 250 particles as over
-1000 (cuBLAS's bmm, picked by the shape, is not). For a CPU tensor they run
-the plain version beside them (``torch.matmul`` of the folded operands).
+``csrc/data_product.cu`` for a CUDA tensor: f32 on the tensor cores in
+3xTF32, bf16 in bf16 (f64 as FMA chains), every sum in an order that
+depends on (N, p, dtype) alone, so a particle's row is the same bits in a
+launch over 250 particles as over 1000 (cuBLAS's bmm, picked by the shape,
+is not). The transpose's contraction over N goes in ``transpose_plan(N)``'s
+chunks, one block of a thread-block cluster each, added back in a fixed
+order. For a CPU tensor they run the plain version beside them
+(``torch.matmul`` of the folded operands).
 """
 
 import torch
 
 _DTYPES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+# The transpose's split of its contraction: at most _MAX_SPLITS chunks (a
+# cluster's blocks), about _MIN_CHUNK indices or more each, every chunk a
+# whole number of the kernel's _RUN-index runs.
+_MAX_SPLITS, _MIN_CHUNK, _RUN = 8, 128, 32
+
+
+def transpose_plan(N):
+    """(S, chunk): how ``G = R M`` cuts its contraction over N, a function
+    of N alone (row invariance). S0 = min(8, ceil(N / 128)) parts of
+    ceil(N / S0) indices, rounded up to a multiple of 32 (the kernel's
+    runs), give the chunk; S = ceil(N / chunk) chunks, [j chunk, min(N,
+    (j + 1) chunk)), none empty. N = 1000: (8, 128), the last chunk 104;
+    N <= 128: one chunk."""
+    def cdiv(a, b):
+        return -(-a // b)
+
+    s0 = max(1, min(_MAX_SPLITS, cdiv(N, _MIN_CHUNK)))
+    chunk = _RUN * max(1, cdiv(cdiv(N, s0), _RUN))
+    return max(1, cdiv(N, chunk)), chunk
 
 
 def _check(M, A, what):
@@ -46,7 +68,7 @@ def _check(M, A, what):
                         f"{M.device}, the rows {A.dtype} on {A.device}")
 
 
-def _launch(fn, A, M, shape, n, N, p):
+def _launch(fn, A, M, shape, n, N, p, *plan):
     from .. import _cuda
 
     if A.dtype not in _DTYPES:
@@ -56,7 +78,8 @@ def _launch(fn, A, M, shape, n, N, p):
     out = torch.empty(shape, dtype=A.dtype, device=A.device)
     err = getattr(_cuda.library().lib, fn)(
         A.data_ptr(), M.data_ptr(), out.data_ptr(), n, N, p,
-        _DTYPES[A.dtype], torch.cuda.current_stream(A.device).cuda_stream)
+        _DTYPES[A.dtype], *plan,
+        torch.cuda.current_stream(A.device).cuda_stream)
     _cuda.check(err, f"{fn} launch")
     return out
 
@@ -107,7 +130,8 @@ def data_product_t(M, R):
         raise ValueError(f"data_product_t: no kernel for {R.device}")
     if n * p == 0:
         return R.new_zeros(n, p)
-    out = _launch("stein_data_product_t", R, M, (n, p), n, N, p)
+    out = _launch("stein_data_product_t", R, M, (n, p), n, N, p,
+                  *transpose_plan(N))
     data_product_t.launches += 1
     return out
 

@@ -1311,8 +1311,10 @@ def test_mesh_graphs_across_cards(dev):
 # linear models' log_p at the paths' row counts (n, N, p), chip_smoke.py's
 # [kernels] data_product cases: [main] 1000, [large-n] 10240, a 4-card
 # shard 250, the mesh's median block 256, meshL's 4-card shard 2048 and
-# large_particle's 2560 (p 64). Each entry point within 1e-5 normalised of
-# its plain version (f32 sums of up to 1000 terms in another order), and
+# large_particle's 2560 (p 64), then the transpose's split at its edges (a
+# ragged last chunk of 103 and rows of 55, chunks of 512, a single row).
+# Each entry point within 1e-5 normalised of its plain version (f32 sums
+# of up to 4096 terms in another order, the kernel's in 3xTF32), and
 # row-invariant: every block of rows launched alone, at every offset, is
 # bitwise the full launch's rows.
 
@@ -1333,7 +1335,9 @@ def _dp_operands(dev, n, N, p, dtype=torch.float32, seed=17):
 @pytest.mark.parametrize("n,N,p", [(1000, 1000, 128), (10240, 1000, 128),
                                    (250, 1000, 128), (256, 1000, 128),
                                    (2048, 1000, 64), (2560, 1000, 64),
-                                   (1000, 128, 128), (1000, 50, 54)])
+                                   (1000, 128, 128), (1000, 50, 54),
+                                   (97, 999, 55), (256, 4096, 64),
+                                   (1, 1000, 128)])
 def test_data_product_against_plain_and_row_invariant(dev, n, N, p):
     from stein_tpu_torch.ops import data_product as dp
 
@@ -1350,21 +1354,25 @@ def test_data_product_against_plain_and_row_invariant(dev, n, N, p):
             assert torch.equal(_bits(parts), _bits(got)), (fn.__name__, b)
 
 
-@pytest.mark.parametrize("dtype,bound", [(torch.float64, 1e-12),
-                                         (torch.bfloat16, 8e-3)])
-def test_data_product_other_dtypes(dev, dtype, bound):
+@pytest.mark.parametrize("dtype,bound,n", [(torch.float64, 1e-12, 1000),
+                                           (torch.bfloat16, 8e-3, 1000),
+                                           (torch.bfloat16, 8e-3, 250)])
+def test_data_product_other_dtypes(dev, dtype, bound, n):
     """f64 sums in f64; bf16 operands sum in f32 and round once (two bf16
-    ulps of the plain version's cuBLAS product); both row-invariant."""
+    ulps of the plain version's cuBLAS product); both row-invariant, at
+    [main]'s shape and (bf16) at a 4-card shard's."""
     from stein_tpu_torch.ops import data_product as dp
 
-    M, W, R = _dp_operands(dev, 1000, 1000, 128, dtype)
+    M, W, R = _dp_operands(dev, n, 1000, 128, dtype)
     for fn, plain, A in ((dp.data_product, dp.data_product_plain, W),
                          (dp.data_product_t, dp.data_product_t_plain, R)):
         got = fn(M, A)
         assert got.dtype == dtype
         assert _norm_err(got, plain(M, A)) <= bound
-        parts = torch.cat([fn(M, A[a:a + 97]) for a in range(0, 1000, 97)])
-        assert torch.equal(_bits(parts), _bits(got))
+        assert torch.equal(_bits(fn(M, A)), _bits(got))
+        for b in DP_BLOCKS:
+            parts = torch.cat([fn(M, A[a:a + b]) for a in range(0, n, b)])
+            assert torch.equal(_bits(parts), _bits(got)), (fn.__name__, b)
     with pytest.raises(TypeError, match="float32, float64 or bfloat16"):
         dp.data_product(M.half(), W.half())
 

@@ -3,8 +3,11 @@ MatTVec and their vmap rules) against the JAX package, on the same numpy
 inputs: vmap(grad_and_value) of the port's log_p against
 jax.vmap(jax.value_and_grad) of the JAX model's, every route through
 _make_grad_all (plain, remat=True, the KSD score), the folded call counts,
-and the errors. On the CPU the folded products run their plain versions;
+and the errors, and the transpose's split plan (transpose_plan). On the CPU
+the folded products run their plain versions;
 the kernel's own checks are tests/test_torch_cuda.py's."""
+
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -214,3 +217,24 @@ def test_plain_versions_and_registry():
     reg = graphs.launch_counters()
     assert reg["data_product"] == (dp.data_product, "launches")
     assert reg["data_product_t"] == (dp.data_product_t, "launches")
+
+
+@pytest.mark.parametrize("N", [0, 1, 31, 32, 50, 54, 55, 128, 129, 257, 999,
+                               1000, 1024, 1025, 4096, 464809])
+def test_transpose_plan(N):
+    """G = R M's split of its contraction (the kernel's clusters): a
+    function of N alone, 1 to 8 chunks that cover [0, N) in order, none
+    empty, each but the last a multiple of the kernel's 32-index runs (so
+    every run starts at a multiple of 32 from 0). N = 1000 is 8 chunks."""
+    assert list(inspect.signature(dp.transpose_plan).parameters) == ["N"]
+    S, chunk = dp.transpose_plan(N)
+    assert (S, chunk) == dp.transpose_plan(N)
+    assert 1 <= S <= 8 and chunk > 0 and chunk % 32 == 0
+    bounds = [(j * chunk, min(N, (j + 1) * chunk)) for j in range(S)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == N
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert all(hi > lo for lo, hi in bounds) or (N == 0 and S == 1)
+    assert all((hi - lo) % 32 == 0 for lo, hi in bounds[:-1])
+    if N == 1000:
+        assert (S, chunk) == (8, 128)
+        assert [hi - lo for lo, hi in bounds] == [128] * 7 + [104]
