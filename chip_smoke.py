@@ -3350,7 +3350,8 @@ def profile_numbers(fn, steps, torch):
     for e in prof.key_averages():   # the kernels' own events only
         t = (getattr(e, "self_device_time_total", None)
              or getattr(e, "self_cuda_time_total", 0) or 0)
-        if getattr(e, "device_type", None) == DeviceType.CUDA and t > 0:
+        if getattr(e, "device_type", None) == DeviceType.CUDA and t > 0 \
+                and not getattr(e, "is_user_annotation", False):
             rows.append((t / steps, e.key, e.count / steps))
     rows.sort(reverse=True)
     return wall_us, rows

@@ -71,6 +71,7 @@ from .parallel.mesh import Mesh2D, ParticleMesh
 from .utils import graphs
 from .utils.graphs import tensor_leaves, tree_map
 from .utils.hostio import host_array
+from .utils.profiling import annotate
 from .utils.ravel import (
     init_particles,
     ravel_particles,
@@ -344,11 +345,13 @@ def make_warm_phi_fn(n_particles, kernel_impl="xla", median_max_rows=512,
 
     if kernel_impl == "pallas":
         def phi_fn(theta, grads, med_prev):
-            center = svgd_tile.column_center(theta)
-            med = compute_med(theta, med_prev, center)
-            h2 = rbf.bandwidth_sq_from_median(med, n_particles)
-            phi = svgd_tile.svgd_phi(theta, grads, h2, center=center,
-                                     precision=pallas_precision)
+            with annotate("svgd.median"):
+                center = svgd_tile.column_center(theta)
+                med = compute_med(theta, med_prev, center)
+            with annotate("svgd.phi"):
+                h2 = rbf.bandwidth_sq_from_median(med, n_particles)
+                phi = svgd_tile.svgd_phi(theta, grads, h2, center=center,
+                                         precision=pallas_precision)
             return phi, {"h2": h2, "median": med}
     else:
         def phi_fn(theta, grads, med_prev):
@@ -391,14 +394,16 @@ def make_warm_step_fn(log_p, unravel_fn, gd, warm_phi_fn,
     def step_fn(carry, batch):
         state, med_prev = carry
         theta = state.particles
-        log_p_vals, grads = grad_all(theta, batch)
+        with annotate("svgd.grad"):
+            log_p_vals, grads = grad_all(theta, batch)
+            log_p_mean = torch.mean(log_p_vals)
         phi, kaux = warm_phi_fn(theta, grads, med_prev)
-        norm = torch.sqrt(torch.sum(phi * phi))
-        delta, opt_state = gd.update(state.opt_state,
-                                     _clip(phi, norm, max_phi_norm))
-        new_state = SVGDState(theta + delta, opt_state, state.step + 1)
-        aux = {"phi_norm": norm, "log_p_mean": torch.mean(log_p_vals),
-               **kaux}
+        with annotate("svgd.update"):
+            norm = torch.sqrt(torch.sum(phi * phi))
+            delta, opt_state = gd.update(state.opt_state,
+                                         _clip(phi, norm, max_phi_norm))
+            new_state = SVGDState(theta + delta, opt_state, state.step + 1)
+        aux = {"phi_norm": norm, "log_p_mean": log_p_mean, **kaux}
         return (new_state, kaux["median"]), aux
 
     return step_fn
@@ -438,25 +443,37 @@ def make_fused_warm_step_fn(log_p, unravel_fn, gd, max_phi_norm=10.0,
             fused_warm_step_tail, med_prev=med_prev,
             opt_state=state.opt_state, gd=gd, max_phi_norm=max_phi_norm,
             warm_passes=warm_passes)
+        # B1's chain (the median, phi and the update, with a model stage
+        # the gradients too) is one span, svgd.phi.
         if quadratic_form is not None or inkernel_model is not None:
             kernel_kw, const = operands(batch) if ops is None else ops
-            new_theta, new_opt, (med, norm, h2, logp_m) = tail(
-                theta, None, None, None, gram_in_kernel=True,
-                theta_sub=subsample_rows(theta, median_max_rows),
-                **kernel_kw)
-            log_p_mean = logp_m + const
+            with annotate("svgd.median"):
+                theta_sub = subsample_rows(theta, median_max_rows)
+            with annotate("svgd.phi"):
+                new_theta, new_opt, (med, norm, h2, logp_m) = tail(
+                    theta, None, None, None, gram_in_kernel=True,
+                    theta_sub=theta_sub, **kernel_kw)
+                log_p_mean = logp_m + const
         else:
-            log_p_vals, grads = grad_all(theta, batch)
-            log_p_mean = torch.mean(log_p_vals)
-            if gram_in_kernel:
-                new_theta, new_opt, (med, norm, h2) = tail(
-                    theta, grads, None, None, gram_in_kernel=True,
-                    theta_sub=subsample_rows(theta, median_max_rows))
-            else:
-                D = rbf.pairwise_sq_dists(theta)
-                new_theta, new_opt, (med, norm, h2) = tail(
-                    theta, grads, D, _strided_rows(D, median_max_rows))
-        new_state = SVGDState(new_theta, new_opt, state.step + 1)
+            with annotate("svgd.grad"):
+                log_p_vals, grads = grad_all(theta, batch)
+                log_p_mean = torch.mean(log_p_vals)
+            with annotate("svgd.median"):
+                if gram_in_kernel:
+                    D, block = None, subsample_rows(theta, median_max_rows)
+                else:
+                    D = rbf.pairwise_sq_dists(theta)
+                    block = _strided_rows(D, median_max_rows)
+            with annotate("svgd.phi"):
+                if gram_in_kernel:
+                    new_theta, new_opt, (med, norm, h2) = tail(
+                        theta, grads, None, None, gram_in_kernel=True,
+                        theta_sub=block)
+                else:
+                    new_theta, new_opt, (med, norm, h2) = tail(
+                        theta, grads, D, block)
+        with annotate("svgd.update"):
+            new_state = SVGDState(new_theta, new_opt, state.step + 1)
         aux = {"phi_norm": norm, "log_p_mean": log_p_mean, "h2": h2,
                "median": med}
         return (new_state, med), aux
@@ -1060,7 +1077,7 @@ class SVGDSampler:
         # On a card the steps replay captured graphs, outside the one rule
         # of the paths that stay eager (utils/graphs.py).
         self._eager_reason = graphs.eager_reason(mesh)
-        self._graphs = (graphs.StepGraphs(mesh=mesh)
+        self._graphs = (graphs.StepGraphs(mesh=mesh, device=self.device)
                         if self.device.type == "cuda"
                         and self._eager_reason is None else None)
 
@@ -1278,18 +1295,22 @@ class SVGDSampler:
         if n_steps == 0:
             return {k: torch.empty(0, dtype=self.dtype, device=self.device)
                     for k in ("h2", "log_p_mean", "median", "phi_norm")}
-        warm = self._warm_step_fn is not None
-        if warm:
-            med = self._warm_init_med(self.state.particles).to(self.dtype)
-            step, carry = self._warm_step_fn, (self.state, med)
-        else:
-            step, carry = self._step_fn, self.state
-        if self._graphs is None:
-            carry, aux = graphs.eager_steps(step, carry, n_steps, feed)
-        else:
-            carry, aux = self._graphs.steps(mode, step, carry, n_steps, feed)
-        self.state = carry[0] if warm else carry
-        return aux
+        with annotate("svgd.run", self.device, steps=n_steps):
+            warm = self._warm_step_fn is not None
+            if warm:
+                with annotate("svgd.seed", self.device):
+                    med = self._warm_init_med(self.state.particles).to(
+                        self.dtype)
+                step, carry = self._warm_step_fn, (self.state, med)
+            else:
+                step, carry = self._step_fn, self.state
+            if self._graphs is None:
+                carry, aux = graphs.eager_steps(step, carry, n_steps, feed)
+            else:
+                carry, aux = self._graphs.steps(mode, step, carry, n_steps,
+                                                feed)
+            self.state = carry[0] if warm else carry
+            return aux
 
     def _eager(self, method, *args, **kwargs):
         """The entry point ``method`` (e.g. "run") through the eager loop on

@@ -52,6 +52,7 @@ from ..ops.median import (
     sharded_warm_from_bracket,
     sharded_warm_from_grid,
 )
+from ..utils.profiling import annotate
 from . import collectives as coll
 from .sharded import _check_divides
 
@@ -108,65 +109,72 @@ def make_sharded_fused_warm_step(log_p, unravel_fn, gd, n_particles, state,
     grad_all = _make_grad_all(log_p, unravel_fn, custom_grads, remat)
 
     def finish(state, theta_loc, ku, ksum, center, h2, med, log_p_vals):
-        """The phi combine, the psum'd global clip and the update."""
-        phi = (ku + ksum * (theta_loc - center) / h2) / n_particles
-        norm = torch.sqrt(coll.psum(torch.sum(phi * phi), mesh))
-        if epilogue == "fused":
-            new_theta, opt_state = fused_epilogue(
-                ku, ksum, theta_loc, center, h2, norm, state.opt_state, gd,
-                max_phi_norm=max_phi_norm, n_total=n_particles)
-        else:
-            delta, opt_state = gd.update(
-                state.opt_state,
-                phi * (max_phi_norm / torch.clamp(norm, min=max_phi_norm)))
-            new_theta = theta_loc + delta
-        aux = {"phi_norm": norm,
-               "log_p_mean": coll.pmean(torch.mean(log_p_vals), mesh),
-               "h2": h2, "median": med}
-        return (SVGDState(new_theta, opt_state, state.step + 1), med), aux
+        """The phi combine, the psum'd global clip and the update (one
+        span, svgd.update)."""
+        with annotate("svgd.update"):
+            phi = (ku + ksum * (theta_loc - center) / h2) / n_particles
+            norm = torch.sqrt(coll.psum(torch.sum(phi * phi), mesh))
+            if epilogue == "fused":
+                new_theta, opt_state = fused_epilogue(
+                    ku, ksum, theta_loc, center, h2, norm, state.opt_state,
+                    gd, max_phi_norm=max_phi_norm, n_total=n_particles)
+            else:
+                delta, opt_state = gd.update(
+                    state.opt_state,
+                    phi * (max_phi_norm / torch.clamp(norm,
+                                                      min=max_phi_norm)))
+                new_theta = theta_loc + delta
+            aux = {"phi_norm": norm,
+                   "log_p_mean": coll.pmean(torch.mean(log_p_vals), mesh),
+                   "h2": h2, "median": med}
+            return ((SVGDState(new_theta, opt_state, state.step + 1), med),
+                    aux)
 
     def gathered_step(carry, batch):
         state, med_prev = carry
         theta_loc = state.particles
-        if quadratic_form is not None:
-            A_eff, b_eff, const = quadratic_form(batch)
-            theta_all = coll.all_gather(theta_loc, mesh)
-            G_all = torch.matmul(theta_all, A_eff)
-            grads_all = b_eff.reshape(1, -1) - G_all
-            G_loc = G_all[mesh.rank * n_loc:(mesh.rank + 1) * n_loc]
-            log_p_vals = torch.sum(
-                theta_loc * (b_eff.reshape(1, -1) - 0.5 * G_loc), dim=1
-            ) + const
-        else:
-            log_p_vals, grads_loc = grad_all(theta_loc, batch)
-            theta_all = coll.all_gather(theta_loc, mesh)
-            grads_all = coll.all_gather(grads_loc, mesh)
-        center = torch.mean(theta_all, dim=0, keepdim=True)
-        idx, m_global = _local_row_idx(n_loc, mesh, median_max_rows,
-                                       theta_loc.device)
-        total = m_global * n_particles
-        if median_collectives == "grid":
-            # The fallback range's bound from the gathered block, alike on
-            # every rank: |a - b|^2 <= 4 max |x - c|^2, with headroom.
-            rsq_all = torch.sum((theta_all - center) ** 2, dim=1)
-            hi_bound = 4.0 * torch.max(rsq_all) * 1.0001 + 1e-30
-            D_sub, cnts = fused_bracket_grid_pass(
-                theta_loc[idx], theta_all, med_prev, center, hi_bound,
-                brackets=brackets, g1=median_grid_g1)
-            med = sharded_warm_from_grid(
-                D_sub, med_prev, cnts, hi_bound, mesh, total=total,
-                warm_passes=warm_passes, brackets=brackets,
-                g1=median_grid_g1)
-        else:
-            D_sub, mm, cnts = fused_bracket_pass(
-                theta_loc[idx], theta_all, med_prev, center,
-                brackets=brackets)
-            med = sharded_warm_from_bracket(
-                D_sub, med_prev, mm, cnts, mesh, total=total,
-                warm_passes=warm_passes, brackets=brackets)
-        h2 = rbf.bandwidth_sq_from_median(med, n_particles)
-        ku, ksum = svgd_tile.svgd_both_ksum(theta_loc, theta_all, grads_all,
-                                            h2, center)
+        with annotate("svgd.grad"):   # the gathers too
+            if quadratic_form is not None:
+                A_eff, b_eff, const = quadratic_form(batch)
+                theta_all = coll.all_gather(theta_loc, mesh)
+                G_all = torch.matmul(theta_all, A_eff)
+                grads_all = b_eff.reshape(1, -1) - G_all
+                G_loc = G_all[mesh.rank * n_loc:(mesh.rank + 1) * n_loc]
+                log_p_vals = torch.sum(
+                    theta_loc * (b_eff.reshape(1, -1) - 0.5 * G_loc), dim=1
+                ) + const
+            else:
+                log_p_vals, grads_loc = grad_all(theta_loc, batch)
+                theta_all = coll.all_gather(theta_loc, mesh)
+                grads_all = coll.all_gather(grads_loc, mesh)
+        with annotate("svgd.median"):
+            center = torch.mean(theta_all, dim=0, keepdim=True)
+            idx, m_global = _local_row_idx(n_loc, mesh, median_max_rows,
+                                           theta_loc.device)
+            total = m_global * n_particles
+            if median_collectives == "grid":
+                # The fallback range's bound from the gathered block, alike
+                # on every rank: |a - b|^2 <= 4 max |x - c|^2, with headroom.
+                rsq_all = torch.sum((theta_all - center) ** 2, dim=1)
+                hi_bound = 4.0 * torch.max(rsq_all) * 1.0001 + 1e-30
+                D_sub, cnts = fused_bracket_grid_pass(
+                    theta_loc[idx], theta_all, med_prev, center, hi_bound,
+                    brackets=brackets, g1=median_grid_g1)
+                med = sharded_warm_from_grid(
+                    D_sub, med_prev, cnts, hi_bound, mesh, total=total,
+                    warm_passes=warm_passes, brackets=brackets,
+                    g1=median_grid_g1)
+            else:
+                D_sub, mm, cnts = fused_bracket_pass(
+                    theta_loc[idx], theta_all, med_prev, center,
+                    brackets=brackets)
+                med = sharded_warm_from_bracket(
+                    D_sub, med_prev, mm, cnts, mesh, total=total,
+                    warm_passes=warm_passes, brackets=brackets)
+        with annotate("svgd.phi"):
+            h2 = rbf.bandwidth_sq_from_median(med, n_particles)
+            ku, ksum = svgd_tile.svgd_both_ksum(theta_loc, theta_all,
+                                                grads_all, h2, center)
         return finish(state, theta_loc, ku, ksum, center, h2, med,
                       log_p_vals)
 

@@ -65,6 +65,8 @@ import weakref
 
 import torch
 
+from .profiling import annotate
+
 # Steps unrolled into one graph.
 CHUNK = 32
 
@@ -335,7 +337,8 @@ class Rows(_Feed):
 def eager_steps(step, carry, k, feed):
     """k steps from Python, step i on ``feed.args(i)``; the aux stacked to
     a leading [k] axis. Every carried scalar stays on the device."""
-    feed.prepare(step)
+    with annotate("svgd.prep"):
+        feed.prepare(step)
     auxes = []
     for i in range(k):
         carry, aux = step(carry, *feed.args(i))
@@ -361,9 +364,10 @@ class StepGraphs:
     ``mesh`` of more than one rank, a graph is captured again on every
     rank when it is stale on any."""
 
-    def __init__(self, capture=cuda_capture, mesh=None):
+    def __init__(self, capture=cuda_capture, mesh=None, device=None):
         self.capture = capture
         self.mesh = mesh
+        self.device = device    # the spans' device clock (profiling.py)
         self.graphs = {}
         self.captures = 0
         _LIVE.add(self)
@@ -375,9 +379,11 @@ class StepGraphs:
             return list(flags)
         from ..parallel import collectives
 
-        flags = torch.tensor(flags, dtype=torch.int32,
-                             device=self.mesh.device)
-        return [bool(f) for f in collectives.psum(flags, self.mesh).tolist()]
+        with annotate("svgd.agree"):
+            flags = torch.tensor(flags, dtype=torch.int32,
+                                 device=self.mesh.device)
+            return [bool(f)
+                    for f in collectives.psum(flags, self.mesh).tolist()]
 
     def _capture(self, mode, steps, step, carry, feed, key):
         self.graphs.pop((mode, steps), None)
@@ -432,35 +438,51 @@ class StepGraphs:
             g.graph.reset()
         self.graphs.clear()
 
+    def _ready(self, mode, steps, new, step, carry, feed, layout):
+        """The (mode, steps) graph, captured when ``new``, its static carry
+        and feed buffers loaded from ``carry`` and ``feed``."""
+        if new:
+            with annotate("svgd.capture"):
+                g = self._capture(mode, steps, step, carry, feed, layout)
+        else:
+            g = self.graphs[(mode, steps)]
+        _copy_into(g.carry, carry)
+        feed.load(g.buffers)
+        return g
+
     def steps(self, mode, step, carry, k, feed):
         """k steps of ``step`` from ``carry`` on ``feed``: CHUNK-step
         replays, then one-step replays for the remainder. Returns (the new
-        carry as fresh tensors, the aux with a leading [k] axis)."""
-        feed.prepare(step)
-        out, start = None, 0
-        full, rest = divmod(k, CHUNK)
-        plan = [(steps, count) for steps, count in ((CHUNK, full), (1, rest))
-                if count]
-        layout = (_layout(carry, False), feed.key())
-        stale = self._any_rank([
-            getattr(self.graphs.get((mode, steps)), "key", None) != layout
-            for steps, _ in plan])
-        for (steps, count), new in zip(plan, stale):
-            g = (self._capture(mode, steps, step, carry, feed, layout) if new
-                 else self.graphs[(mode, steps)])
-            _copy_into(g.carry, carry)
-            feed.load(g.buffers)
-            if out is None:
-                out = {key: torch.empty((k, *b.shape[1:]), dtype=b.dtype,
-                                        device=b.device)
-                       for key, b in g.aux.items()}
-            for _ in range(count):
-                feed.fill(g.buffers, start, steps)
-                g.graph.replay()
-                for (wrapper, attr), d in g.delta:
-                    setattr(wrapper, attr, getattr(wrapper, attr) + d)
-                for key, b in g.aux.items():
-                    out[key][start:start + steps].copy_(b)
-                start += steps
-            carry = g.carry
-        return tree_map(torch.clone, carry), out
+        carry as fresh tensors, the aux with a leading [k] axis). Spans:
+        ``svgd.prep`` up to the first replay, then ``svgd.replays``."""
+        with annotate("svgd.prep", self.device):
+            feed.prepare(step)
+            full, rest = divmod(k, CHUNK)
+            plan = [(steps, count)
+                    for steps, count in ((CHUNK, full), (1, rest)) if count]
+            layout = (_layout(carry, False), feed.key())
+            stale = self._any_rank([
+                getattr(self.graphs.get((mode, steps)), "key", None) != layout
+                for steps, _ in plan])
+            g = self._ready(mode, plan[0][0], stale[0], step, carry, feed,
+                            layout)
+            out = {key: torch.empty((k, *b.shape[1:]), dtype=b.dtype,
+                                    device=b.device)
+                   for key, b in g.aux.items()}
+        with annotate("svgd.replays", self.device):
+            start = 0
+            for i, ((steps, count), new) in enumerate(zip(plan, stale)):
+                if i:
+                    g = self._ready(mode, steps, new, step, carry, feed,
+                                    layout)
+                for _ in range(count):
+                    feed.fill(g.buffers, start, steps)
+                    with annotate("svgd.launch"):
+                        g.graph.replay()
+                    for (wrapper, attr), d in g.delta:
+                        setattr(wrapper, attr, getattr(wrapper, attr) + d)
+                    for key, b in g.aux.items():
+                        out[key][start:start + steps].copy_(b)
+                    start += steps
+                carry = g.carry
+            return tree_map(torch.clone, carry), out

@@ -662,10 +662,11 @@ def profiled(fn, steps, rank, dev):
     with profile(activities=acts) as prof:
         elapsed_ms(fn, dev)
     rows = []
-    for e in prof.key_averages():
+    for e in prof.key_averages():   # the spans' device ranges left out
         t = (getattr(e, "self_device_time_total", None)
              or getattr(e, "self_cuda_time_total", 0) or 0)
-        if getattr(e, "device_type", None) == DeviceType.CUDA and t > 0:
+        if getattr(e, "device_type", None) == DeviceType.CUDA and t > 0 \
+                and not getattr(e, "is_user_annotation", False):
             rows.append((t / steps, e.key, e.count / steps))
     rows.sort(reverse=True)
     shown = rows[:8] + [r for r in rows[8:] if "stein::" in r[1]]
@@ -1171,9 +1172,44 @@ def scenario_release_at_exit(rank, world):
     return 0
 
 
+def scenario_profile(rank, world):
+    """profiling.trace on every rank into one directory: each rank writes
+    its own trace.rank<r>.json, and its summary holds the capture-flag
+    psum (svgd.agree) inside each call's prep."""
+    import tempfile
+
+    from stein_tpu_torch.utils import profiling
+
+    mesh = particle_mesh()
+    s, batch = _small_sampler(mesh)
+    box = [tempfile.mkdtemp() if rank == 0 else None]
+    dist.broadcast_object_list(box, 0)
+    with profiling.trace(box[0]):
+        s.run(batch, graphs.CHUNK)
+        s.run(batch, graphs.CHUNK)
+    spans = profiling.summary()["spans"]
+    assert spans["svgd.run"]["count"] == 2, spans
+    assert spans["svgd.agree"]["parents"] == {"svgd.prep": 2,
+                                              "svgd.capture": 1}, spans
+    assert spans["svgd.agree"]["calls"] == 2, spans
+    dist.barrier()
+    if rank == 0:
+        names = sorted(os.listdir(box[0]))
+        assert names == [f"trace.rank{r}.json" for r in range(world)], names
+        for name in names:
+            with open(os.path.join(box[0], name)) as f:
+                assert "svgd.agree" in f.read()
+            os.remove(os.path.join(box[0], name))
+        os.rmdir(box[0])
+    dist.destroy_process_group()
+    print(f"SCENARIO-OK-{rank}", flush=True)
+    return 0
+
+
 SCENARIOS = {"moved": scenario_moved, "fail": scenario_fail,
              "release": scenario_release,
-             "release_at_exit": scenario_release_at_exit}
+             "release_at_exit": scenario_release_at_exit,
+             "profile": scenario_profile}
 
 
 if __name__ == "__main__":

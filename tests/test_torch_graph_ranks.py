@@ -77,3 +77,10 @@ def test_release_runs_at_exit():
     _ok(out)
     for rank, (_, text) in enumerate(out):
         assert f"RELEASED-AT-EXIT-{rank}" in text, text[-3000:]
+
+
+def test_profile_writes_a_trace_per_rank():
+    """profiling.trace on 2 ranks: trace.rank0.json and trace.rank1.json in
+    one directory, and each rank's summary holds svgd.agree, the
+    capture-flag psum, in both calls."""
+    _ok(scenario("profile", 2))
