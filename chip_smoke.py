@@ -17,7 +17,10 @@ results, and times the steps and the kernels. Phases:
               path's block; B1's
               launch chain against the plain tail; B3 (both precisions),
               B4, B5 and B7 (B7 also at every shape of the card tests)
-              against theirs; the glm and logistic stages, B10, B6, and
+              against theirs; B3's two routes (mma.sync, wgmma) at the
+              benchmark cells' shapes and three more, each against its
+              plain version, device µs beside the 3xTF32 bound and the
+              route tile_route picks (the "B3 route" lines); the glm and logistic stages, B10, B6, and
               B1's model and D-given chains against theirs; B8/B9 (with
               the thresholds they form against grid_edges); B11 at
               four shapes, ten calls bitwise equal and so on grids of one
@@ -145,7 +148,7 @@ results, and times the steps and the kernels. Phases:
               [graph-tests] runs tests/test_torch_cuda.py's graph cases in
               a subprocess (every single-card path and one-process mesh
               path, the binned ones included, each entry point, graph
-              against eager, bitwise): all 26 must pass. [teardown]: in a
+              against eager, bitwise): all 27 must pass. [teardown]: in a
               subprocess (60 s limit) a one-process NCCL mesh captures a
               run, then frees its graphs (graphs.release) and destroys the
               group; in another it exits with neither (the graphs freed
@@ -167,6 +170,11 @@ With --data-product it stops after the build and prints only the data
 products' [kernels] lines (the checks and the SASS route) and their
 [timing] lines (device µs in turns with torch.matmul at [main]'s,
 [large-n]'s and a 4-card shard's shapes).
+
+With --tile it stops after the build and prints only the [kernels] B3
+route lines: the tile's two routes (mma.sync and wgmma) at the benchmark
+cells' shapes, each against its plain version, their device µs beside the
+3xTF32 bound, and the route tile_route picks.
 
 With --split it stops after the build and prints only [split]: the device
 time of the median kernel's Gram stage apart from its search at each
@@ -433,6 +441,90 @@ def b2_case(label, D, fused_median, zero, brackets=None):
     return cold_p
 
 
+# [kernels] B3 route: the tile's two routes at the benchmark cells' shapes,
+# [main-nn-large]'s, the two smallest paths', the mesh paths' blocks below
+# [1000, 1000] (n=1000 on 4 ranks and on 2, and one between) and meshL's
+# ring arm ([m, n], p, B3's exponent order or B1's).
+TILE_ROUTE_SHAPES = (
+    ("linreg-p128.n10240", 10240, 10240, 128, True),
+    ("linreg-p128.n1000, B1's order", 1000, 1000, 128, False),
+    ("bnn-1x100x1.n1000", 1000, 1000, 303, True),
+    ("mesh4 rank", 2048, 8192, 64, True),
+    ("main-nn-large", 3000, 3000, 303, True),
+    ("covertype-e2e, B1's order", 100, 100, 55, False),
+    ("main-glm n=50, B1's order", 50, 50, 128, False),
+    ("mesh n=1000, 4 ranks", 250, 1000, 128, True),
+    ("mesh n=1000, 2 ranks", 500, 1000, 128, True),
+    ("between 1", 512, 1024, 128, True),
+    ("between 2", 700, 700, 128, True),
+    ("between 3", 768, 1024, 128, True),
+    ("between 4", 800, 800, 128, True),
+    ("between 5", 900, 900, 128, True),
+    ("meshL ring arm", 2048, 2048, 64, True),
+)
+
+
+def tile_routes(dev, torch, gpu, reps=20):
+    """[kernels] B3 route lines: at each of TILE_ROUTE_SHAPES, both routes
+    of the tile (ops/svgd_tile.py: mma.sync and wgmma, the latter only
+    where p <= WGMMA_ROUTE_MAX_P) against the plain version (ku and ksum
+    <= 1e-4 normalised for mma.sync, 1e-5 for wgmma), a second call
+    bitwise, device us (device_us) beside the 3xTF32 bound (three TF32
+    products of 4 m n p FLOP at 495 TFLOP/s), and the route tile_route
+    picks. Returns {label: (mma.sync us, wgmma us or None)}."""
+    from stein_tpu_torch.ops import fused_median, svgd_tile
+    from stein_tpu_torch.ops.median import row_subsample_block
+
+    f32 = torch.float32
+    zero = torch.zeros((), dtype=f32, device=dev)
+    names = {svgd_tile.MMA_SYNC: "mma.sync", svgd_tile.WGMMA: "wgmma"}
+    out = {}
+    for label, m, n, p, div_h2 in TILE_ROUTE_SHAPES:
+        rng = np.random.default_rng(m + p)
+        cols = torch.tensor(rng.normal(size=(n, p)), dtype=f32, device=dev)
+        grads = torch.tensor(rng.normal(size=(n, p)), dtype=f32, device=dev)
+        rows = cols[:m].contiguous()
+        c = svgd_tile.column_center(cols)
+        h2 = fused_median.warm_search_on_value(
+            row_subsample_block(cols, 128), zero, 30) / np.log(n)
+        want = svgd_tile.svgd_both_ksum_plain(rows, cols, grads, h2, c,
+                                              "f32", div_h2)
+        us, errs = [], []
+        for route, bound in ((svgd_tile.MMA_SYNC, 1e-4),
+                             (svgd_tile.WGMMA, 1e-5)):
+            if route == svgd_tile.WGMMA and p > svgd_tile.WGMMA_ROUTE_MAX_P:
+                us.append(None)
+                errs.append(None)
+                continue
+
+            def call(route=route):
+                return svgd_tile._tile(rows, cols, grads, h2, c, None, "f32",
+                                       div_h2, route)
+            got, again = call(), call()
+            torch.cuda.synchronize()
+            err = max(norm_err(got[0], want[0]), norm_err(got[1], want[1]))
+            if err > bound or not all(torch.equal(a, b)
+                                      for a, b in zip(got, again)):
+                fail(f"B3 route {names[route]} at {label} disagrees with its "
+                     f"plain version ({err:.3e}, bound {bound:g}) or itself")
+            errs.append(err)
+            us.append(device_us(call, reps, torch))
+        del want
+        bound_us = 3 * 4 * m * n * p / PEAK_TF32_FLOPS * 1e6
+        fmt = ["not read" if t is None else f"{t:.2f}" for t in us]
+        wide = errs[1] is None
+        if wide:
+            fmt[1] = f"not run (p > {svgd_tile.WGMMA_ROUTE_MAX_P})"
+        log(f"[kernels] B3 route {label} [{m}, {n}] p={p}: device us "
+            f"mma.sync {fmt[0]}, wgmma {fmt[1]} (3xTF32 bound "
+            f"{bound_us:.1f}); normalised errors {errs[0]:.3e} / "
+            + ("-" if wide else f"{errs[1]:.3e}")
+            + ", repeats bitwise; tile_route picks "
+            f"{names[svgd_tile.tile_route(m, n, p)]} | {gpu}")
+        out[label] = tuple(us)
+    return out
+
+
 def check_new_kernels(dev, torch, fused_median, svgd_tile, bayesian_nn,
                       subsample_rows, row_subsample_block, nn_model,
                       nn_batch, nn_theta):
@@ -639,6 +731,16 @@ def check_new_kernels(dev, torch, fused_median, svgd_tile, bayesian_nn,
     return errs
 
 
+def wg(steps, m, n, p):
+    """The wgmma route's launches beside a path's tile launches (B3, or
+    B1's chain in Gram mode) at [m, n] rows and columns of width p: steps
+    where ops/svgd_tile.py:tile_route picks it, else none."""
+    from stein_tpu_torch.ops import svgd_tile
+    if svgd_tile.tile_route(m, n, p) == svgd_tile.WGMMA:
+        return {"B3-wgmma": steps}
+    return {}
+
+
 def reset(counters):
     """Every count of the registry (graphs.launch_counters) to 0."""
     for c in counters.values():
@@ -681,7 +783,8 @@ def run_nn_paths(dev, torch, nn_model, counters):
     log(f"[main-nn] run(batch, {NN_STEPS}) in {wall:.2f} s (first call), "
         f"launches {nn_counts}")
     want = dict.fromkeys(counters, 0)
-    want.update(B7=NN_STEPS, B3=NN_STEPS, B5=NN_STEPS + 1)
+    want.update(B7=NN_STEPS, B3=NN_STEPS, B5=NN_STEPS + 1,
+                **wg(NN_STEPS, NN_N, NN_N, NN_P))
     if nn_counts != want:
         fail(f"[main-nn] launch counts {nn_counts}, expected {want}")
     samples = sampler.samples
@@ -767,7 +870,8 @@ def run_nn_paths(dev, torch, nn_model, counters):
         f"launches {large_counts}")
     want = dict.fromkeys(counters, 0)
     want.update(B7=NN_LARGE_STEPS, B3=NN_LARGE_STEPS,
-                B4=NN_LARGE_STEPS + 1, B2=NN_LARGE_STEPS + 1)
+                B4=NN_LARGE_STEPS + 1, B2=NN_LARGE_STEPS + 1,
+                **wg(NN_LARGE_STEPS, NN_LARGE, NN_LARGE, NN_P))
     if large_counts != want:
         fail(f"[main-nn-large] launch counts {large_counts}, expected {want}")
     if not np.all(np.isfinite(large.samples)) or not all(
@@ -800,7 +904,8 @@ def run_nn_paths(dev, torch, nn_model, counters):
         "step: " + ", ".join(f"{k}={v[-1].item():.6g}"
                              for k, v in aux_n.items()))
     want = dict.fromkeys(counters, 0)
-    want.update(B3=LARGE_STEPS, B2=LARGE_STEPS + 1, **dp(LARGE_STEPS))
+    want.update(B3=LARGE_STEPS, B2=LARGE_STEPS + 1, **dp(LARGE_STEPS),
+                **wg(LARGE_STEPS, LARGE_N, LARGE_N, P))
     if n_counts != want:
         fail(f"[large-n] launch counts {n_counts}, expected {want}")
     if not np.all(np.isfinite(big.samples)) or not all(
@@ -1508,7 +1613,7 @@ def run_tail_paths(dev, torch, counters, X, y, theta0, batch):
 
     s = glm_sampler("cuda")
     run_path("main-glm", s, suff, GLM_STEPS,
-             dict(glm=GLM_STEPS, B1=GLM_STEPS, B2=1))
+             dict(glm=GLM_STEPS, B1=GLM_STEPS, B2=1, **wg(GLM_STEPS, N, N, P)))
     compare_with_cpu(glm_sampler, suff, 10, "main-glm", 0.1)
     post = np.linalg.solve(X.T @ X + np.eye(P), X.T @ y).ravel()
     post_err = float(np.max(np.abs(s.samples.mean(0) - post)))
@@ -1529,7 +1634,8 @@ def run_tail_paths(dev, torch, counters, X, y, theta0, batch):
                            theta=theta50, device=device, **kw50)
 
     run_path("main-glm n=50", glm50_sampler("cuda"), suff, GLM50_STEPS,
-             dict(glm=GLM50_STEPS, B1=GLM50_STEPS))
+             dict(glm=GLM50_STEPS, B1=GLM50_STEPS,
+                  **wg(GLM50_STEPS, 50, 50, P)))
     compare_with_cpu(glm50_sampler, suff, GLM50_CLASS_STEPS, "main-glm n=50",
                      0.1, adagrad_eps_regime)
     compare_spread("main-glm n=50", glm50_sampler, suff, 10,
@@ -1552,7 +1658,8 @@ def run_tail_paths(dev, torch, counters, X, y, theta0, batch):
 
     s = logreg_sampler("cuda")
     aux = run_path("main-logreg", s, lbatch, LOGREG_STEPS,
-                   dict(logistic=LOGREG_STEPS, B1=LOGREG_STEPS, B2=1))
+                   dict(logistic=LOGREG_STEPS, B1=LOGREG_STEPS, B2=1,
+                        **wg(LOGREG_STEPS, N, N, 55)))
     lp = aux["log_p_mean"][-1].item()
     log(f"[main-logreg] log_p_mean step 1 {aux['log_p_mean'][0].item():.6g}, "
         f"step {LOGREG_STEPS} {lp!r}; JAX package: {LOGREG_LOGP_JAX} "
@@ -1600,7 +1707,7 @@ def run_tail_paths(dev, torch, counters, X, y, theta0, batch):
     s = epi_sampler()
     run_path("large-n-epilogue", s, batch, LARGE_STEPS,
              dict(B3=LARGE_STEPS, B2=LARGE_STEPS + 1, B6=LARGE_STEPS,
-                  **dp(LARGE_STEPS)))
+                  **dp(LARGE_STEPS), **wg(LARGE_STEPS, LARGE_N, LARGE_N, P)))
     compare_with_plain(
         "large-n-epilogue", epi_sampler, batch,
         plain_pallas_runner(epi_sampler(), batch, lr_grads, gram=False), 4,
@@ -1712,7 +1819,8 @@ def run_covertype(dev, torch, counters, gpu):
     # (fused_median.fused_block_ok): the plain search seeds it, so B2
     # launches no time on this path.
     counts = check_counts("covertype-e2e", counters,
-                          {"logistic": COV_STEPS, "B1": COV_STEPS})
+                          {"logistic": COV_STEPS, "B1": COV_STEPS,
+                           **wg(COV_STEPS, COV_N, COV_N, COV_D + 1)})
     check_finite("covertype-e2e", a, aux, COV_STEPS)
     log(f"[covertype-e2e] {gpu}: train_minibatched(data, {COV_STEPS}, "
         f"{COV_BATCH}, key={COV_KEY}) first call {wall:.3f} s wall, "
@@ -1862,7 +1970,8 @@ def run_slice_phases(dev, torch, counters, gpu, main_make, main_sampler,
     # run: s1 2 calls, s2 1; train_with_recovery: ref 2 chunks, half 1,
     # resumed 1. B2 seeds each call's carry.
     counts["checkpoint"] = check_counts("checkpoint", counters, {
-        "B1": 7 * CKPT_STEPS, "B2": 7, **dp(7 * CKPT_STEPS)})
+        "B1": 7 * CKPT_STEPS, "B2": 7, **dp(7 * CKPT_STEPS),
+        **wg(7 * CKPT_STEPS, N, N, P)})
     same = np.array_equal(s1.samples, s2.samples) and all(
         torch.equal(x, y) for x, y in zip(s1.state.opt_state,
                                           s2.state.opt_state))
@@ -2163,7 +2272,8 @@ def run_mesh_paths(dev, torch, counters, X, y, theta0, batch, nn_model):
         fail("[mesh] throughput_config did not pick fused_shard/rounds")
     make = sampler_for(N, lin, theta0, cfg)
     s, _ = run_path("mesh", make, batch,
-                    dict(B8=MESH_STEPS, B3=MESH_STEPS, **dp(MESH_STEPS)))
+                    dict(B8=MESH_STEPS, B3=MESH_STEPS, **dp(MESH_STEPS),
+                         **wg(MESH_STEPS, N, N, P)))
     posterior("mesh", s, POSTERIOR_MESH_JAX)
     single = throughput_config(N, P)
     check_class("mesh", "the single-device fused_gram sampler on the card",
@@ -2174,16 +2284,18 @@ def run_mesh_paths(dev, torch, counters, X, y, theta0, batch, nn_model):
 
     run_path("mesh-grid", sampler_for(
         N, lin, theta0, dict(cfg, median_collectives="grid")), batch,
-        dict(B9=MESH_STEPS, B3=MESH_STEPS, **dp(MESH_STEPS)))
+        dict(B9=MESH_STEPS, B3=MESH_STEPS, **dp(MESH_STEPS),
+             **wg(MESH_STEPS, N, N, P)))
     run_path("mesh-ring", sampler_for(
         N, lin, theta0, dict(cfg, median_collectives="grid", comm="ring")),
-        batch, dict(B9=MESH_STEPS, B3=MESH_STEPS, **dp(MESH_STEPS)))
+        batch, dict(B9=MESH_STEPS, B3=MESH_STEPS, **dp(MESH_STEPS),
+                    **wg(MESH_STEPS, N, N, P)))
 
     cfg_glm = throughput_config(N, P, mesh=mesh, model=lin)
     if "quadratic_form" not in cfg_glm:
         fail("[mesh-glm] throughput_config(model=) gave no quadratic_form")
     s, _ = run_path("mesh-glm", sampler_for(N, lin, theta0, cfg_glm), suff,
-                    dict(B8=MESH_STEPS, B3=MESH_STEPS))
+                    dict(B8=MESH_STEPS, B3=MESH_STEPS, **wg(MESH_STEPS, N, N, P)))
     posterior("mesh-glm", s, POSTERIOR_MESH_GLM_JAX)
 
     Xn, yn, theta_nn = nn_data(NN_N)
@@ -2194,7 +2306,8 @@ def run_mesh_paths(dev, torch, counters, X, y, theta0, batch, nn_model):
         fail("[mesh-nn] throughput_config(model=) gave no custom_grads")
     _, aux = run_path("mesh-nn", sampler_for(NN_N, nn_model, theta_nn,
                                              cfg_nn), nn_batch,
-                      dict(B7=MESH_STEPS, B8=MESH_STEPS, B3=MESH_STEPS))
+                      dict(B7=MESH_STEPS, B8=MESH_STEPS, B3=MESH_STEPS,
+                           **wg(MESH_STEPS, NN_N, NN_N, NN_P)))
     lp = aux["log_p_mean"][-1].item()
     log(f"[mesh-nn] log_p_mean step {MESH_STEPS} {lp!r}; JAX package's "
         f"one-device mesh run: {NN_MESH_LOGP_JAX} (relative gap "
@@ -2258,7 +2371,10 @@ def run_meshL(dev, torch, counters, mesh):
             f"{bench_torch.MESHL_ARMS[arm]}: run(batch, {MESHL_STEPS}) in "
             f"{time.perf_counter() - t0:.2f} s (first call)")
         counts[label] = check_counts(label, counters,
-                                     {kernel: MESHL_STEPS, "B3": MESHL_STEPS})
+                                     {kernel: MESHL_STEPS, "B3": MESHL_STEPS,
+                                      **wg(MESHL_STEPS, bench_torch.MESHL_N,
+                                           bench_torch.MESHL_N,
+                                           bench_torch.MESHL_P)})
         check_finite(label, s, aux, MESHL_STEPS)
         log(f"[{label}] last step: " + ", ".join(
             f"{k}={v[-1].item():.6g}" for k, v in aux.items()))
@@ -2355,7 +2471,7 @@ def run_fidelity(torch):
                  FIDELITY_CASES, FIDELITY_TIMEOUT_S, echo=True)
 
 
-GRAPH_TEST_CASES = 26
+GRAPH_TEST_CASES = 27
 GRAPH_TEST_TIMEOUT_S = 300
 
 
@@ -3027,11 +3143,12 @@ def run_median_paths(dev, torch, counters, gpu):
     for label, cfg, median_fn, want in (
             ("median-binned", dict(median="binned"), binned_plain,
              dict(B3=MED_STEPS, bin_count=BIN_PER_STEP * MED_STEPS,
-                  **dp(MED_STEPS))),
+                  **dp(MED_STEPS), **wg(MED_STEPS, MED_N, MED_N, MED_P))),
             ("median-subsample", dict(median="subsample",
                                       median_max_rows=MED_ROWS),
              lambda t: subsampled_sq_dist_median(t, MED_ROWS),
-             dict(B3=MED_STEPS, **dp(MED_STEPS)))):
+             dict(B3=MED_STEPS, **dp(MED_STEPS),
+                  **wg(MED_STEPS, MED_N, MED_N, MED_P)))):
         def make(cfg=cfg):
             return SVGDSampler(MED_N, model.log_p, model.template(),
                                Adam(1e-2), theta=theta0, device="cuda",
@@ -3125,7 +3242,7 @@ def run_mesh_medians_2d(sampler_for, mesh2, run_path, X, y, theta0, batch,
         cfg = dict(median="binned", kernel_impl="pallas", comm=comm)
         run_path(label, sampler_for(N, lin, theta0, cfg), batch,
                  dict(B3=MESH_STEPS, bin_count=2 * blocks * MESH_STEPS,
-                      **dp(MESH_STEPS)))
+                      **dp(MESH_STEPS), **wg(MESH_STEPS, N, N, P)))
 
     cfg = throughput_config(N, P, mesh=mesh2, model_axis="model")
     log(f"[mesh2d] throughput_config({N}, {P}, mesh=, model_axis='model') "
@@ -3991,6 +4108,9 @@ def main():
         data_product_route(lib)
         data_product_timing(torch, gpu, check_data_product(dev, torch)[1])
         return 0
+    if "--tile" in sys.argv[1:]:
+        tile_routes(dev, torch, gpu)
+        return 0
     if "--split" in sys.argv[1:]:
         redesign_split(dev, torch, gpu)
         pass_split(dev, torch, gpu)
@@ -4107,6 +4227,7 @@ def main():
     errs = check_new_kernels(dev, torch, fused_median, svgd_tile,
                              bayesian_nn, subsample_rows, row_subsample_block,
                              nn_model, nn_batch, nn_theta)
+    tile_routes(dev, torch, gpu)
 
     # The glm and logistic stages, B10, B6 and B1's model and D-given chains.
     Xl, yl, theta_l0 = logreg_data()
@@ -4140,7 +4261,7 @@ def main():
     log(f"[main] run(batch, {STEPS}) in {wall:.2f} s (first call), "
         f"launches {launches}")
     want = dict.fromkeys(counters, 0)
-    want.update(B2=1, B1=STEPS, **dp(STEPS))
+    want.update(B2=1, B1=STEPS, **dp(STEPS), **wg(STEPS, N, N, P))
     if launches != want:
         fail(f"launch counts {launches}, expected {want}")
     samples = sampler.samples

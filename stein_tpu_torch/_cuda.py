@@ -53,13 +53,14 @@ _SIGNATURES = {
          _P, _P, _P, _P, _P, _P),           # D, cnts, mm, thr, prep,
                                             # stream
         _I),
-    "stein_tile_splits": ((_I, _I, _I), _I),
-    "stein_tile_prep_floats": ((_I, _I, _I), ctypes.c_longlong),
+    "stein_tile_splits": ((_I, _I, _I, _I), _I),
+    "stein_tile_prep_floats": ((_I, _I, _I, _I), ctypes.c_longlong),
     "stein_svgd_tile": (
         (_P, _P, _P, _P, _P, _I, _I, _I,    # rows .. h2, m, n, p
          _I, _P, _P,                        # splits, scratch
          _P, _P, _P, _F,                    # ku, ksum, phi, n_total
-         _I, _I, _P, _P),                   # bf16, div_h2, prep, stream
+         _I, _I, _I, _P, _P),               # bf16, div_h2, route, prep,
+                                            # stream
         _I),
     "stein_max_smem": ((), _I),
     "stein_nn_grad_smem": ((_I, _I), _I),
@@ -76,7 +77,7 @@ _SIGNATURES = {
          _P, _P, _P, _P, _P, _P,            # outputs
          _P, _P, _P, _P, _P, _I,            # median scratch, splits
          _P, _P, _P, _P, _P,                # phi scratch
-         _P, _P),                           # tile prep, stream
+         _P, _I, _P),                       # tile prep, route, stream
         _I),
     "stein_fused_epilogue": (
         (_P, _P, _P, _P, _P, _P, _I, _I,    # ku, ksum, theta, center, h2,

@@ -294,9 +294,11 @@ int stein_warm_median(const float* D, int total, const float* med_prev,
 // [splits*n*p], part_ksum [splits*n], phi [n*p], partials
 // [stein_reduce_blocks(n, p)], med_h2 [2], tile_prep
 // (the median kernel's Gram prep, stein_gram_prep_floats(n, m, p), in Gram
-// mode; then the tile's, stein_tile_prep_floats(n, n, p), without d_once,
-// else [n * p], where B10's tile forms u: the largest of those); splits is stein_tile_splits(n, n, p), or stein_on_d_splits
-// in D mode and with d_once. mom2 / new_mom2
+// mode; then the tile's, stein_tile_prep_floats(n, n, p, route), without
+// d_once, else [n * p], where B10's tile forms u: the largest of those);
+// splits is stein_tile_splits(n, n, p, route), or stein_on_d_splits in D
+// mode and with d_once; route is the streaming tile's (TileArgs.route, Gram
+// mode without d_once). mom2 / new_mom2
 // are unused by Adagrad. logp [n] (a model stage's per-row log_p) or null;
 // stats holds 3 floats, 4 with logp.
 int stein_fused_step_tail(const float* theta, const float* grads,
@@ -315,7 +317,7 @@ int stein_fused_step_tail(const float* theta, const float* grads,
                           int* part_counts, float* part_range, int splits,
                           float* part_ku, float* part_ksum, float* phi,
                           float* partials, float* med_h2, float* tile_prep,
-                          void* stream_ptr) {
+                          int route, void* stream_ptr) {
   if (n_brackets > kMaxBrackets) return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const bool gram = D == nullptr;
@@ -340,7 +342,7 @@ int stein_fused_step_tail(const float* theta, const float* grads,
   const TileArgs tile{theta, theta, grads, gram ? center : nullptr,
                       med_h2 + 1, n, n, p, false, splits, part_ku, part_ksum,
                       static_cast<float>(n), nullptr, nullptr, phi, partials,
-                      tile_prep};
+                      tile_prep, false, route};
   if (gram && !d_once) {
     err = launch_tile(tile, stream);
   } else {

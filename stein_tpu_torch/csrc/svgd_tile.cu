@@ -1,62 +1,89 @@
 // The streaming SVGD tile, one kernel for B1's step tail, for B3 and for the
 // mesh steps (replacing stein_tpu/ops/pallas_svgd.py:_svgd_tile_kernel), on
-// Hopper's tensor cores. Three launches:
+// Hopper's tensor cores. Two routes of the same three launches, chosen by
+// ops/svgd_tile.py:tile_route from the shape alone (TileArgs.route): this
+// file's mma.sync tile, and the wgmma tile of svgd_tile_wg.cu.
 //
 //   tile_prep_kernel    what the JAX wrapper computes before its
 //                       pallas_call: the centred columns tc = t - c, the
 //                       regrouped operand u = g - tc / h^2 and the row norms
 //                       |tc|^2 (and, for a separate row block, the centred
 //                       rows and their norms), zero-padded to the tile's
-//                       shapes, into one scratch buffer.
-//   svgd_tile_kernel    grid (row blocks of 64, column shares, output
-//                       chunks). Block (x, s, z) holds rows x*64 .. +64, one
-//                       warp per 16 rows, and walks the s-th contiguous share
-//                       of the 32-column tiles, which stream through a
-//                       two-slot cp.async ring in shared memory. Per tile:
-//                       S = R T^T by mma.sync, D = |r|^2 + |t|^2 - 2 S, K =
-//                       exp2 of -D/(2 h^2) with the padded columns masked to
-//                       0, then ku += K U_z by mma.sync for the block's output
+//                       shapes, into one scratch buffer (the wgmma route's
+//                       own prep also splits the columns and u^T for
+//                       3xTF32).
+//   svgd_tile_kernel    grid (row blocks, column shares, output chunks).
+//                       Per column tile: S = R T^T, D = |r|^2 + |t|^2 - 2 S,
+//                       K = exp2 of -D/(2 h^2) with the padded columns
+//                       masked to 0, then ku += K U_z for the block's output
 //                       chunk z, and the row sums. K stays in registers: the
-//                       m16n8 accumulator of S is reused as the A operand of
-//                       the second product (for tf32 m16n8k8 by permuting the
-//                       8 contraction indices, 2t -> t and 2t+1 -> t+4, in
-//                       both operands; for bf16 m16n8k16 the layouts agree).
-//                       Writes the share's partial ku and row sums.
+//                       dot's accumulator is the contraction's A operand
+//                       (for tf32 by permuting each 8 contraction indices,
+//                       2t -> t and 2t+1 -> t+4, in both operands; for bf16
+//                       m16n8k16 the layouts agree). Writes the share's
+//                       partial ku and row sums.
 //   tile_reduce_kernel  adds the shares in share order (two calls give
 //                       bitwise-equal output), then writes ku and ksum, or
 //                       phi = (ku + ksum * (r - c) / h^2) / n_total and, for
 //                       B1's clip, one ||phi||^2 partial per block.
 //
+// The mma.sync route (this file): blocks of 64 rows, one warp per 16 rows,
+// each walking its share of the 32-column tiles through a two-slot cp.async
+// ring; both products by mma.sync m16n8k8 (tf32) or m16n8k16 (bf16), the
+// operands split for 3xTF32 on the CUDA cores as they are read. Two blocks
+// of four warps an SM (the registers, and at p = 128 its 101 KB of shared
+// memory), too few to hide the ring's and the dependent mma.sync chains'
+// latency: it takes ~5x its bound at n = 10240 (PERF.md's kernel table).
+// It keeps bf16, p > 128 and the small blocks, where the wgmma route loses.
+//
+// The wgmma route (svgd_tile_wg.cu; f32, p <= 128; tile_route picks it
+// where the card timed it faster): blocks of 128 rows in two consumer
+// warpgroups of 64 beside one producer warp, of which one thread keeps two
+// rings full by TMA, each stage with a full and an empty mbarrier: the
+// tiles' columns (3 stages at p = 128) and their u^T (2 stages), both
+// already split into tf32 big and small parts by the prep, so a column's
+// 32 pp bytes leave L2 once per 128 rows. A consumer runs the dot as
+// wgmma m64n32k8 (32-column tiles) with its rows' fragments, read from
+// shared memory and split a k-step at a time, in registers, and the
+// contraction as wgmma m64n64k8 in two halves of the 128 outputs with K
+// from the dot's accumulator. The columns' stage goes back once K is
+// formed, u^T's after the contraction, so the columns of the next tile
+// load while this one contracts. Registers: 168 a thread (ptxas holds the
+// consumers at three warpgroups' launch bound; setmaxnreg did not lift
+// it): ku's 64 accumulators at p = 128, a 32-k run's 32 split fragments,
+// 16 of the dot, 32 of a contraction half. What bounds it is not the
+// tensor cores: a warpgroup waits on each of its six product groups a tile
+// (four dot runs, two contraction halves), ~400 of the ~890 us at n =
+// 10240, the products ~350; more groups in flight need more registers
+// (PERF.md §6).
+
 // Precision. 'f32' (every path's default) runs 3xTF32: each operand x is
 // split into big = tf32(x) and small = tf32(x - big), and each product is
 // big*small + small*big + big*big with f32 accumulation, which keeps the f32
 // tolerance class. The tensor cores truncate as they accumulate, so each
-// run of 32 contraction indices is summed in fresh registers and added
-// into the running sum by an IEEE add (without it the NN path's n=3000
-// trajectory left the f32 class by step 5). 'bf16' (pallas_precision='bf16', B3 only) rounds the
-// centred rows and columns for the dot, and K and u for the contraction, to
-// bf16 (the JAX kernel's mxu_dtype casts) and runs one m16n8k16 product each;
-// the norms, D, K and the row sums stay f32.
+// run of at most 32 contraction indices is summed in fresh registers and
+// added into the running sum by an IEEE add (without it the NN path's
+// n=3000 trajectory left the f32 class by step 5). 'bf16'
+// (pallas_precision='bf16', B3 only, mma.sync) rounds the centred rows and
+// columns for the dot, and K and u for the contraction, to bf16 (the JAX
+// kernel's mxu_dtype casts) and runs one m16n8k16 product each; the norms,
+// D, K and the row sums stay f32.
 //
-// Shapes. Rectangular [m, n], any n (the last tile is masked) and any p: p
-// is padded to pp = 16 ceil(p / 16) with zeros. Output chunks are at most
-// 160 columns (gridDim.z = ceil(pp / 160)), each block repeating the dot.
-// Where the block's 64 rows fit shared memory beside the ring (pp <= 400
-// or so) they are loaded once; wider rows stream through the ring in
-// 128-column chunks beside the columns. Column shares cover the SMs at small
-// n (tile_splits). No atomics: the shares go to [splits, m, p] / [splits, m]
-// scratch in the layout that B10's tile (svgd_on_d.cu) also writes for
-// launch_tile_reduce.
+// Shapes (mma.sync). Rectangular [m, n], any n (the last tile is masked)
+// and any p: p is padded to pp = 16 ceil(p / 16) with zeros. Output chunks
+// are at most 160 columns (gridDim.z = ceil(pp / 160)), each block
+// repeating the dot. Where the block's 64 rows fit shared memory beside
+// the ring (pp <= 400 or so) they are loaded once; wider rows stream
+// through the ring in 128-column chunks beside the columns. Column shares
+// cover the SMs at small n (tile_splits). No atomics: the shares go to
+// [splits, m, p] / [splits, m] scratch in the layout that B10's tile
+// (svgd_on_d.cu) also writes for launch_tile_reduce.
 //
 // Bounds on the H100 for the 4 m n p FLOP of the two products: f32 on the
 // CUDA cores (67 TFLOP/s) 801 us at m = n = 10240, p = 128 and 18.1 us at
 // m = n = 1000, p = 303; on the tensor cores 3xTF32 issues three TF32
 // products (495 TFLOP/s): 325 us and 7.3 us; bf16 one (989 TFLOP/s): 54 us
-// and 1.2 us. The n^2 exp2s take ~25 us at n = 10240. The tile runs two
-// blocks of four warps per SM (what the registers and, at p = 128, 101 KB
-// of shared memory allow), too few to hide the latency of the ring and of
-// the dependent mma.sync chains: it takes several times these bounds
-// (PERF.md's kernel table).
+// and 1.2 us. The n^2 exp2s take ~25 us at n = 10240.
 
 #include <cuda_runtime.h>
 
@@ -373,7 +400,8 @@ cudaError_t launch_tile_nt(const TileArgs& a, const Geom& g,
 // Column shares: the fewest that fill the resident block slots' waves to
 // 90% (two blocks an SM where the shared memory allows, as the registers
 // do), else the best filling, at most 16 and at most one per tile.
-int tile_splits(int m, int n, int p) {
+int tile_splits(int m, int n, int p, int route) {
+  if (route == 1) return tile_splits_wg(m, n, p);
   const Geom g = geom(m, n, p);
   const int blocks = (g.m_pad / kRows) * g.zc;
   const int tiles = (n + kCols - 1) / kCols;
@@ -392,7 +420,8 @@ int tile_splits(int m, int n, int p) {
   return best;
 }
 
-long long tile_prep_floats(int m, int n, int p) {
+long long tile_prep_floats(int m, int n, int p, int route) {
+  if (route == 1) return tile_prep_floats_wg(m, n, p);
   return static_cast<long long>(prep_floats(geom(m, n, p)));
 }
 
@@ -403,6 +432,10 @@ int tile_reduce_blocks(int m, int p) {
 
 cudaError_t launch_tile(const TileArgs& a, cudaStream_t stream) {
   if (a.splits < 1 || a.prep == nullptr) return cudaErrorInvalidValue;
+  if (a.route == 1) {
+    if (a.bf16) return cudaErrorInvalidValue;
+    return launch_tile_wg(a, stream);
+  }
   const Geom g = geom(a.m, a.n, a.p);
   const bool shared_rows = a.rows == a.cols && a.m == a.n;
   const PrepPtrs q = prep_ptrs(a.prep, g, shared_rows);
@@ -429,26 +462,31 @@ using namespace stein;
 
 extern "C" {
 
-int stein_tile_splits(int m, int n, int p) { return tile_splits(m, n, p); }
+int stein_tile_splits(int m, int n, int p, int route) {
+  return tile_splits(m, n, p, route);
+}
 
-long long stein_tile_prep_floats(int m, int n, int p) {
-  return tile_prep_floats(m, n, p);
+long long stein_tile_prep_floats(int m, int n, int p, int route) {
+  return tile_prep_floats(m, n, p, route);
 }
 
 // B3. rows [m, p]; cols, grads [n, p]; center [p] or null; h2 a device
 // scalar; bf16 selects pallas_precision='bf16'; div_h2 the exponent order
-// (TileArgs.div_h2: B3's is 1, B1's 0). Scratch part_ku [splits * m * p],
-// part_ksum [splits * m], prep [stein_tile_prep_floats(m, n, p)]. Writes ku
+// (TileArgs.div_h2: B3's is 1, B1's 0); route TileArgs.route. Scratch
+// part_ku [splits * m * p], part_ksum [splits * m], prep
+// [stein_tile_prep_floats(m, n, p, route)]; splits is
+// stein_tile_splits(m, n, p, route). Writes ku
 // [m, p] and ksum [m] when phi is null, else phi [m, p] (divided by
 // n_total).
 int stein_svgd_tile(const float* rows, const float* cols, const float* grads,
                     const float* center, const float* h2, int m, int n,
                     int p, int splits, float* part_ku, float* part_ksum,
                     float* ku, float* ksum, float* phi, float n_total,
-                    int bf16, int div_h2, float* prep, void* stream) {
+                    int bf16, int div_h2, int route, float* prep,
+                    void* stream) {
   const TileArgs a{rows, cols, grads, center, h2, m, n, p, div_h2 != 0,
                    splits, part_ku, part_ksum, n_total, ku, ksum, phi,
-                   nullptr, prep, bf16 != 0};
+                   nullptr, prep, bf16 != 0, route};
   return launch_tile(a, static_cast<cudaStream_t>(stream));
 }
 

@@ -27,14 +27,23 @@ struct TileArgs {
   float* partials;      // and, if not null, ||phi||^2 per reduce block
   float* prep;          // [tile_prep_floats(m, n, p)] scratch (launch_tile)
   bool bf16;            // bf16 dot operands (pallas_precision='bf16')
+  // 0: the mma.sync tile (svgd_tile.cu); 1: the wgmma tile fed by a TMA
+  // ring (svgd_tile_wg.cu; f32, p <= 128), as ops/svgd_tile.py:tile_route
+  // picks.
+  int route;
 };
 
-int tile_splits(int m, int n, int p);
-long long tile_prep_floats(int m, int n, int p);
+int tile_splits(int m, int n, int p, int route);
+long long tile_prep_floats(int m, int n, int p, int route);
 int tile_reduce_blocks(int m, int p);
 // The prep, the tile and the reduce on `stream`; returns the first CUDA
 // error.
 cudaError_t launch_tile(const TileArgs& a, cudaStream_t stream);
+// The wgmma route's share count, prep size (0 where it does not take the
+// shape) and launches (svgd_tile_wg.cu).
+int tile_splits_wg(int m, int n, int p);
+long long tile_prep_floats_wg(int m, int n, int p);
+cudaError_t launch_tile_wg(const TileArgs& a, cudaStream_t stream);
 // The reduce alone, over the shares of a.part_ku / a.part_ksum. With a
 // null centre the combine's tc is the rows themselves.
 cudaError_t launch_tile_reduce(const TileArgs& a, cudaStream_t stream);

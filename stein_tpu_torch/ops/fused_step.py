@@ -42,6 +42,7 @@ import functools
 
 import torch
 
+from . import svgd_tile
 from .fused_median import _addr, _bracket_arrays, _scalar_on
 from .median import DEFAULT_BRACKETS, _warm_search
 from .model_grad import KERNEL_MODELS, GlmGrad
@@ -225,7 +226,10 @@ def _launch_tail(theta, grads, block, med, opt_state, gd, max_phi_norm,
     blocks = _cuda.median_blocks(p if gram else 0)
     rounds = (warm_passes + 1) // 2
 
-    splits = (lib.stein_tile_splits(n, n, p) if gram and not d_once
+    # The streaming tile (Gram mode without d_once) on its route.
+    route = (svgd_tile.tile_route(n, n, p) if gram and not d_once
+             else svgd_tile.MMA_SYNC)
+    splits = (lib.stein_tile_splits(n, n, p, route) if gram and not d_once
               else lib.stein_on_d_splits(n, n, p))
     # One f32 scratch buffer, each piece 64-float aligned: dsub (the Gram
     # mode's block), center, per-block column sums, per-block ranges, the
@@ -237,7 +241,8 @@ def _launch_tail(theta, grads, block, med, opt_state, gd, max_phi_norm,
              splits * n * p, splits * n, n * p,
              lib.stein_reduce_blocks(n, p), 2,
              max(lib.stein_gram_prep_floats(n, m, p) if gram else 0,
-                 lib.stein_tile_prep_floats(n, n, p) if gram and not d_once
+                 lib.stein_tile_prep_floats(n, n, p, route)
+                 if gram and not d_once
                  else n * p))
     padded = [-(-s // 64) * 64 for s in sizes]
     scratch = torch.empty(sum(padded), dtype=torch.float32, device=dev)
@@ -268,10 +273,12 @@ def _launch_tail(theta, grads, block, med, opt_state, gd, max_phi_norm,
         new_theta.data_ptr(), new_mom1.data_ptr(), new_mom2.data_ptr(),
         new_count.data_ptr(), new_lr.data_ptr(), stats.data_ptr(),
         dsub, center, part_center, part_counts.data_ptr(), part_range,
-        splits, part_ku, part_ksum, phi, partials, med_h2, tile_prep,
+        splits, part_ku, part_ksum, phi, partials, med_h2, tile_prep, route,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda.check(err, "fused step tail launch")
+    if route == svgd_tile.WGMMA:
+        svgd_tile.svgd_both_ksum.wgmma_launches += 1
     return (new_theta, _new_state(kind, new_mom1, new_mom2, new_count,
                                   new_lr), tuple(stats))
 

@@ -18,17 +18,21 @@ The CUDA kernel (``csrc/svgd_tile.cu``, the same tile that B1's step tail
 launches) replaces ``stein_tpu/ops/pallas_svgd.py:_svgd_tile_kernel``. A
 prep launch forms the centred operands, u and the norms (what the JAX
 wrapper computes before its pallas_call); the tile kernel runs both
-products on the tensor cores (mma.sync: 3xTF32 for ``precision='f32'``,
-bf16 for ``'bf16'``), each block holding 64 rows and streaming a share of
-the 32-column tiles through a cp.async ring, K never in device memory;
-then a third launch adds the shares in a fixed order (two calls give
-bitwise-equal output) and forms phi. h^2 is read from device memory. The
-tile sizes are the kernel's own (the JAX functions' block arguments have no
-counterpart). ``precision='bf16'`` casts what the JAX kernel's ``mxu_dtype``
-casts: the centred rows and columns for the dot, K and u for the
-contraction; the norms, K and its row sums stay f32. For a CPU tensor the
-wrapper runs the plain version; for a CUDA tensor it launches the kernel or
-raises.
+products on the tensor cores, K never in device memory; then a third
+launch adds the column shares in a fixed order (two calls give
+bitwise-equal output) and forms phi. The tile has two routes, chosen by
+``tile_route`` from the shape alone: mma.sync (3xTF32 for
+``precision='f32'``, bf16 for ``'bf16'``), each block holding 64 rows and
+streaming a share of the 32-column tiles through a cp.async ring; and, for
+f32 where it is faster, wgmma (``csrc/svgd_tile_wg.cu``): warpgroup
+products on 64-row tiles fed by two TMA/mbarrier rings that a producer
+warp keeps full, 3xTF32 with the operands split in the prep. h^2 is read from
+device memory. The tile sizes are the kernel's own (the JAX functions'
+block arguments have no counterpart). ``precision='bf16'`` casts what the
+JAX kernel's ``mxu_dtype`` casts: the centred rows and columns for the dot,
+K and u for the contraction; the norms, K and its row sums stay f32. For a
+CPU tensor the wrapper runs the plain version; for a CUDA tensor it
+launches the kernel or raises.
 """
 
 import torch
@@ -44,6 +48,32 @@ def column_center(cols):
 
 
 PRECISIONS = ("f32", "bf16")
+
+# The tile's routes, as the C entry points take them (TileArgs.route).
+MMA_SYNC, WGMMA = 0, 1
+# Where the wgmma route is picked (PERF.md's route table, the H100's
+# timings): it takes p <= 128 (its rows and two rings in one block's shared
+# memory) and wins from 700 columns on ([700, 700] up to [10240, 10240]);
+# on [100, 100] and [50, 50] its heavier prep and few tiles lose. The rows
+# do not enter: a mesh rank's row block runs the kernel its whole problem
+# runs on one card, which keeps the mesh within that run's class
+# (tests/cuda_graph_ranks.py's check (iii); a rule on the rows put the
+# 4-rank n=1000 blocks on mma.sync against the one card's wgmma and left
+# it). That costs [250, 1000] 31 us against mma.sync's 27. Wider p stays
+# on mma.sync (a one-warpgroup wgmma variant lost there: 187 against 113
+# us at [1000, 1000], p = 303).
+WGMMA_ROUTE_MAX_P = 128
+WGMMA_ROUTE_MIN_COLS = 700
+
+
+def tile_route(m, n, p, precision="f32"):
+    """The tile's route for [m, p] rows against [n, p] columns: ``WGMMA``
+    or ``MMA_SYNC``, from the columns' shape alone (m is not read, so a row
+    block takes its whole problem's route). bf16 stays on mma.sync."""
+    if (precision != "f32" or p > WGMMA_ROUTE_MAX_P
+            or n < WGMMA_ROUTE_MIN_COLS):
+        return MMA_SYNC
+    return WGMMA
 
 
 def _operand(x, precision):
@@ -94,7 +124,8 @@ def _check(rows, cols, grads, center, precision):
                              f"{t.device}")
 
 
-def _launch(rows, cols, grads, h2, center, n_total, precision, div_h2):
+def _launch(rows, cols, grads, h2, center, n_total, precision, div_h2,
+            route):
     """B3's launches; n_total=None returns (ku, ksum), else phi."""
     from .. import _cuda
 
@@ -102,10 +133,10 @@ def _launch(rows, cols, grads, h2, center, n_total, precision, div_h2):
     m, p = rows.shape
     n = cols.shape[0]
     dev = rows.device
-    splits = lib.stein_tile_splits(m, n, p)
+    splits = lib.stein_tile_splits(m, n, p, route)
     part_ku = torch.empty(splits * m * p, dtype=torch.float32, device=dev)
     part_ksum = torch.empty(splits * m, dtype=torch.float32, device=dev)
-    prep = torch.empty(lib.stein_tile_prep_floats(m, n, p),
+    prep = torch.empty(lib.stein_tile_prep_floats(m, n, p, route),
                        dtype=torch.float32, device=dev)
     if n_total is None:
         ku = torch.empty(m, p, dtype=torch.float32, device=dev)
@@ -118,7 +149,7 @@ def _launch(rows, cols, grads, h2, center, n_total, precision, div_h2):
         rows.data_ptr(), cols.data_ptr(), grads.data_ptr(),
         center.data_ptr(), h2.data_ptr(), m, n, p, splits,
         part_ku.data_ptr(), part_ksum.data_ptr(), *ptrs,
-        float(n_total or 0), int(precision == "bf16"), int(div_h2),
+        float(n_total or 0), int(precision == "bf16"), int(div_h2), route,
         prep.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -126,14 +157,28 @@ def _launch(rows, cols, grads, h2, center, n_total, precision, div_h2):
     svgd_both_ksum.launches += 1
     if precision == "bf16":
         svgd_both_ksum.bf16_launches += 1
+    if route == WGMMA:
+        svgd_both_ksum.wgmma_launches += 1
     return (ku, ksum) if n_total is None else phi
 
 
-def _tile(rows, cols, grads, h2, center, n_total, precision, div_h2=True):
+def _tile(rows, cols, grads, h2, center, n_total, precision, div_h2=True,
+          route=None):
     """B3 on [m, p] rows against [n, p] columns; ``div_h2=False`` is B1's
-    exponent order (the card tests drive both)."""
+    exponent order, ``route`` one of the tile's routes in place of
+    ``tile_route``'s (the card tests drive both)."""
     center = center.reshape(1, -1)
     _check(rows, cols, grads, center, precision)
+    if route is None:
+        route = tile_route(rows.shape[0], cols.shape[0], rows.shape[1],
+                           precision)
+    elif route == WGMMA and (precision != "f32"
+                             or rows.shape[1] > WGMMA_ROUTE_MAX_P):
+        raise ValueError(f"svgd tile: the wgmma route takes f32 and p <= "
+                         f"{WGMMA_ROUTE_MAX_P} (got {precision}, "
+                         f"p={rows.shape[1]})")
+    elif route not in (MMA_SYNC, WGMMA):
+        raise ValueError(f"svgd tile: unknown route {route!r}")
     h2 = _scalar_on(h2, rows)
     if rows.device.type == "cpu":
         ku, ksum = svgd_both_ksum_plain(rows, cols, grads, h2, center,
@@ -144,7 +189,7 @@ def _tile(rows, cols, grads, h2, center, n_total, precision, div_h2=True):
     if rows.device.type != "cuda":
         raise ValueError(f"svgd tile: no kernel for {rows.device}")
     return _launch(rows.contiguous(), cols.contiguous(), grads.contiguous(),
-                   h2, center.contiguous(), n_total, precision, div_h2)
+                   h2, center.contiguous(), n_total, precision, div_h2, route)
 
 
 def svgd_both_ksum(rows, cols, grads, h2, center, precision="f32"):
@@ -156,9 +201,11 @@ def svgd_both_ksum(rows, cols, grads, h2, center, precision="f32"):
     return _tile(rows, cols, grads, h2, center, None, precision)
 
 
-# Every launch of the tile; of them, those of its bf16 route.
+# Every launch of the tile; of them, those in bf16 and those of its wgmma
+# route (B1's chain adds its wgmma launches here too).
 svgd_both_ksum.launches = 0
 svgd_both_ksum.bf16_launches = 0
+svgd_both_ksum.wgmma_launches = 0
 
 
 def svgd_phi_rect(rows, cols, grads, h2, n_total=None, center=None,

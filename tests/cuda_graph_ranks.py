@@ -128,10 +128,11 @@ def recorder(warm, body):
     return Recorded(body)
 
 
-def compare(label, s, batch, data, rank=0):
+def compare(label, s, batch, data, rank=0, expect=()):
     """Each entry point through the graphs, then the eager loop, from the
     same state: bitwise, with equal launch counts (train_minibatched when
-    ``data`` is given)."""
+    ``data`` is given). ``expect`` names launch counts that must not be 0
+    in either (the route a path is there to take, e.g. "B3-wgmma")."""
     if s._graphs is None:
         raise RuntimeError(f"{label}: the sampler runs no graphs")
     k = graphs.CHUNK + 3
@@ -157,6 +158,8 @@ def compare(label, s, batch, data, rank=0):
         (sg, ag, ng), (se, ae, ne) = out
         if ng != ne:
             bad.append(f"{method}: launches {ng} vs {ne}")
+        bad.extend(f"{method}: no {key} launches" for key in expect
+                   if not (ng[key] and ne[key]))
         if not (all(torch.equal(a, b) for a, b in zip(sg, se))
                 and all(torch.equal(ag[key], ae[key]) for key in ae)):
             bad.append(f"{method}: graphs differ from the eager loop")

@@ -187,6 +187,105 @@ def test_b3_widths_and_exponent_orders(dev, p, div_h2):
     assert _norm_err(got[1], want[1]) <= 1e-4
 
 
+def _wgmma_case(dev, m, n, p, div_h2, seed):
+    """The tile's wgmma route on [m, p] rows against [n, p] columns: ku and
+    ksum <= 1e-5 normalised against the plain version of the same exponent
+    order (3xTF32 products, f32 sums in other orders), two calls bitwise
+    equal, one wgmma launch counted a call."""
+    rows, cols, grads, c, h2 = _tile_inputs(m, n, p, dev, seed)
+    before = svgd_tile.svgd_both_ksum.wgmma_launches
+    got = svgd_tile._tile(rows, cols, grads, h2, c, None, "f32", div_h2,
+                          svgd_tile.WGMMA)
+    again = svgd_tile._tile(rows, cols, grads, h2, c, None, "f32", div_h2,
+                            svgd_tile.WGMMA)
+    torch.cuda.synchronize()
+    assert svgd_tile.svgd_both_ksum.wgmma_launches == before + 2
+    want = svgd_tile.svgd_both_ksum_plain(rows, cols, grads, h2, c, "f32",
+                                          div_h2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert _norm_err(got[0], want[0]) <= 1e-5
+    assert _norm_err(got[1], want[1]) <= 1e-5
+
+
+@pytest.mark.parametrize("div_h2", [True, False])
+@pytest.mark.parametrize("p", [55, 128])
+def test_b3_wgmma_widths_and_exponent_orders(dev, p, div_h2):
+    """The wgmma route at m=333 against n=777 (m != n, a ragged last tile)
+    at a padded width (55) and the widest it takes (128), in B3's exponent
+    order and B1's."""
+    _wgmma_case(dev, 333, 777, p, div_h2, p)
+
+
+@pytest.mark.parametrize("div_h2", [True, False])
+@pytest.mark.parametrize("p", [129, 303])
+def test_b3_wide_p_refuses_the_wgmma_route(dev, p, div_h2):
+    """Past p = 128 (the NN's 303) a forced wgmma route raises before any
+    launch, and the tile's own route, mma.sync, holds the plain version at
+    333x777 (<= 1e-4 normalised, two calls bitwise)."""
+    rows, cols, grads, c, h2 = _tile_inputs(333, 777, p, dev, p)
+    before = svgd_tile.svgd_both_ksum.launches
+    with pytest.raises(ValueError, match="p <= 128"):
+        svgd_tile._tile(rows, cols, grads, h2, c, None, "f32", div_h2,
+                        svgd_tile.WGMMA)
+    assert svgd_tile.svgd_both_ksum.launches == before
+    assert svgd_tile.tile_route(333, 777, p) == svgd_tile.MMA_SYNC
+    wg = svgd_tile.svgd_both_ksum.wgmma_launches
+    got = svgd_tile._tile(rows, cols, grads, h2, c, None, "f32", div_h2)
+    again = svgd_tile._tile(rows, cols, grads, h2, c, None, "f32", div_h2)
+    torch.cuda.synchronize()
+    assert svgd_tile.svgd_both_ksum.wgmma_launches == wg
+    want = svgd_tile.svgd_both_ksum_plain(rows, cols, grads, h2, c, "f32",
+                                          div_h2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert _norm_err(got[0], want[0]) <= 1e-4
+    assert _norm_err(got[1], want[1]) <= 1e-4
+
+
+@pytest.mark.parametrize("div_h2", [True, False])
+@pytest.mark.parametrize("m,n,p", [(10240, 10240, 128), (1000, 1000, 128),
+                                   (2048, 8192, 64), (2048, 2048, 64),
+                                   (250, 1000, 128), (500, 1000, 128)])
+def test_b3_wgmma_at_the_cells_shapes(dev, m, n, p, div_h2):
+    """The wgmma route at the benchmark cells' tile shapes it can take
+    (n10240, B1's n1000, a 4-card mesh rank's block) and the mesh paths'
+    other blocks (meshL's ring arm; n=1000 on 4 ranks and on 2), both
+    exponent orders."""
+    _wgmma_case(dev, m, n, p, div_h2, m + p)
+
+
+@pytest.mark.parametrize("m,n,p", [(10240, 10240, 128), (1000, 1000, 128),
+                                   (1000, 1000, 303), (2048, 8192, 64),
+                                   (3000, 3000, 303), (333, 777, 55),
+                                   (2048, 2048, 64), (250, 1000, 128),
+                                   (500, 1000, 128)])
+def test_b3_wgmma_launches_follow_tile_route(dev, m, n, p):
+    """svgd_both_ksum takes the route tile_route names: one launch of the
+    tile, and one of the wgmma route exactly where it is picked; bf16
+    never."""
+    rows, cols, grads, c, h2 = _tile_inputs(m, n, p, dev, 5)
+    counts = (svgd_tile.svgd_both_ksum.launches,
+              svgd_tile.svgd_both_ksum.wgmma_launches)
+    svgd_tile.svgd_both_ksum(rows, cols, grads, h2, c)
+    svgd_tile.svgd_both_ksum(rows, cols, grads, h2, c, precision="bf16")
+    torch.cuda.synchronize()
+    wg = int(svgd_tile.tile_route(m, n, p) == svgd_tile.WGMMA)
+    assert (svgd_tile.svgd_both_ksum.launches,
+            svgd_tile.svgd_both_ksum.wgmma_launches) == (counts[0] + 2,
+                                                        counts[1] + wg)
+
+
+@pytest.mark.parametrize("rule", ["adam", "adagrad"])
+def test_b1_chain_on_the_wgmma_route(dev, monkeypatch, rule):
+    """B1's chain with its tile on the wgmma route (tile_route forced):
+    test_b1_against_plain_on_exact_d's comparison at n=1000, p=128, and the
+    chain's wgmma launch counted."""
+    monkeypatch.setattr(svgd_tile, "tile_route",
+                        lambda *args, **kw: svgd_tile.WGMMA)
+    before = svgd_tile.svgd_both_ksum.wgmma_launches
+    test_b1_against_plain_on_exact_d(dev, rule, 1000, 128, 256)
+    assert svgd_tile.svgd_both_ksum.wgmma_launches == before + 1
+
+
 @pytest.mark.parametrize("m,n,p", [(1000, 1000, 303), (333, 777, 128),
                                    (2048, 2048, 64)])
 def test_b3_bf16_against_plain(dev, m, n, p):
@@ -1047,6 +1146,9 @@ def _graph_paths(dev):
                      lr, lr),
         "large-n": (lin_make(4096, 128, **throughput_config(4096, 128)),
                     lr, lr),
+        # The n10240 cell's path, whose tile takes the wgmma route.
+        "large-n-wgmma": (lin_make(10240, 128,
+                                   **throughput_config(10240, 128)), lr, lr),
         "nn": (nn_make(1000), nn_batch, nn_batch),
         "nn-bf16": (nn_make(1000, pallas_precision="bf16"), nn_batch,
                     nn_batch),
@@ -1075,13 +1177,14 @@ def _graph_paths(dev):
 
 @pytest.mark.parametrize("path", [
     "fused_gram", "fused_glm", "fused_model", "fused", "epilogue",
-    "large-n", "nn", "nn-bf16", "nn-large", "nn-remat", "xla-exact",
-    "xla-warm", "subsample", "binned", "imq", "big-glm"])
+    "large-n", "large-n-wgmma", "nn", "nn-bf16", "nn-large", "nn-remat",
+    "xla-exact", "xla-warm", "subsample", "binned", "imq", "big-glm"])
 def test_graphs_equal_the_eager_loop(dev, path):
     from cuda_graph_ranks import compare
 
     make, batch, data = _graph_paths(dev)[path]
-    compare(path, make(), batch, data)
+    compare(path, make(), batch, data,
+            expect=("B3-wgmma",) if path == "large-n-wgmma" else ())
 
 
 @pytest.mark.parametrize("path", ["rounds", "grid", "ring", "glm", "nn",
