@@ -171,10 +171,12 @@ products' [kernels] lines (the checks and the SASS route) and their
 [timing] lines (device µs in turns with torch.matmul at [main]'s,
 [large-n]'s and a 4-card shard's shapes).
 
-With --tile it stops after the build and prints only the [kernels] B3
-route lines: the tile's two routes (mma.sync and wgmma) at the benchmark
-cells' shapes, each against its plain version, their device µs beside the
-3xTF32 bound, and the route tile_route picks.
+With --tile it stops after the build and prints only B7 at the Year
+network's shape (against its plain version, device µs beside its bound)
+and the [kernels] B3 route lines: the tile's three routes (mma.sync, wgmma
+and wide, with the wide route's Gram launch alone) at the benchmark cells'
+shapes and more, each against its plain version, their device µs beside
+the 3xTF32 bound, and the route tile_route picks.
 
 With --split it stops after the build and prints only [split]: the device
 time of the median kernel's Gram stage apart from its search at each
@@ -441,10 +443,11 @@ def b2_case(label, D, fused_median, zero, brackets=None):
     return cold_p
 
 
-# [kernels] B3 route: the tile's two routes at the benchmark cells' shapes,
+# [kernels] B3 route: the tile's three routes at the benchmark cells' shapes,
 # [main-nn-large]'s, the two smallest paths', the mesh paths' blocks below
-# [1000, 1000] (n=1000 on 4 ranks and on 2, and one between) and meshL's
-# ring arm ([m, n], p, B3's exponent order or B1's).
+# [1000, 1000] (n=1000 on 4 ranks and on 2, and one between), meshL's
+# ring arm and widths between the NN's and the Year network's ([m, n], p,
+# B3's exponent order or B1's).
 TILE_ROUTE_SHAPES = (
     ("linreg-p128.n10240", 10240, 10240, 128, True),
     ("linreg-p128.n1000, B1's order", 1000, 1000, 128, False),
@@ -461,23 +464,39 @@ TILE_ROUTE_SHAPES = (
     ("between 4", 800, 800, 128, True),
     ("between 5", 900, 900, 128, True),
     ("meshL ring arm", 2048, 2048, 64, True),
+    ("bnn-year-90x100x1.n2048", 2048, 2048, 9203, True),
+    ("wide 1", 2048, 2048, 256, True),
+    ("wide 2", 2048, 2048, 512, True),
+    ("wide 3", 2048, 2048, 1024, True),
+    ("wide 4", 2048, 2048, 2048, True),
+    ("wide 5", 2048, 2048, 4096, True),
+    ("wide 6", 1000, 1000, 640, True),
+    ("wide 7", 1000, 1000, 1024, True),
+    ("wide 8", 1000, 1000, 160, True),
+    ("wide 9", 1000, 1000, 192, True),
+    ("wide 10", 2048, 2048, 160, True),
+    ("mesh-nn n=1000, 4 ranks", 250, 1000, 303, True),
+    ("large-n 1", 10240, 10240, 192, True),
+    ("large-n 2", 10240, 10240, 303, True),
+    ("large-n 3, mesh rank", 2560, 10240, 303, True),
 )
 
 
 def tile_routes(dev, torch, gpu, reps=20):
-    """[kernels] B3 route lines: at each of TILE_ROUTE_SHAPES, both routes
-    of the tile (ops/svgd_tile.py: mma.sync and wgmma, the latter only
-    where p <= WGMMA_ROUTE_MAX_P) against the plain version (ku and ksum
-    <= 1e-4 normalised for mma.sync, 1e-5 for wgmma), a second call
-    bitwise, device us (device_us) beside the 3xTF32 bound (three TF32
+    """[kernels] B3 route lines: at each of TILE_ROUTE_SHAPES, the three
+    routes of the tile (ops/svgd_tile.py: mma.sync, wgmma only where p <=
+    WGMMA_ROUTE_MAX_P, and wide) against the plain version (ku and ksum
+    <= 1e-4 normalised for mma.sync and wide, 1e-5 for wgmma), a second
+    call bitwise, device us (device_us) beside the 3xTF32 bound (three TF32
     products of 4 m n p FLOP at 495 TFLOP/s), and the route tile_route
-    picks. Returns {label: (mma.sync us, wgmma us or None)}."""
+    picks. Returns {label: (mma.sync us, wgmma us or None, wide us)}."""
     from stein_tpu_torch.ops import fused_median, svgd_tile
     from stein_tpu_torch.ops.median import row_subsample_block
 
     f32 = torch.float32
     zero = torch.zeros((), dtype=f32, device=dev)
-    names = {svgd_tile.MMA_SYNC: "mma.sync", svgd_tile.WGMMA: "wgmma"}
+    names = {svgd_tile.MMA_SYNC: "mma.sync", svgd_tile.WGMMA: "wgmma",
+             svgd_tile.WIDE: "wide"}
     out = {}
     for label, m, n, p, div_h2 in TILE_ROUTE_SHAPES:
         rng = np.random.default_rng(m + p)
@@ -491,7 +510,8 @@ def tile_routes(dev, torch, gpu, reps=20):
                                               "f32", div_h2)
         us, errs = [], []
         for route, bound in ((svgd_tile.MMA_SYNC, 1e-4),
-                             (svgd_tile.WGMMA, 1e-5)):
+                             (svgd_tile.WGMMA, 1e-5),
+                             (svgd_tile.WIDE, 1e-4)):
             if route == svgd_tile.WGMMA and p > svgd_tile.WGMMA_ROUTE_MAX_P:
                 us.append(None)
                 errs.append(None)
@@ -509,20 +529,123 @@ def tile_routes(dev, torch, gpu, reps=20):
                      f"plain version ({err:.3e}, bound {bound:g}) or itself")
             errs.append(err)
             us.append(device_us(call, reps, torch))
+        gram_us = device_us(
+            lambda: svgd_tile._launch_phi_gram(rows, cols, c), reps, torch)
         del want
         bound_us = 3 * 4 * m * n * p / PEAK_TF32_FLOPS * 1e6
         fmt = ["not read" if t is None else f"{t:.2f}" for t in us]
-        wide = errs[1] is None
-        if wide:
+        no_wg = errs[1] is None
+        if no_wg:
             fmt[1] = f"not run (p > {svgd_tile.WGMMA_ROUTE_MAX_P})"
         log(f"[kernels] B3 route {label} [{m}, {n}] p={p}: device us "
-            f"mma.sync {fmt[0]}, wgmma {fmt[1]} (3xTF32 bound "
-            f"{bound_us:.1f}); normalised errors {errs[0]:.3e} / "
-            + ("-" if wide else f"{errs[1]:.3e}")
-            + ", repeats bitwise; tile_route picks "
+            f"mma.sync {fmt[0]}, wgmma {fmt[1]}, wide {fmt[2]} (its Gram "
+            + ("not read" if gram_us is None else f"{gram_us:.2f}")
+            + f"; 3xTF32 bound {bound_us:.1f}); normalised errors "
+            f"{errs[0]:.3e} / "
+            + ("-" if no_wg else f"{errs[1]:.3e}")
+            + f" / {errs[2]:.3e}, repeats bitwise; tile_route picks "
             f"{names[svgd_tile.tile_route(m, n, p)]} | {gpu}")
         out[label] = tuple(us)
     return out
+
+
+def year_b7(dev, torch, gpu, reps=20):
+    """[kernels] B7 year line: B7 at the Year network's shape (n = 2048,
+    a 100-row batch of f = 90 features, H = 100) against its plain version
+    (logp rtol 2e-5 / atol 1e-5, grads 2e-5 max|g|, the card tests'
+    tolerances), a second call bitwise, and its device us beside its bound:
+    3 B (2 f H + 4 H) operations a particle at the f32 rate, or theta's and
+    the gradients' bytes."""
+    from stein_tpu_torch.models import BayesianNNModel, bayesian_nn
+
+    n, B, f, H = 2048, 100, 90, 100
+    rng = np.random.default_rng(90)
+    model = BayesianNNModel(f, H, n_train=463715, n_batch=B, prior_beta=0.1)
+    p = f * H + 2 * H + 3
+    theta = torch.tensor(rng.normal(size=(n, p)) * 0.1, dtype=torch.float32,
+                         device=dev)
+    batch = {"X": torch.tensor(rng.normal(size=(B, f)), dtype=torch.float32,
+                               device=dev),
+             "y": torch.tensor(rng.normal(size=(B, 1)), dtype=torch.float32,
+                               device=dev)}
+    grad = model.pallas_grads()
+    lp, g = grad(theta, batch)
+    again = grad(theta, batch)
+    lp_ref, g_ref = bayesian_nn.nn_grads_plain(
+        theta, batch["X"], batch["y"].reshape(-1), f, H, model._consts())
+    lp_err = ((lp - lp_ref).abs() / (1e-5 + 2e-5 * lp_ref.abs())).max().item()
+    g_err = norm_err(g, g_ref)
+    if (lp_err > 1.0 or g_err > 2e-5 or not torch.equal(lp, again[0])
+            or not torch.equal(g, again[1])):
+        fail(f"B7 at the Year shape disagrees with its plain version "
+             f"(logp {lp_err:.3e} of its tolerance, grads {g_err:.3e}) or "
+             "itself")
+    us = device_us(lambda: grad(theta, batch), reps, torch)
+    t_b, by = bound(2 * n * p * 4, n * B * 3 * (2 * f * H + 4 * H))
+    log(f"[kernels] B7 year [{n}, {p}], B={B}, f={f}, H={H}: device us "
+        f"{'not read' if us is None else f'{us:.2f}'} (bound "
+        f"{t_b * 1e3:.2f} by {by}); logp {lp_err:.3e} of its tolerance, "
+        f"grads {g_err:.3e} normalised, repeats bitwise | {gpu}")
+
+
+def year_median(dev, torch, gpu):
+    """[kernels] B4/B2/B5 year lines: the Year cell's median block ([128,
+    2048] rows of its 0.1 N(0, 1) draw against all, p = 9,203). B4 against
+    the plain Gram (bitwise on lattice particles, <= 1e-5 normalised on the
+    draw); B2 bitwise against its plain search on the plain block, cold and
+    warm, and its cold median within one final interval of the full range
+    of the median's order statistic (torch.kthvalue); B5 against the plain search on
+    the plain block at check_new_kernels' bounds."""
+    from stein_tpu_torch.ops import fused_median, svgd_tile
+    from stein_tpu_torch.ops.median import subsample_rows
+
+    f32 = torch.float32
+    zero = torch.zeros((), dtype=f32, device=dev)
+    n, p = 2048, 90 * 100 + 2 * 100 + 3
+    draw = torch.tensor(np.random.default_rng(9203).normal(size=(n, p))
+                        * 0.1, dtype=f32, device=dev)
+    for kind, theta in (("lattice", lattice(n, p, dev, torch)),
+                        ("Year draw", draw)):
+        rows = subsample_rows(theta, 128)
+        c = svgd_tile.column_center(theta)
+        got = fused_median.dist_block(rows, theta, c)
+        want = fused_median.dist_block_plain(rows, theta, c)
+        torch.cuda.synchronize()
+        err = norm_err(got, want)
+        log(f"[kernels] B4 year [128, {n}] p={p} {kind}: normalised error "
+            f"{err:.3e}, bitwise {torch.equal(got, want)} | {gpu}")
+        if (kind == "lattice" and not torch.equal(got, want)) or err > 1e-5:
+            fail(f"B4 at the Year shape ({kind}) disagrees with its plain "
+                 "version")
+        cold = b2_case(f"year {kind} (B4's block)", want, fused_median, zero)
+        exact = torch.kthvalue(want.reshape(-1),
+                               (want.numel() + 1) // 2).values.item()
+        span = want.max().item() - min(want.min().item(), 0.0)
+        cold_width = max(span / 4 ** 15,
+                         2 * float(np.spacing(np.float32(exact))))
+        log(f"[kernels] B2 year {kind}: cold {cold.item()!r} vs "
+            f"torch.kthvalue's {exact!r} (bound {cold_width:.3e})")
+        if abs(cold.item() - exact) > cold_width:
+            fail(f"B2 at the Year shape ({kind}) is off the exact median "
+                 "by more than one final interval")
+        res = []
+        for med_prev, passes in ((zero, 30), (cold * 1.01, 8)):
+            k = fused_median.fused_warm_median_from_theta(
+                rows, theta, med_prev, c, passes)
+            p_ = fused_median.warm_search_on_value(want, med_prev, passes)
+            res.append((k.item(), p_.item()))
+        width = (1.09 - 0.92) * cold.item() * 1.01 / 4 ** 4
+        log(f"[kernels] B5 year [128, {n}] p={p} {kind}: cold {res[0]} "
+            f"(bound {cold_width:.3e}), warm {res[1]} (final interval "
+            f"{width:.3e})")
+        if kind == "lattice":
+            if any(a != b for a, b in res):
+                fail("B5 at the Year shape is not bitwise equal to its "
+                     "plain version on lattice particles")
+        elif (abs(res[0][0] - res[0][1]) > cold_width
+              or abs(res[1][0] - res[1][1]) > width * 1.0001):
+            fail("B5 at the Year shape is off its plain version by more "
+                 "than its bound")
 
 
 def check_new_kernels(dev, torch, fused_median, svgd_tile, bayesian_nn,
@@ -732,12 +855,15 @@ def check_new_kernels(dev, torch, fused_median, svgd_tile, bayesian_nn,
 
 
 def wg(steps, m, n, p):
-    """The wgmma route's launches beside a path's tile launches (B3, or
-    B1's chain in Gram mode) at [m, n] rows and columns of width p: steps
-    where ops/svgd_tile.py:tile_route picks it, else none."""
+    """The wgmma or wide route's launches beside a path's tile launches
+    (B3, or B1's chain in Gram mode) at [m, n] rows and columns of width p:
+    steps where ops/svgd_tile.py:tile_route picks it, else none."""
     from stein_tpu_torch.ops import svgd_tile
-    if svgd_tile.tile_route(m, n, p) == svgd_tile.WGMMA:
+    route = svgd_tile.tile_route(m, n, p)
+    if route == svgd_tile.WGMMA:
         return {"B3-wgmma": steps}
+    if route == svgd_tile.WIDE:
+        return {"B3-wide": steps}
     return {}
 
 
@@ -4109,6 +4235,8 @@ def main():
         data_product_timing(torch, gpu, check_data_product(dev, torch)[1])
         return 0
     if "--tile" in sys.argv[1:]:
+        year_b7(dev, torch, gpu)
+        year_median(dev, torch, gpu)
         tile_routes(dev, torch, gpu)
         return 0
     if "--split" in sys.argv[1:]:
@@ -4227,6 +4355,8 @@ def main():
     errs = check_new_kernels(dev, torch, fused_median, svgd_tile,
                              bayesian_nn, subsample_rows, row_subsample_block,
                              nn_model, nn_batch, nn_theta)
+    year_b7(dev, torch, gpu)
+    year_median(dev, torch, gpu)
     tile_routes(dev, torch, gpu)
 
     # The glm and logistic stages, B10, B6 and B1's model and D-given chains.

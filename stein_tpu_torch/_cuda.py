@@ -92,6 +92,18 @@ _SIGNATURES = {
          _I, _I, _I, _I,                    # m, n, p, splits
          _P, _P, _P, _P, _P, _P),           # scratch, u_buf, ku, ksum, stream
         _I),
+    "stein_phi_gram": (
+        (_P, _P, _P, _I, _I, _I,            # rows, cols, center, m, n, p
+         _P, _P, _P),                       # D, prep, stream
+        _I),
+    "stein_svgd_wide_contract": (
+        (_P, _P, _P, _P, _P, _P,            # D, rows, cols, grads, center,
+                                            # h2
+         _I, _I, _I, _I,                    # m, n, p, splits
+         _P, _P, _P,                        # scratch, u_buf
+         _P, _P, _P, _F,                    # ku, ksum, phi, n_total
+         _I, _P),                           # div_h2, stream
+        _I),
     "stein_sym_scratch_floats": ((_I, _I), ctypes.c_longlong),
     "stein_svgd_sym": (
         (_P, _P, _P, _I, _I, _I,            # theta, grads, h2, n, p, blocks

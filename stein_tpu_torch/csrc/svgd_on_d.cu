@@ -26,10 +26,11 @@
 // scratch the tile then reads like a given u: u = g - theta / h^2 with
 // theta uncentred (B1's D-given tail, step_impl='fused', whose reduce then
 // forms phi with tc = theta), or u = g - (theta - c) / h^2 about a given
-// centre (B12's whole-D tail, on the median kernel's centred D). Formed in
+// centre (B12's whole-D tail, on the median kernel's centred D; B3's wide
+// route, svgd_wide.cu, on its own). Formed in
 // the tile, every row block and output chunk recomputed it. The exponent's operation order follows the
 // caller's JAX function: (D * (-log2e/2)) / h^2 for B10, D * (-log2e/2 /
-// h^2) for B1's and B12's tails.
+// h^2) for B1's and B12's tails, (D / h^2) * (-log2e/2) for B3's.
 //
 // Bounds on the H100: 2 m n p multiply-adds, three TF32 products each on
 // the tensor cores: at n = 1000, p = 128, 0.77 GFLOP (1.6 us at 495
@@ -178,7 +179,9 @@ __global__ void __launch_bounds__(kThreads) svgd_on_d_kernel(OnDArgs a) {
         const float d = k[nt][e];
         float kv = 0.0f;
         if (i < m && j < n)
-          kv = exp2f(a.scale_first ? d * scale : (d * kLog2eHalf) / h2);
+          kv = exp2f(a.div_h2        ? (d / h2) * kLog2eHalf
+                     : a.scale_first ? d * scale
+                                     : (d * kLog2eHalf) / h2);
         ks[e >> 1] += kv;
         k[nt][e] = kv;
       }

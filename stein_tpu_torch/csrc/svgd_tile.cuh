@@ -66,6 +66,9 @@ struct OnDArgs {
   float* part_ku;       // [splits, m, p] scratch
   float* part_ksum;     // [splits, m] scratch
   float* u_buf;         // [n, p] scratch where u is formed (u null)
+  // K's exponent as (D / h2) * (-log2e/2), the JAX tile's order (B3's wide
+  // route, svgd_wide.cu), in place of scale_first's two.
+  bool div_h2;
 };
 
 int on_d_splits(int m, int n, int p);

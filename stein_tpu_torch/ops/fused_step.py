@@ -226,9 +226,12 @@ def _launch_tail(theta, grads, block, med, opt_state, gd, max_phi_norm,
     blocks = _cuda.median_blocks(p if gram else 0)
     rounds = (warm_passes + 1) // 2
 
-    # The streaming tile (Gram mode without d_once) on its route.
+    # The streaming tile (Gram mode without d_once) on its route; the chain
+    # launches the tile itself, so a wide p runs it on mma.sync.
     route = (svgd_tile.tile_route(n, n, p) if gram and not d_once
              else svgd_tile.MMA_SYNC)
+    if route == svgd_tile.WIDE:
+        route = svgd_tile.MMA_SYNC
     splits = (lib.stein_tile_splits(n, n, p, route) if gram and not d_once
               else lib.stein_on_d_splits(n, n, p))
     # One f32 scratch buffer, each piece 64-float aligned: dsub (the Gram

@@ -26,7 +26,12 @@ bitwise-equal output) and forms phi. The tile has two routes, chosen by
 streaming a share of the 32-column tiles through a cp.async ring; and, for
 f32 where it is faster, wgmma (``csrc/svgd_tile_wg.cu``): warpgroup
 products on 64-row tiles fed by two TMA/mbarrier rings that a producer
-warp keeps full, 3xTF32 with the operands split in the prep. h^2 is read from
+warp keeps full, 3xTF32 with the operands split in the prep. Both routes
+repeat the whole dot for each output chunk (at most 160 columns on
+mma.sync), so at wide p a third route forms D once (``csrc/svgd_wide.cu``,
+WIDE): the centred D [m, n] by the Gram stage's 3xTF32 products
+(``phi_gram_kernel``, span ``svgd.phi.gram``), then B10's tile about the
+centre and the reduce (span ``svgd.phi.contract``). h^2 is read from
 device memory. The tile sizes are the kernel's own (the JAX functions'
 block arguments have no counterpart). ``precision='bf16'`` casts what the
 JAX kernel's ``mxu_dtype`` casts: the centred rows and columns for the dot,
@@ -37,6 +42,7 @@ launches the kernel or raises.
 
 import torch
 
+from ..utils.profiling import annotate
 from .fused_median import _scalar_on
 
 _LOG2E_HALF = -1.4426950408889634 / 2.0
@@ -49,8 +55,9 @@ def column_center(cols):
 
 PRECISIONS = ("f32", "bf16")
 
-# The tile's routes, as the C entry points take them (TileArgs.route).
-MMA_SYNC, WGMMA = 0, 1
+# The tile's routes: the first two as the C entry points take them
+# (TileArgs.route); WIDE is two launches of its own (csrc/svgd_wide.cu).
+MMA_SYNC, WGMMA, WIDE = 0, 1, 2
 # Where the wgmma route is picked (PERF.md's route table, the H100's
 # timings): it takes p <= 128 (its rows and two rings in one block's shared
 # memory) and wins from 700 columns on ([700, 700] up to [10240, 10240]);
@@ -64,14 +71,27 @@ MMA_SYNC, WGMMA = 0, 1
 # us at [1000, 1000], p = 303).
 WGMMA_ROUTE_MAX_P = 128
 WGMMA_ROUTE_MIN_COLS = 700
+# Where the wide route is picked (PERF.md's route table): past 160, where
+# mma.sync's output takes two chunks or more and repeats the whole dot for
+# each, whatever the rows and columns (so a mesh rank's block takes its
+# whole problem's route). Timed faster at every p from 192 to 9203, the
+# NN's 303 among them ([1000, 1000] 85.5 against 114.1 us; [3000, 3000]
+# 561 against 840); at p = 160 and below, where the dot runs once, the
+# Gram launch and D's round trip lose or tie. Timed from 250 to 10240
+# columns; D is 4 m n bytes of scratch a call (400 MB at [10240, 10240]).
+WIDE_ROUTE_MIN_P = 161
 
 
 def tile_route(m, n, p, precision="f32"):
-    """The tile's route for [m, p] rows against [n, p] columns: ``WGMMA``
-    or ``MMA_SYNC``, from the columns' shape alone (m is not read, so a row
-    block takes its whole problem's route). bf16 stays on mma.sync."""
-    if (precision != "f32" or p > WGMMA_ROUTE_MAX_P
-            or n < WGMMA_ROUTE_MIN_COLS):
+    """The tile's route for [m, p] rows against [n, p] columns: ``WIDE``,
+    ``WGMMA`` or ``MMA_SYNC``, from p and the columns alone (m is not read,
+    so a row block takes its whole problem's route). bf16 stays on
+    mma.sync."""
+    if precision != "f32":
+        return MMA_SYNC
+    if p >= WIDE_ROUTE_MIN_P:
+        return WIDE
+    if p > WGMMA_ROUTE_MAX_P or n < WGMMA_ROUTE_MIN_COLS:
         return MMA_SYNC
     return WGMMA
 
@@ -90,14 +110,29 @@ def svgd_both_ksum_plain(rows, cols, grads, h2, center, precision="f32",
     kernel body on the whole block (torch matmuls), with the dot's and the
     contraction's operands rounded to bf16 for ``precision='bf16'``. K's
     exponent is (D / h^2) (-log2(e)/2), the JAX tile's order, or with
-    ``div_h2=False`` D ((-log2(e)/2) / h^2), the JAX step tail's (B1)."""
+    ``div_h2=False`` D ((-log2(e)/2) / h^2), the JAX step tail's (B1). It is
+    the wide route's two plain stages in turn."""
+    D = phi_gram_plain(rows, cols, center, precision)
+    return wide_contract_plain(D, cols, grads, h2, center, precision, div_h2)
+
+
+def phi_gram_plain(rows, cols, center, precision="f32"):
+    """The wide route's first stage, plain: the centred D [m, n] =
+    |r - c|^2 + |t - c|^2 - 2 (r - c)(t - c)^T."""
     rows_c = rows - center
     cols_c = cols - center
-    u = grads - cols_c / h2
     rsq_i = torch.sum(rows_c * rows_c, dim=1, keepdim=True)
     rsq_j = torch.sum(cols_c * cols_c, dim=1, keepdim=True)
-    D = rsq_i + rsq_j.reshape(1, -1) - 2.0 * torch.matmul(
+    return rsq_i + rsq_j.reshape(1, -1) - 2.0 * torch.matmul(
         _operand(rows_c, precision), _operand(cols_c, precision).T)
+
+
+def wide_contract_plain(D, cols, grads, h2, center, precision="f32",
+                        div_h2=True):
+    """The wide route's second stage, plain: (K @ u, rowsum K) with u =
+    grads - (cols - center) / h^2 and K from D in B3's exponent order (or
+    B1's, ``div_h2=False``)."""
+    u = grads - (cols - center) / h2
     K = torch.exp2(D / h2 * _LOG2E_HALF if div_h2 else
                    D * (_LOG2E_HALF / h2))
     return (torch.matmul(_operand(K, precision), _operand(u, precision)),
@@ -162,11 +197,80 @@ def _launch(rows, cols, grads, h2, center, n_total, precision, div_h2,
     return (ku, ksum) if n_total is None else phi
 
 
+def _wide(rows, cols, grads, h2, center, n_total, div_h2):
+    """B3's wide route: D formed once (span ``svgd.phi.gram``), then K @ u
+    from it and the reduce (span ``svgd.phi.contract``); the plain stages
+    on the CPU. n_total=None returns (ku, ksum), else phi."""
+    dev = rows.device
+    cpu = dev.type == "cpu"
+    with annotate("svgd.phi.gram", dev):
+        D = (phi_gram_plain(rows, cols, center) if cpu
+             else _launch_phi_gram(rows, cols, center))
+    with annotate("svgd.phi.contract", dev):
+        if cpu:
+            ku, ksum = wide_contract_plain(D, cols, grads, h2, center,
+                                           div_h2=div_h2)
+            return ((ku, ksum) if n_total is None
+                    else _combine(ku, ksum, rows, center, h2, n_total))
+        return _launch_wide_contract(D, rows, cols, grads, h2, center,
+                                     n_total, div_h2)
+
+
+def _launch_phi_gram(rows, cols, center):
+    from .. import _cuda
+
+    lib = _cuda.library().lib
+    m, p = rows.shape
+    n = cols.shape[0]
+    dev = rows.device
+    shared = rows.data_ptr() == cols.data_ptr() and m == n
+    D = torch.empty(m, n, dtype=torch.float32, device=dev)
+    prep = torch.empty(lib.stein_gram_prep_floats(n, 0 if shared else m, p),
+                       dtype=torch.float32, device=dev)
+    err = lib.stein_phi_gram(rows.data_ptr(), cols.data_ptr(),
+                             center.data_ptr(), m, n, p, D.data_ptr(),
+                             prep.data_ptr(),
+                             torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(err, "phi_gram_kernel launch")
+    return D
+
+
+def _launch_wide_contract(D, rows, cols, grads, h2, center, n_total,
+                          div_h2):
+    from .. import _cuda
+
+    lib = _cuda.library().lib
+    m, p = rows.shape
+    n = cols.shape[0]
+    dev = rows.device
+    splits = lib.stein_on_d_splits(m, n, p)
+    part_ku = torch.empty(splits * m * p, dtype=torch.float32, device=dev)
+    part_ksum = torch.empty(splits * m, dtype=torch.float32, device=dev)
+    u_buf = torch.empty(n * p, dtype=torch.float32, device=dev)
+    if n_total is None:
+        ku = torch.empty(m, p, dtype=torch.float32, device=dev)
+        ksum = torch.empty(m, 1, dtype=torch.float32, device=dev)
+        ptrs = (ku.data_ptr(), ksum.data_ptr(), 0)
+    else:
+        phi = torch.empty(m, p, dtype=torch.float32, device=dev)
+        ptrs = (0, 0, phi.data_ptr())
+    err = lib.stein_svgd_wide_contract(
+        D.data_ptr(), rows.data_ptr(), cols.data_ptr(), grads.data_ptr(),
+        center.data_ptr(), h2.data_ptr(), m, n, p, splits,
+        part_ku.data_ptr(), part_ksum.data_ptr(), u_buf.data_ptr(), *ptrs,
+        float(n_total or 0), int(div_h2),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(err, "svgd_on_d_kernel launch (wide route)")
+    svgd_both_ksum.launches += 1
+    svgd_both_ksum.wide_launches += 1
+    return (ku, ksum) if n_total is None else phi
+
+
 def _tile(rows, cols, grads, h2, center, n_total, precision, div_h2=True,
           route=None):
     """B3 on [m, p] rows against [n, p] columns; ``div_h2=False`` is B1's
     exponent order, ``route`` one of the tile's routes in place of
-    ``tile_route``'s (the card tests drive both)."""
+    ``tile_route``'s (the card tests drive all three)."""
     center = center.reshape(1, -1)
     _check(rows, cols, grads, center, precision)
     if route is None:
@@ -177,17 +281,24 @@ def _tile(rows, cols, grads, h2, center, n_total, precision, div_h2=True,
         raise ValueError(f"svgd tile: the wgmma route takes f32 and p <= "
                          f"{WGMMA_ROUTE_MAX_P} (got {precision}, "
                          f"p={rows.shape[1]})")
-    elif route not in (MMA_SYNC, WGMMA):
+    elif route == WIDE and precision != "f32":
+        raise ValueError(f"svgd tile: the wide route takes f32 (got "
+                         f"{precision})")
+    elif route not in (MMA_SYNC, WGMMA, WIDE):
         raise ValueError(f"svgd tile: unknown route {route!r}")
     h2 = _scalar_on(h2, rows)
+    if rows.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"svgd tile: no kernel for {rows.device}")
+    if route == WIDE:
+        return _wide(rows.contiguous(), cols.contiguous(),
+                     grads.contiguous(), h2, center.contiguous(), n_total,
+                     div_h2)
     if rows.device.type == "cpu":
         ku, ksum = svgd_both_ksum_plain(rows, cols, grads, h2, center,
                                         precision, div_h2)
         if n_total is None:
             return ku, ksum
         return _combine(ku, ksum, rows, center, h2, n_total)
-    if rows.device.type != "cuda":
-        raise ValueError(f"svgd tile: no kernel for {rows.device}")
     return _launch(rows.contiguous(), cols.contiguous(), grads.contiguous(),
                    h2, center.contiguous(), n_total, precision, div_h2, route)
 
@@ -201,11 +312,13 @@ def svgd_both_ksum(rows, cols, grads, h2, center, precision="f32"):
     return _tile(rows, cols, grads, h2, center, None, precision)
 
 
-# Every launch of the tile; of them, those in bf16 and those of its wgmma
-# route (B1's chain adds its wgmma launches here too).
+# Every launch of the tile; of them, those in bf16, those of its wgmma
+# route (B1's chain adds its wgmma launches here too) and those of its wide
+# route (a Gram launch and a contraction, counted once).
 svgd_both_ksum.launches = 0
 svgd_both_ksum.bf16_launches = 0
 svgd_both_ksum.wgmma_launches = 0
+svgd_both_ksum.wide_launches = 0
 
 
 def svgd_phi_rect(rows, cols, grads, h2, n_total=None, center=None,

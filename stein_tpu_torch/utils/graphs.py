@@ -172,6 +172,7 @@ def launch_counters():
             "B3": (svgd_tile.svgd_both_ksum, "launches"),
             "B3-bf16": (svgd_tile.svgd_both_ksum, "bf16_launches"),
             "B3-wgmma": (svgd_tile.svgd_both_ksum, "wgmma_launches"),
+            "B3-wide": (svgd_tile.svgd_both_ksum, "wide_launches"),
             "B4": (fused_median.dist_block, "launches"),
             "B5": (fused_median.fused_warm_median_from_theta, "launches"),
             "B6": (fused_step.fused_epilogue, "launches"),

@@ -33,7 +33,11 @@ the layout keys, ``svgd.agree``, ``svgd.capture``, the carry's copy-in),
 ``svgd.capture``, ``svgd.replays`` (from the first replay to the call's
 end) and ``svgd.launch`` (each graph replay). The step functions' stages,
 ``svgd.grad``, ``svgd.median``, ``svgd.phi`` and ``svgd.update``, take no
-device: they cost nothing in a replay and are legal inside a capture."""
+device: they cost nothing in a replay and are legal inside a capture.
+Inside ``svgd.phi`` the streaming tile's wide route (``ops/svgd_tile.py``)
+records ``svgd.phi.gram`` (D formed once) and ``svgd.phi.contract`` (K @ u
+and the reduce), which take the device: timed by events in an eager call,
+none while a capture records them."""
 
 import collections
 import contextlib
@@ -298,7 +302,14 @@ def summary():
          "counters": {"device_allocs": cudaMalloc calls over the timed
                       svgd.run spans (None off a card), "captures": every
                       live sampler's graph captures, "launches": the
-                      kernel wrappers' launch counts}}"""
+                      kernel wrappers' launch counts (graphs.read_counts():
+                      "B3-wide" the tile's wide route, "B3-wgmma" its
+                      wgmma route, both within "B3")}}
+
+    The span names: svgd.run, svgd.seed, svgd.prep, svgd.agree,
+    svgd.capture, svgd.replays, svgd.launch; the stages svgd.grad,
+    svgd.median, svgd.phi, svgd.update; and in svgd.phi on the tile's wide
+    route svgd.phi.gram and svgd.phi.contract."""
     from . import graphs
 
     spans, calls, allocs = _RECORDER.summary()

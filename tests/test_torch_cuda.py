@@ -178,8 +178,12 @@ def test_b3_widths_and_exponent_orders(dev, p, div_h2):
     same order (f32 sums in other orders, 3xTF32 products); two calls
     bitwise equal."""
     rows, cols, grads, c, h2 = _tile_inputs(333, 777, p, dev, p)
-    got = svgd_tile._tile(rows, cols, grads, h2, c, None, "f32", div_h2)
-    again = svgd_tile._tile(rows, cols, grads, h2, c, None, "f32", div_h2)
+    # Past p = 128 mma.sync is forced (tile_route's is the wide route).
+    route = None if p <= svgd_tile.WGMMA_ROUTE_MAX_P else svgd_tile.MMA_SYNC
+    got = svgd_tile._tile(rows, cols, grads, h2, c, None, "f32", div_h2,
+                          route)
+    again = svgd_tile._tile(rows, cols, grads, h2, c, None, "f32", div_h2,
+                            route)
     want = svgd_tile.svgd_both_ksum_plain(rows, cols, grads, h2, c, "f32",
                                           div_h2)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
@@ -220,15 +224,18 @@ def test_b3_wgmma_widths_and_exponent_orders(dev, p, div_h2):
 @pytest.mark.parametrize("p", [129, 303])
 def test_b3_wide_p_refuses_the_wgmma_route(dev, p, div_h2):
     """Past p = 128 (the NN's 303) a forced wgmma route raises before any
-    launch, and the tile's own route, mma.sync, holds the plain version at
-    333x777 (<= 1e-4 normalised, two calls bitwise)."""
+    launch, and the tile's own route (mma.sync to p = 160, the wide route
+    past it) holds the plain version at 333x777 (<= 1e-4 normalised, two
+    calls bitwise)."""
     rows, cols, grads, c, h2 = _tile_inputs(333, 777, p, dev, p)
     before = svgd_tile.svgd_both_ksum.launches
     with pytest.raises(ValueError, match="p <= 128"):
         svgd_tile._tile(rows, cols, grads, h2, c, None, "f32", div_h2,
                         svgd_tile.WGMMA)
     assert svgd_tile.svgd_both_ksum.launches == before
-    assert svgd_tile.tile_route(333, 777, p) == svgd_tile.MMA_SYNC
+    assert svgd_tile.tile_route(333, 777, p) == (
+        svgd_tile.MMA_SYNC if p < svgd_tile.WIDE_ROUTE_MIN_P
+        else svgd_tile.WIDE)
     wg = svgd_tile.svgd_both_ksum.wgmma_launches
     got = svgd_tile._tile(rows, cols, grads, h2, c, None, "f32", div_h2)
     again = svgd_tile._tile(rows, cols, grads, h2, c, None, "f32", div_h2)
@@ -272,6 +279,78 @@ def test_b3_wgmma_launches_follow_tile_route(dev, m, n, p):
     assert (svgd_tile.svgd_both_ksum.launches,
             svgd_tile.svgd_both_ksum.wgmma_launches) == (counts[0] + 2,
                                                         counts[1] + wg)
+
+
+def _wide_case(dev, rows, cols, grads, c, h2, div_h2):
+    """The tile's wide route: ku and ksum <= 1e-4 normalised against the
+    plain version of the same exponent order (3xTF32 products with each
+    run of 32 indices summed in fresh registers, as mma.sync's; f32 sums
+    in other orders), two calls bitwise equal, one wide launch counted a
+    call."""
+    before = (svgd_tile.svgd_both_ksum.launches,
+              svgd_tile.svgd_both_ksum.wide_launches)
+    got = svgd_tile._tile(rows, cols, grads, h2, c, None, "f32", div_h2,
+                          svgd_tile.WIDE)
+    again = svgd_tile._tile(rows, cols, grads, h2, c, None, "f32", div_h2,
+                            svgd_tile.WIDE)
+    torch.cuda.synchronize()
+    assert (svgd_tile.svgd_both_ksum.launches,
+            svgd_tile.svgd_both_ksum.wide_launches) == (before[0] + 2,
+                                                       before[1] + 2)
+    want = svgd_tile.svgd_both_ksum_plain(rows, cols, grads, h2, c, "f32",
+                                          div_h2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert _norm_err(got[0], want[0]) <= 1e-4
+    assert _norm_err(got[1], want[1]) <= 1e-4
+
+
+@pytest.mark.parametrize("div_h2", [True, False])
+@pytest.mark.parametrize("m,n,p", [(2048, 2048, 9203), (1000, 1000, 303),
+                                   (333, 777, 303), (333, 777, 55),
+                                   (1000, 1000, 128)])
+def test_b3_wide_route_against_plain(dev, m, n, p, div_h2):
+    """The wide route (D once, then B10's tile about the centre) at the
+    Year network's [2048, 2048], p = 9203, the NN's [1000, 1000], p = 303,
+    m != n with a ragged last tile, a padded width and B1's n1000 shape,
+    in both exponent orders."""
+    rows, cols, grads, c, h2 = _tile_inputs(m, n, p, dev, m + p)
+    _wide_case(dev, rows, cols, grads, c, h2, div_h2)
+
+
+@pytest.mark.parametrize("n,p", [(2048, 9203), (1000, 303)])
+def test_b3_wide_route_phi_on_shared_rows(dev, n, p):
+    """phi on the wide route where the rows are the columns (one centred
+    copy in the Gram stage's prep), as SVGDSampler's step calls it: <= 1e-4
+    normalised against the plain phi, two calls bitwise."""
+    _, theta, grads, c, h2 = _tile_inputs(n, n, p, dev, p)
+    got = svgd_tile._tile(theta, theta, grads, h2, c, n, "f32", True,
+                          svgd_tile.WIDE)
+    again = svgd_tile._tile(theta, theta, grads, h2, c, n, "f32", True,
+                            svgd_tile.WIDE)
+    ku, ks = svgd_tile.svgd_both_ksum_plain(theta, theta, grads, h2, c)
+    want = (ku + ks * (theta - c) / h2) / n
+    assert torch.equal(got, again)
+    assert _norm_err(got, want) <= 1e-4
+
+
+def test_b3_wide_route_spans_in_an_eager_call(dev):
+    """An eager call on the wide route under a profiler: svgd.phi.gram and
+    svgd.phi.contract in profiling.summary(), each device-timed, and the
+    route's launch under its own key."""
+    from stein_tpu_torch.utils import profiling
+
+    p = svgd_tile.WIDE_ROUTE_MIN_P
+    _, theta, grads, c, h2 = _tile_inputs(64, 64, p, dev, 1)
+    assert svgd_tile.tile_route(64, 64, p) == svgd_tile.WIDE
+    profiling.reset()
+    with torch.profiler.profile():
+        svgd_tile.svgd_phi(theta, grads, h2, center=c)
+    s = profiling.summary()
+    for name in ("svgd.phi.gram", "svgd.phi.contract"):
+        assert s["spans"][name]["count"] == 1
+        assert s["spans"][name]["device_s"] > 0
+    assert s["counters"]["launches"]["B3-wide"] >= 1
+    profiling.reset()
 
 
 @pytest.mark.parametrize("rule", ["adam", "adagrad"])
@@ -430,12 +509,13 @@ def test_b5_width_limit(dev, p, fits):
 # B7's shapes: the NN path's and a second (f, H, B); every class of its
 # grid (one particle or a ragged last block, H not a multiple of 32,
 # several features, B past the 20-observation chunk); teams of 5-8 warps
-# a particle with one unit a thread (H=200) and several (H=300).
+# a particle with one unit a thread (H=200) and several (H=300); the Year
+# network's (f = 90, B = 100: five chunks, 90 weights a thread).
 _B7_SHAPES = [(1000, 20, 1, 100), (600, 12, 3, 50)] + [
     (n, B, f, H) for n in (1, 7, 1000, 3000) for H in (33, 100, 128)
     for f in (1, 3) for B in (1, 20, 64) if (n, B, f, H) != (1000, 20, 1, 100)
 ] + [(n, B, f, H) for n in (7, 1000) for H in (200, 300) for f in (1, 3)
-     for B in (20, 64)]
+     for B in (20, 64)] + [(2048, 100, 90, 100), (7, 100, 90, 100)]
 
 
 @pytest.mark.parametrize("n,B,f,H", _B7_SHAPES)

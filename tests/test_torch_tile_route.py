@@ -1,6 +1,6 @@
 """The streaming tile's route (ops/svgd_tile.py:tile_route): which kernel
-each shape takes, the guards of a forced route, and the wgmma route's launch
-counter in the registry and in profiling.summary()."""
+each shape takes, the guards of a forced route, and the wgmma and wide
+routes' launch counters in the registry and in profiling.summary()."""
 
 import pytest
 import torch
@@ -13,9 +13,29 @@ from stein_tpu_torch.utils import graphs, profiling
 CELL_ROUTES = {
     "linreg-p128.n10240": ((10240, 10240, 128), svgd_tile.WGMMA),
     "linreg-p128.n1000": ((1000, 1000, 128), svgd_tile.WGMMA),
-    "bnn-1x100x1.n1000": ((1000, 1000, 303), svgd_tile.MMA_SYNC),
+    "bnn-1x100x1.n1000": ((1000, 1000, 303), svgd_tile.WIDE),
     "linreg-p64-suff.n8192-mesh4": ((2048, 8192, 64), svgd_tile.WGMMA),
-    "main-nn-large": ((3000, 3000, 303), svgd_tile.MMA_SYNC),
+    "main-nn-large": ((3000, 3000, 303), svgd_tile.WIDE),
+    "bnn-year-90x100x1.n2048": ((2048, 2048, 9203), svgd_tile.WIDE),
+}
+
+# PERF.md's route table: every timed shape ([m, n], p) and the route that
+# timed fastest there of those the rule may pick.
+TIMED_ROUTES = {
+    (10240, 10240, 128): svgd_tile.WGMMA, (1000, 1000, 128): svgd_tile.WGMMA,
+    (1000, 1000, 303): svgd_tile.WIDE, (2048, 8192, 64): svgd_tile.WGMMA,
+    (3000, 3000, 303): svgd_tile.WIDE, (100, 100, 55): svgd_tile.MMA_SYNC,
+    (50, 50, 128): svgd_tile.MMA_SYNC, (700, 700, 128): svgd_tile.WGMMA,
+    (768, 1024, 128): svgd_tile.WGMMA, (800, 800, 128): svgd_tile.WGMMA,
+    (900, 900, 128): svgd_tile.WGMMA, (2048, 2048, 64): svgd_tile.WGMMA,
+    (2048, 2048, 9203): svgd_tile.WIDE, (2048, 2048, 256): svgd_tile.WIDE,
+    (2048, 2048, 512): svgd_tile.WIDE, (2048, 2048, 1024): svgd_tile.WIDE,
+    (2048, 2048, 2048): svgd_tile.WIDE, (2048, 2048, 4096): svgd_tile.WIDE,
+    (1000, 1000, 640): svgd_tile.WIDE, (1000, 1000, 1024): svgd_tile.WIDE,
+    (1000, 1000, 160): svgd_tile.MMA_SYNC, (2048, 2048, 160): svgd_tile.MMA_SYNC,
+    (1000, 1000, 192): svgd_tile.WIDE, (250, 1000, 303): svgd_tile.WIDE,
+    (10240, 10240, 192): svgd_tile.WIDE, (10240, 10240, 303): svgd_tile.WIDE,
+    (2560, 10240, 303): svgd_tile.WIDE,
 }
 
 
@@ -26,18 +46,37 @@ def test_tile_route_at_the_cells(cell):
     assert svgd_tile.tile_route(m, n, p, "f32") == route
 
 
+@pytest.mark.parametrize("shape", sorted(TIMED_ROUTES))
+def test_tile_route_at_the_timed_shapes(shape):
+    """Every shape of the route table keeps the route timed fastest
+    there."""
+    assert svgd_tile.tile_route(*shape) == TIMED_ROUTES[shape]
+
+
 @pytest.mark.parametrize("m,n,p", [(10240, 10240, 128), (1000, 1000, 128),
                                    (1000, 1000, 303), (2048, 8192, 64),
-                                   (4096, 4096, 128), (1, 1, 1)])
+                                   (4096, 4096, 128), (1, 1, 1),
+                                   (2048, 2048, 9203)])
 def test_bf16_keeps_the_mma_sync_route(m, n, p):
     assert svgd_tile.tile_route(m, n, p, "bf16") == svgd_tile.MMA_SYNC
 
 
-@pytest.mark.parametrize("p", [129, 303, 320, 321, 640, 1000])
+@pytest.mark.parametrize("p", [129, 140, 144, 150, 159, 160])
 def test_wide_p_keeps_the_mma_sync_route(p):
     """Past WGMMA_ROUTE_MAX_P the wgmma route's rows and rings do not fit
-    one block's shared memory; mma.sync takes every wider p."""
+    one block's shared memory; mma.sync takes the widths whose output is
+    one chunk of at most 160 columns (its dot runs once)."""
     assert svgd_tile.tile_route(10240, 10240, p) == svgd_tile.MMA_SYNC
+
+
+@pytest.mark.parametrize("p", [161, 303, 320, 321, 640, 1000, 9203])
+@pytest.mark.parametrize("m,n", [(10240, 10240), (2048, 2048), (50, 50),
+                                 (1, 700)])
+def test_wider_p_takes_the_wide_route(m, n, p):
+    """From WIDE_ROUTE_MIN_P on, where mma.sync would repeat the dot for
+    each output chunk, the wide route, whatever the rows and columns."""
+    assert p >= svgd_tile.WIDE_ROUTE_MIN_P
+    assert svgd_tile.tile_route(m, n, p) == svgd_tile.WIDE
 
 
 @pytest.mark.parametrize("p", [1, 32, 55, 64, 100, 128])
@@ -99,6 +138,7 @@ def _small():
 
 @pytest.mark.parametrize("route,precision,match", [
     (svgd_tile.WGMMA, "bf16", "wgmma route takes f32"),
+    (svgd_tile.WIDE, "bf16", "wide route takes f32"),
     (7, "f32", "unknown route"),
 ])
 def test_forced_route_guards(route, precision, match):
@@ -129,10 +169,12 @@ def _forced_wide_p(p):
     assert graphs.read_counts() == before
 
 
-@pytest.mark.parametrize("route", [svgd_tile.MMA_SYNC, svgd_tile.WGMMA])
+@pytest.mark.parametrize("route", [svgd_tile.MMA_SYNC, svgd_tile.WGMMA,
+                                   svgd_tile.WIDE])
 def test_cpu_runs_the_plain_version_on_either_route(route):
-    """On the CPU a forced route still runs the plain version: the same
-    bits as the default, and no launch is counted."""
+    """On the CPU a forced route still runs the plain version (the wide
+    route its two plain stages): the same bits as the default, and no
+    launch is counted."""
     rows, cols, grads, c = _small()
     before = graphs.read_counts()
     got = svgd_tile._tile(rows, cols, grads, 1.5, c, None, "f32",
@@ -149,3 +191,11 @@ def test_wgmma_counter_in_the_registry_and_summary():
     launches = profiling.summary()["counters"]["launches"]
     assert "B3-wgmma" in launches
     assert launches["B3-wgmma"] == svgd_tile.svgd_both_ksum.wgmma_launches
+
+
+def test_wide_counter_in_the_registry_and_summary():
+    reg = graphs.launch_counters()
+    assert reg["B3-wide"] == (svgd_tile.svgd_both_ksum, "wide_launches")
+    assert isinstance(svgd_tile.svgd_both_ksum.wide_launches, int)
+    launches = profiling.summary()["counters"]["launches"]
+    assert launches["B3-wide"] == svgd_tile.svgd_both_ksum.wide_launches
